@@ -1,0 +1,285 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path once on one CUDA card.
+
+    python3 chip_smoke.py
+
+Builds the Hopper kernels from eigen_value_tpu_torch/csrc and holds each
+kernel against its plain PyTorch version on the card.  Then the main path:
+the public API with backend "auto" solves the Hilbert matrices 128²…8192²
+(auto runs the multiround kernel, one launch per solve) and one of 65536²
+(16 GiB; its ev no longer fits the multiround kernel's shared memory, so
+auto runs the matvec kernel loop), and EigenValue solves 8192²; the kernel
+launch counters are read around exactly these calls.  It checks rounds,
+λ and the eigen-residual, checks that the "matvec_pallas" backend and
+every chunking of the multiround solve are bit-identical to the matvec
+kernel loop at 8192², and times three arms at 8192².  Uses torch only (no
+jax).  Exits non-zero, without the final result line, on any failed check
+or when there is no CUDA device.
+
+The line before the last is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+SEED = 20261016
+PLAIN_TOL = 2e-5  # matvec against an f64 product: row error ~ sqrt(terms) ulps
+PARITY_REL = 1e-5  # λ against the plain loop (float32 up to 8192², float64 at BIG_N)
+H100_SXM_GBPS = 3350.0  # NVIDIA's data sheet, at the full 700 W
+BIG_N = 65536  # beyond the multiround kernel's shared-memory limit (57856 on an H100)
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SystemExit(f"FAILED: {what}")
+
+
+def say(*parts) -> None:
+    print(*parts, flush=True)
+
+
+def f64_matvec(A, x, cols: int = 8192):
+    """``A @ x`` in float64, a block of columns at a time (a 65536² matrix
+    would take 32 GiB in float64 at once)."""
+    y = 0.0
+    for j in range(0, A.shape[1], cols):
+        y = y + A[:, j:j + cols].double() @ x[j:j + cols].double()
+    return y
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("FAILED: no CUDA device")
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "eigen_value_tpu_torch", "csrc")):
+        raise SystemExit("FAILED: eigen_value_tpu_torch/ not found beside chip_smoke.py")
+    sys.path.insert(0, here)
+
+    import eigen_value_tpu_torch as evt
+    from eigen_value_tpu_torch import fixtures
+    from eigen_value_tpu_torch.api import resolve_backend
+    from eigen_value_tpu_torch.ops.cuda import build, kernels
+    from eigen_value_tpu_torch.ops.solver_matvec import (
+        solve_matvec,
+        solve_matvec_kernel,
+        solve_multiround,
+    )
+    from eigen_value_tpu_torch.utils.timing import roofline_pct, time_call
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+    card = smi.splitlines()[0]
+    say(f"nvidia-smi: {card}")
+    say(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul must be off")
+
+    t0 = time.perf_counter()
+    lib = build.build()
+    build.load()
+    say(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(lib, here)}")
+    report = build.report_path()
+    if report.exists():
+        for line in report.read_text().splitlines():
+            if "Used" in line or "spill" in line or "Compiling entry" in line:
+                say("  ptxas:", line.strip())
+    say(f"multiround grid at 8192: {kernels.multiround_grid(dev, 8192)} blocks "
+        f"of 1024 threads on {torch.cuda.get_device_properties(dev).multi_processor_count} SMs")
+
+    gen = torch.Generator().manual_seed(SEED)
+
+    # --- 1. matvec kernel against its plain version and an f64 product ---
+    # random positive matrices, then the main path's largest shape: the
+    # Hilbert row sums at BIG_N (the first product of that solve)
+    big = fixtures.hilbert_matrix(BIG_N, device=dev)
+    mv_err = 0.0
+    mv_cases = []
+    for n in (3, 1000, 1001, 4096, 8192):
+        A = fixtures.random_positive_matrix(n, gen, device=dev)
+        mv_cases.append((f"random n={n}", A, (torch.rand(n, generator=gen) + 0.5).to(dev)))
+    mv_cases.append((f"hilbert n={BIG_N}", big, torch.ones(BIG_N, device=dev)))
+    for name, A, x in mv_cases:
+        want = f64_matvec(A, x)
+        got = kernels.matvec(A, x)
+        plain = kernels.matvec_plain(A, x)
+        torch.cuda.synchronize()
+        rel_k = float(((got.double() - want).abs() / want.abs()).max())
+        rel_p = float(((plain.double() - want).abs() / want.abs()).max())
+        diff = float((got - plain).abs().max())
+        say(f"matvec {name}: kernel rel err {rel_k:.3e}, plain rel err {rel_p:.3e}, "
+            f"max |kernel - plain| {diff:.3e}")
+        check(rel_k <= PLAIN_TOL, f"matvec {name} rel err {rel_k} > {PLAIN_TOL}")
+        check(torch.equal(got, kernels.matvec(A, x)), f"matvec {name} not deterministic")
+        mv_err = max(mv_err, diff)
+    del mv_cases, A
+
+    # --- 2. one multiround chunk against multiround_plain ---
+    mr_err = 0.0
+    cases = [
+        ("hilbert", fixtures.hilbert_matrix(8192, device=dev), 5, "absolute"),
+        ("random", fixtures.random_positive_matrix(1000, gen, device=dev), 4, "relative"),
+        ("anchor", torch.tensor(fixtures.ANCHOR_3X3, dtype=torch.float32, device=dev), 18, "absolute"),
+    ]
+    for name, A, chunk, mode in cases:
+        n = A.shape[0]
+        ev = torch.ones(n, device=dev)
+        state = (ev, ev, torch.zeros((), device=dev))
+        for init in (True, False):
+            kw = dict(chunk=chunk, eps=evt.EPS, init=init, eps_mode=mode)
+            got = kernels.multiround(A, *state, 1000, **kw)
+            want = kernels.multiround_plain(A, *state, 1000, **kw)
+            torch.cuda.synchronize()
+            check(int(got[2]) == int(want[2]), f"multiround {name} init={init}: advanced "
+                  f"{int(got[2])} != {int(want[2])}")
+            rel = max(
+                float(((g - w).abs() / w.abs()).max())
+                for g, w in ((got[0], want[0]), (got[1], want[1]), (got[3], want[3]))
+            )
+            err = float((got[1] - want[1]).abs().max())
+            say(f"multiround {name} n={n} chunk={chunk} {mode} init={init}: advanced "
+                f"{int(got[2])}, max rel diff (ev, v, λ) {rel:.3e}, max |v - plain| {err:.3e}")
+            check(rel <= PARITY_REL, f"multiround {name} init={init} rel diff {rel}")
+            if name == "hilbert":
+                mr_err = max(mr_err, err)
+            state = (got[0], got[1], got[3])
+
+    # --- 3. the main path, through the public API, backend "auto" only ---
+    mats = {n: fixtures.hilbert_matrix(n, device=dev) for n in fixtures.HILBERT_ROUNDS}
+    routes = {n: resolve_backend(evt.DEFAULT_CONFIG, n, dev) for n in (*mats, BIG_N)}
+    say(f"auto routes: {routes}")
+    check(all(routes[n] == "multiround" for n in mats), "auto must take multiround up to 8192")
+    check(routes[BIG_N] == "matvec_pallas", f"auto must take the matvec kernel loop at {BIG_N}")
+    torch.cuda.synchronize()
+    kernels.matvec.launches = 0
+    kernels.multiround.launches = 0
+    auto = {n: evt.max_eigenvalue(H) for n, H in mats.items()}
+    auto_big = evt.max_eigenvalue(big)
+    lam_c, vec_c, ms_c, rounds_c = evt.EigenValue().similarity_transform(mats[8192])
+    torch.cuda.synchronize()
+    launches = {"matvec": kernels.matvec.launches, "multiround": kernels.multiround.launches}
+    say(f"main path launches: {launches}")
+    for name, count in launches.items():
+        check(count > 0, f"the main path launched no {name} kernel")
+
+    # the oracle here is the plain loop in float64: at this width cuBLAS's
+    # float32 gemv drifts (Hilbert row sums off by ~3e-5 relative), the
+    # kernel does not
+    plain_big = solve_matvec(big, evt.EPS, evt.MAX_ITR)
+    plain_64 = solve_matvec(big.double(), evt.EPS, evt.MAX_ITR)
+    resid = float(evt.eigen_residual(big, auto_big))
+    lam, lam_p, lam_64 = (float(r.eigenvalue) for r in (auto_big, plain_big, plain_64))
+    rel = abs(lam - lam_64) / lam_64
+    say(f"hilbert {BIG_N}: rounds {int(auto_big.rounds)} (float64 loop {int(plain_64.rounds)}, "
+        f"float32 plain loop {int(plain_big.rounds)}), λ {lam!r} (float64 loop {lam_64!r}, "
+        f"rel {rel:.2e}; float32 plain loop {lam_p!r}, rel {abs(lam_p - lam_64) / lam_64:.2e}), "
+        f"residual {resid:.3e}")
+    check(bool(auto_big.converged), f"hilbert {BIG_N} did not converge")
+    check(int(auto_big.rounds) == int(plain_64.rounds), f"hilbert {BIG_N} rounds")
+    check(rel <= PARITY_REL, f"hilbert {BIG_N} λ rel {rel} to the float64 loop")
+    check(resid <= 1e-3, f"hilbert {BIG_N} residual {resid}")
+    check(bool(torch.isfinite(auto_big.eigenvector).all()), f"hilbert {BIG_N} eigenvector finite")
+    del big, plain_big, plain_64, auto_big
+    torch.cuda.empty_cache()
+
+    for n, res in auto.items():
+        plain = solve_matvec(mats[n], evt.EPS, evt.MAX_ITR)
+        resid = float(evt.eigen_residual(mats[n], res))
+        lam, lam_p = float(res.eigenvalue), float(plain.eigenvalue)
+        rel = abs(lam - lam_p) / abs(lam_p)
+        say(f"hilbert {n}: rounds {int(res.rounds)} (table {fixtures.HILBERT_ROUNDS[n]}, "
+            f"plain loop {int(plain.rounds)}), λ {lam!r} (plain {lam_p!r}, rel {rel:.2e}), "
+            f"residual {resid:.3e}")
+        check(bool(res.converged), f"hilbert {n} did not converge")
+        check(int(res.rounds) == fixtures.HILBERT_ROUNDS[n], f"hilbert {n} rounds")
+        check(rel <= PARITY_REL, f"hilbert {n} λ rel {rel}")
+        check(resid <= 1e-3, f"hilbert {n} residual {resid}")
+        check(bool(torch.isfinite(res.eigenvector).all()), f"hilbert {n} eigenvector finite")
+
+    # --- 4. bit-identity at 8192² ---
+    H = mats[8192]
+    want = solve_matvec_kernel(H, evt.EPS, evt.MAX_ITR)
+    loop = evt.max_eigenvalue(H, evt.SolverConfig(backend="matvec_pallas"))
+    check(int(loop.rounds) == int(want.rounds) and torch.equal(loop.eigenvector, want.eigenvector),
+          "matvec_pallas backend differs from solve_matvec_kernel")
+    check(torch.equal(auto[8192].eigenvector, want.eigenvector),
+          "auto (multiround, one launch) differs from the matvec kernel loop")
+    for chunk in (1, 5, 18):
+        got = solve_multiround(H, evt.EPS, evt.MAX_ITR, chunk=chunk)
+        same = (
+            int(got.rounds) == int(want.rounds)
+            and torch.equal(got.eigenvalue, want.eigenvalue)
+            and torch.equal(got.eigenvector, want.eigenvector)
+        )
+        say(f"multiround chunk={chunk} vs matvec kernel loop at 8192: bit-identical {same}")
+        check(same, f"multiround chunk={chunk} not bit-identical to the matvec kernel loop")
+    say(f"EigenValue().similarity_transform(8192): λ {float(lam_c)!r}, rounds {rounds_c}, "
+        f"ms {ms_c:.3f}")
+    check(rounds_c == 17 and ms_c > 0, "similarity_transform at 8192")
+
+    # --- 5. times at 8192², CUDA events, median and min ---
+    n, reps = 8192, 12
+    rounds = int(want.rounds)
+    arms = {
+        "multiround kernel": lambda: solve_multiround(H, evt.EPS, evt.MAX_ITR),
+        "matvec kernel loop": lambda: solve_matvec_kernel(H, evt.EPS, evt.MAX_ITR),
+        "torch.mv loop (plain)": lambda: solve_matvec(H, evt.EPS, evt.MAX_ITR),
+    }
+    samples = {k: [] for k in arms}
+    for rep in range(reps + 1):  # rep 0 warms up; the order alternates
+        order = list(arms) if rep % 2 else list(reversed(arms))
+        for k in order:
+            t = time_call(arms[k], reps=1, warmup=0)
+            if rep:
+                samples[k].append(t.min_ms)
+    solve_bytes = (rounds + 1) * n * n * 4
+    say(f"solve times at {n}² ({rounds} rounds, {rounds + 1} passes of A), card {card}:")
+    for k, ms in samples.items():
+        med = statistics.median(ms)
+        say(f"  {k}: median {med:.4f} ms, min {min(ms):.4f} ms over {len(ms)} solves, "
+            f"{solve_bytes / (med * 1e-3) / 1e9:.1f} GB/s at the median "
+            f"({roofline_pct(med, solve_bytes, H100_SXM_GBPS):.1f}% of {H100_SXM_GBPS:.0f} GB/s)")
+
+    x = torch.ones(n, device=dev)
+    t_mv = time_call(lambda: kernels.matvec(H, x), reps=20)
+    t_mv_p = time_call(lambda: kernels.matvec_plain(H, x), reps=20)
+    z = torch.zeros((), device=dev)
+    # the main path's one launch: init, the whole budget, freezes after 17 rounds
+    mr_kw = dict(chunk=evt.MAX_ITR + 1, eps=evt.EPS, init=True)
+    t_mr = time_call(lambda: kernels.multiround(H, x, x, z, evt.MAX_ITR, **mr_kw), reps=10)
+    t_mr_p = time_call(lambda: kernels.multiround_plain(H, x, x, z, evt.MAX_ITR, **mr_kw), reps=10)
+    say(f"matvec at {n}²: kernel median {t_mv.median_ms:.4f} ms "
+        f"({n * n * 4 / (t_mv.median_ms * 1e-3) / 1e9:.1f} GB/s), torch.mv {t_mv_p.median_ms:.4f} ms")
+    say(f"multiround init, chunk {evt.MAX_ITR + 1} ({rounds + 1} passes) at {n}²: kernel median "
+        f"{t_mr.median_ms:.4f} ms, plain {t_mr_p.median_ms:.4f} ms")
+
+    say(json.dumps({"kernels": [
+        {"name": "matvec", "route": "cuda", "source": "eigen_value_tpu_torch/csrc/matvec.cu",
+         "replaces": "eigen_value_tpu/ops/pallas/kernels.py:227",
+         "launches": launches["matvec"], "max_abs_err": mv_err,
+         "ms": t_mv.median_ms, "plain_ms": t_mv_p.median_ms},
+        {"name": "multiround", "route": "cuda",
+         "source": "eigen_value_tpu_torch/csrc/multiround.cu",
+         "replaces": "eigen_value_tpu/ops/pallas/kernels.py:483",
+         "launches": launches["multiround"], "max_abs_err": mr_err,
+         "ms": t_mr.median_ms, "plain_ms": t_mr_p.median_ms},
+    ]}))
+    say(smi)
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

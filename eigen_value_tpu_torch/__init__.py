@@ -1,0 +1,27 @@
+"""eigen_value_tpu_torch — the PyTorch and CUDA port of eigen_value_tpu.
+
+Maximum eigenvalue and eigenvector of a positive square matrix by the
+similarity-transform method, in its matvec ("power") form, with
+hand-written CUDA kernels for Hopper (``csrc/``) and a plain PyTorch
+version beside each kernel.  Imports torch and numpy only, never jax:
+``eigen_value_tpu`` stays the reference the port is tested against.
+"""
+
+from . import fixtures
+from .api import EigenValue, eigen_residual, max_eigenvalue
+from .config import DEFAULT_CONFIG, EPS, MAX_ITR, SolverConfig
+from .ops.solver import SolveResult
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "EigenValue",
+    "eigen_residual",
+    "fixtures",
+    "max_eigenvalue",
+    "SolverConfig",
+    "SolveResult",
+    "DEFAULT_CONFIG",
+    "EPS",
+    "MAX_ITR",
+]

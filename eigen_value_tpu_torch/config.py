@@ -1,0 +1,101 @@
+"""Solver configuration, with the same field names and backend strings as
+``eigen_value_tpu.config`` so that one config means the same thing in both
+packages.
+
+The reference's two compile-time knobs (``EPS = 1e-3``, ``MAX_ITR = 1000``,
+reference ``include/similarity_transform.hpp:4-5``) keep their values.
+``dtype`` is a torch dtype here.  Backend strings keep their names; on
+this side ``_pallas`` means "the hand-written kernel" (CUDA C++ for
+Hopper), so ``"matvec_pallas"`` is the loop over the port's matvec kernel.
+
+CONSISTENCY CONTRACT (as in the JAX package): every entry point either
+honors a knob or rejects it with a ValueError; nothing is silently dropped.
+The knobs this port does not implement yet are rejected at solve time by
+``api._solve_fn``, each naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+#: Convergence tolerance — reference include/similarity_transform.hpp:4.
+EPS: float = 1e-3
+#: Iteration cap — reference include/similarity_transform.hpp:5.
+MAX_ITR: int = 1000
+
+BACKENDS = ("auto", "xla", "pallas", "matvec", "matvec_pallas", "multiround")
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """All knobs of the similarity-transform solver.
+
+    Attributes:
+      eps: tolerance on adjacent row-sum differences (wraparound pair
+        included).
+      max_itr: iteration cap.
+      eps_mode: "absolute" (reference-exact, tol = eps) or "relative"
+        (tol = eps * max|v|).
+      dtype: matrix and state dtype (torch.float32; the kernels take f32
+        only).
+      backend: "auto" | "matvec" | "matvec_pallas" | "multiround" run here;
+        "xla" and "pallas" (the iterated mutate-A forms) are rejected until
+        ported.
+          * "matvec": power-form loop with ``torch.mv`` in true f32.
+          * "matvec_pallas": the same loop over the hand-written matvec
+            kernel (csrc/matvec.cu).
+          * "multiround": up to ``chunk`` rounds per launch of the
+            persistent kernel (csrc/multiround.cu).
+        "auto" picks "multiround" for a matrix on a CUDA device whose
+        ev vector fits the kernel's shared memory, "matvec_pallas" for a
+        larger one, and "matvec" for a matrix on the CPU.
+      block_rows / block_cols / interpret: TPU tile and interpret knobs.
+        The Hopper kernels give each row to one warp and take no tile
+        shape, and the port decides between kernel and plain version by
+        the tensor's device, so any non-None value is rejected.
+      storage_dtype: reduced-precision storage; rejected until ported.
+      chunk: rounds per launch for "multiround" (None = the whole budget
+        in one launch; the kernel leaves its loop once frozen).
+      symmetric: declares A symmetric.  Consumed under "auto" by the dense
+        kernel (results are identical); rejected with an explicit
+        "multiround" until the symmetric kernel is ported.
+      cache_tiles: resident tile cache of the symmetric kernel; 0 is the
+        streaming kernel this port has, > 0 is rejected until ported.
+    """
+
+    eps: float = EPS
+    max_itr: int = MAX_ITR
+    eps_mode: str = "absolute"
+    dtype: Any = torch.float32
+    backend: str = "auto"
+    block_rows: Optional[int] = None
+    block_cols: Optional[int] = None
+    interpret: Optional[bool] = None
+    storage_dtype: Optional[Any] = None
+    chunk: Optional[int] = None
+    symmetric: bool = False
+    cache_tiles: Optional[int] = None
+
+    def __post_init__(self) -> None:
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}")
+        if self.chunk is not None and self.chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got {self.chunk}")
+        if self.max_itr < 0:
+            raise ValueError("max_itr must be >= 0")
+        if self.eps <= 0:
+            raise ValueError("eps must be > 0")
+        if self.cache_tiles is not None and self.cache_tiles < 0:
+            raise ValueError(f"cache_tiles must be >= 0, got {self.cache_tiles}")
+        if self.eps_mode not in ("absolute", "relative"):
+            raise ValueError(
+                f"eps_mode must be 'absolute' or 'relative', got {self.eps_mode!r}"
+            )
+        if not isinstance(self.dtype, torch.dtype) or not self.dtype.is_floating_point:
+            raise ValueError(f"dtype must be a torch floating dtype, got {self.dtype!r}")
+
+
+DEFAULT_CONFIG = SolverConfig()

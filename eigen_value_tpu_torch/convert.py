@@ -1,0 +1,63 @@
+"""Carry matrices, solve state and configs across from the JAX package.
+
+In this system data and solve state stand where a model would have
+weights: these helpers take the JAX side's values as numpy arrays (or a
+config's fields as a dict) and give the port's tensors, so both packages
+can be fed the same inputs.  Dtypes travel by *name* ("float32", ...).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from .config import SolverConfig
+from .ops.solver_matvec import _Carry
+
+_DTYPES = {
+    "float16": torch.float16,
+    "bfloat16": torch.bfloat16,
+    "float32": torch.float32,
+    "float64": torch.float64,
+}
+
+
+def torch_dtype(dtype: Any) -> torch.dtype:
+    """A torch dtype from a torch dtype, a dtype name, or anything numpy
+    (or ml_dtypes) recognises, such as ``jnp.float32``."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    try:
+        return _DTYPES[name]
+    except KeyError:
+        raise ValueError(f"no torch dtype for {dtype!r}") from None
+
+
+def matrix_from_numpy(a, device="cpu", dtype=torch.float32) -> torch.Tensor:
+    """A contiguous ``dtype`` copy of an array-like on ``device``."""
+    return torch.tensor(np.asarray(a), dtype=torch_dtype(dtype), device=device)
+
+
+def state_from_numpy(ev, v, lam, rounds: int, device="cpu", dtype=torch.float32) -> _Carry:
+    """A matvec-form solve state ``(ev, v, λ, rounds)`` — the JAX loop
+    carry — as the port's carry."""
+    dt = torch_dtype(dtype)
+
+    def vec(x):
+        return torch.tensor(np.asarray(x), dtype=dt, device=device)
+
+    return _Carry(vec(ev), vec(v), vec(lam).reshape(()), int(rounds))
+
+
+def config_from_fields(fields: Mapping[str, Any]) -> SolverConfig:
+    """A :class:`SolverConfig` from another package's config fields (e.g.
+    ``dataclasses.asdict`` of the JAX config), with dtypes mapped by name."""
+    kw = dict(fields)
+    if "dtype" in kw:
+        kw["dtype"] = torch_dtype(kw["dtype"])
+    if kw.get("storage_dtype") is not None:
+        kw["storage_dtype"] = torch_dtype(kw["storage_dtype"])
+    return SolverConfig(**kw)

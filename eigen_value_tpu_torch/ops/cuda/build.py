@@ -1,0 +1,99 @@
+"""Build and load the Hopper kernels.
+
+The CUDA sources under ``eigen_value_tpu_torch/csrc`` have a plain C
+interface; ``nvcc`` compiles them for ``sm_90a`` into one shared library,
+which is loaded with ``ctypes``.  Nothing is built at import: the first
+call of :func:`load` builds (seconds) into ``eigen_value_tpu_torch/_build``,
+named by a hash of the sources and flags, so an unchanged tree reuses its
+library and a changed one never loads a stale build.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+SOURCES = ("matvec.cu", "multiround.cu")
+HEADERS = ("rowdot.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # A, x, y, n, m, stream
+    "evt_matvec": (_P, _P, _P, _I, _I, _P),
+    # A, ev_in, v_in, lam_in, budget, ev_out, v_out, adv_out, lam_out, raw,
+    # n, chunk, eps, init, rel, grid, stream
+    "evt_multiround": (
+        _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I, _P,
+    ),
+    "evt_multiround_grid": (_I,),
+}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+    return path
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libevt_{_digest()}.so"
+
+
+def report_path() -> Path:
+    """The compiler's resource report (registers, shared memory, spills)
+    written by :func:`build`."""
+    return BUILD_DIR / f"ptxas_{_digest()}.txt"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists.  The
+    compiler's resource report is kept beside the library
+    (:func:`report_path`)."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    report_path().write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """The kernel library, built on first use, with every entry's argument
+    types declared (pointers and the stream as ``c_void_p``)."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,178 @@
+"""Matvec ("power-form") solver (counterpart of
+``eigen_value_tpu.ops.solver_matvec``).
+
+The similarity update is a diagonal conjugation, so the iterated matrix is
+never formed: with the eigenvector accumulator ev_k = Π v_i/m_i, each
+round's row sums are
+
+    v_k = (A_0 @ ev_k) / ev_k,
+
+one matvec against the original matrix per round.  Round semantics are the
+reference's: the stop is checked BEFORE the update, λ = v[0], rounds are
+0-based, and the cap reports the last checked round (:func:`_finish`).
+
+Here the loop runs on the host with one stop read per round (JAX runs it
+as a ``lax.while_loop`` on the device); :func:`solve_multiround` moves up
+to ``chunk`` rounds into one kernel launch and reads one count per launch.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .cuda import kernels
+from .solver import SolveResult, stop_check
+
+
+class _Carry(NamedTuple):
+    ev: torch.Tensor
+    v: torch.Tensor
+    lam: torch.Tensor  # λ snapshot (v[0]) of the last round advanced past
+    i: int
+
+
+def _make_cond_body(matvec, eps: float, max_itr: int, eps_mode: str = "absolute"):
+    """The one definition of the matvec-form round.  ``cond`` reads the stop
+    back to the host once per round."""
+
+    def cond(c: _Carry) -> bool:
+        return c.i < max_itr and not bool(stop_check(c.v, eps, eps_mode))
+
+    def body(c: _Carry) -> _Carry:
+        v = c.v
+        m = torch.max(v)
+        ev = c.ev * (v / m)
+        lam = v[0]
+        return _Carry(ev, matvec(ev), lam, c.i + 1)
+
+    return cond, body
+
+
+def _init_carry(n: int, matvec, dtype, device, ev0=None) -> _Carry:
+    if ev0 is None:
+        ev0 = torch.ones(n, dtype=dtype, device=device)
+    else:
+        ev0 = torch.as_tensor(ev0, dtype=dtype, device=device).contiguous()
+    v0 = matvec(ev0)  # == row sums of A_0 for the all-ones start
+    return _Carry(ev0, v0, torch.zeros((), dtype=dtype, device=device), 0)
+
+
+def _finish(out: _Carry, max_itr: int) -> SolveResult:
+    """Post-loop epilogue shared by every matvec-form solver.
+
+    * converged at round k < max_itr: the stop fired on ``out.v``; apply the
+      converging round's ev update, λ = v[0], rounds = k.
+    * cap exhaustion (i == max_itr): report the last CHECKED round's λ (the
+      ``lam`` carry), ev as updated through round max_itr−1,
+      converged = False.
+    """
+    converged = out.i < max_itr
+    dev = out.v.device
+    if converged:
+        m = torch.max(out.v)
+        ev, lam = out.ev * (out.v / m), out.v[0]
+    else:
+        ev, lam = out.ev, out.lam
+    return SolveResult(
+        lam,
+        ev,
+        torch.tensor(out.i, dtype=torch.int32, device=dev),
+        torch.tensor(converged, device=dev),
+    )
+
+
+def solve_matvec_loop(
+    A: torch.Tensor,
+    matvec,
+    eps: float,
+    max_itr: int,
+    ev0=None,
+    eps_mode: str = "absolute",
+) -> SolveResult:
+    """Convergence loop over a pluggable ``matvec(ev) -> (A @ ev) / ev``.
+    The O(n) state has A's dtype."""
+    cond, body = _make_cond_body(matvec, eps, max_itr, eps_mode)
+    c = _init_carry(A.shape[0], matvec, A.dtype, A.device, ev0)
+    while cond(c):
+        c = body(c)
+    return _finish(c, max_itr)
+
+
+def solve_matvec(
+    A: torch.Tensor, eps: float, max_itr: int, ev0=None, eps_mode: str = "absolute"
+) -> SolveResult:
+    """Matvec-form solve with ``torch.mv`` in full float32 (any n, any
+    device; the JAX ``dot_f32`` loop)."""
+
+    def matvec(ev):
+        return kernels.matvec_plain(A, ev) / ev
+
+    return solve_matvec_loop(A, matvec, eps, max_itr, ev0=ev0, eps_mode=eps_mode)
+
+
+def solve_matvec_kernel(
+    A: torch.Tensor, eps: float, max_itr: int, ev0=None, eps_mode: str = "absolute"
+) -> SolveResult:
+    """Matvec-form solve over the hand-written matvec kernel, one launch per
+    round (the ``solve_matvec_pallas`` counterpart)."""
+
+    def matvec(ev):
+        return kernels.matvec(A, ev) / ev
+
+    return solve_matvec_loop(A, matvec, eps, max_itr, ev0=ev0, eps_mode=eps_mode)
+
+
+def solve_multiround(
+    A: torch.Tensor,
+    eps: float,
+    max_itr: int,
+    chunk: Optional[int] = None,
+    ev0=None,
+    eps_mode: str = "absolute",
+    formulation: str = "vpu",
+) -> SolveResult:
+    """Matvec-form solve with up to ``chunk`` rounds per launch of the
+    multiround kernel (stripes form only).
+
+    Any split into chunks gives results bit-identical to
+    :func:`solve_matvec_kernel`: the kernel checks the stop before each round
+    and freezes where it fires, and the epilogue is the shared
+    :func:`_finish`.  The first launch (``init=True``) spends its round 0 on
+    the row-sum pass.  A launch that advanced fewer rounds than it had froze
+    (stop or budget), so the host reads only that count.  Once frozen the
+    kernel leaves its round loop, so an oversized chunk wastes no pass; the
+    default (None) is the whole budget, ``max_itr + 1`` rounds, in one
+    launch.
+
+    ``formulation`` keeps the JAX name: only "vpu" (the matvec kernel's
+    reduction order) exists here; "dot" is not ported (ROADMAP, Queue 2
+    item 2).
+    """
+    if formulation != "vpu":
+        raise ValueError(
+            f"formulation={formulation!r} is not ported: the multiround kernel "
+            f"has the 'vpu' reduction only (ROADMAP, Queue 2 item 2)"
+        )
+    n = A.shape[0]
+    if ev0 is None:
+        ev0 = torch.ones(n, dtype=A.dtype, device=A.device)
+    else:
+        ev0 = torch.as_tensor(ev0, dtype=A.dtype, device=A.device).contiguous()
+    if chunk is None:
+        chunk = max_itr + 1
+    kw = dict(chunk=chunk, eps=eps, eps_mode=eps_mode)
+    zero = torch.zeros((), dtype=A.dtype, device=A.device)
+    ev, v, adv, lam = kernels.multiround(A, ev0, ev0, zero, max_itr, init=True, **kw)
+    adv = int(adv)
+    c = _Carry(ev, v, lam, adv)
+    frozen = adv < chunk - 1  # round 0 of the first launch is the row-sum pass
+    while not frozen and c.i < max_itr:
+        ev, v, adv, lam = kernels.multiround(
+            A, c.ev, c.v, c.lam, max_itr - c.i, init=False, **kw
+        )
+        adv = int(adv)
+        c = _Carry(ev, v, lam, c.i + adv)
+        frozen = adv < chunk
+    return _finish(c, max_itr)
