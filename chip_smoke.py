@@ -12,9 +12,18 @@ auto runs the matvec kernel loop), and EigenValue solves 8192²; the kernel
 launch counters are read around exactly these calls.  It checks rounds,
 λ and the eigen-residual, checks that the "matvec_pallas" backend and
 every chunking of the multiround solve are bit-identical to the matvec
-kernel loop at 8192², and times three arms at 8192².  Uses torch only (no
-jax).  Exits non-zero, without the final result line, on any failed check
-or when there is no CUDA device.
+kernel loop at 8192², and times the arms at 8192².
+
+The symmetric path has its own steps: the triangle kernel
+(csrc/multiround_sym.cu) against its plain version at n = 128, 384, 4096
+and 8192 in both modes, with and without the card's auto tile cache; its
+invariances at 8192² (tile cache, chunking, the lower block triangle,
+a repeated launch, all bit-identical); and, with the launch counters read
+around exactly these calls, ``max_eigenvalue(H, SolverConfig(symmetric=True))``
+and the ``validate=True`` promotion over the Hilbert table, plus one dense
+tiled-cached solve at 8192².  Uses torch only (no jax).  Exits non-zero,
+without the final result line, on any failed check or when there is no
+CUDA device.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -67,6 +76,7 @@ def main() -> int:
     import eigen_value_tpu_torch as evt
     from eigen_value_tpu_torch import fixtures
     from eigen_value_tpu_torch.api import resolve_backend
+    from eigen_value_tpu_torch.device import sym_auto_cache_tiles
     from eigen_value_tpu_torch.ops.cuda import build, kernels
     from eigen_value_tpu_torch.ops.solver_matvec import (
         solve_matvec,
@@ -154,6 +164,43 @@ def main() -> int:
                 mr_err = max(mr_err, err)
             state = (got[0], got[1], got[3])
 
+    # --- 2b. one multiround_sym launch against multiround_sym_plain ---
+    # the triangle mode on Hilbert, the dense tiled mode on an asymmetric
+    # Hilbert (each entry scaled by 1 + U[0, 0.25)); cache 0 and the card's
+    # auto budget.  (A random matrix at 8192² has row sums ~4e3, so its
+    # rounding noise sits at the absolute 1e-3 stop and the stop round
+    # would be a coin toss between any two summation orders.)
+    sym_err = 0.0
+    bt = kernels.SYM_TILE
+    for n in (128, 384, 4096, 8192):
+        for sym in (True, False):
+            A = fixtures.hilbert_matrix(n, device=dev)
+            if not sym:
+                A = A * (1 + 0.25 * torch.rand(n, n, generator=gen).to(dev))
+            for cache in sorted({0, sym_auto_cache_tiles(n, bt, dev, sym=sym)}):
+                ev = torch.ones(n, device=dev)
+                state = (ev, ev, torch.zeros((), device=dev))
+                for init in (True, False):
+                    kw = dict(chunk=5, eps=evt.EPS, init=init, tile=bt, sym=sym)
+                    got = kernels.multiround_sym(A, *state, 1000, cache_tiles=cache, **kw)
+                    want = kernels.multiround_sym_plain(A, *state, 1000, **kw)
+                    torch.cuda.synchronize()
+                    what = f"multiround_sym n={n} sym={sym} cache={cache} init={init}"
+                    check(int(got[2]) == int(want[2]),
+                          f"{what}: advanced {int(got[2])} != {int(want[2])}")
+                    rel = max(
+                        float(((g - w).abs() / w.abs()).max())
+                        for g, w in ((got[0], want[0]), (got[1], want[1]), (got[3], want[3]))
+                    )
+                    err = float((got[1] - want[1]).abs().max())
+                    say(f"{what}: advanced {int(got[2])}, max rel diff (ev, v, λ) {rel:.3e}, "
+                        f"max |v - plain| {err:.3e}")
+                    check(rel <= PARITY_REL, f"{what}: rel diff {rel} > {PARITY_REL}")
+                    if sym and n == 8192:
+                        sym_err = max(sym_err, err)
+                    state = (got[0], got[1], got[3])
+    del A
+
     # --- 3. the main path, through the public API, backend "auto" only ---
     mats = {n: fixtures.hilbert_matrix(n, device=dev) for n in fixtures.HILBERT_ROUNDS}
     routes = {n: resolve_backend(evt.DEFAULT_CONFIG, n, dev) for n in (*mats, BIG_N)}
@@ -163,14 +210,16 @@ def main() -> int:
     torch.cuda.synchronize()
     kernels.matvec.launches = 0
     kernels.multiround.launches = 0
+    kernels.multiround_sym.launches = 0
     auto = {n: evt.max_eigenvalue(H) for n, H in mats.items()}
     auto_big = evt.max_eigenvalue(big)
     lam_c, vec_c, ms_c, rounds_c = evt.EigenValue().similarity_transform(mats[8192])
     torch.cuda.synchronize()
     launches = {"matvec": kernels.matvec.launches, "multiround": kernels.multiround.launches}
-    say(f"main path launches: {launches}")
+    say(f"main path launches: {launches}, multiround_sym {kernels.multiround_sym.launches}")
     for name, count in launches.items():
         check(count > 0, f"the main path launched no {name} kernel")
+    check(kernels.multiround_sym.launches == 0, "a dense auto solve took the triangle kernel")
 
     # the oracle here is the plain loop in float64: at this width cuBLAS's
     # float32 gemv drifts (Hilbert row sums off by ~3e-5 relative), the
@@ -227,11 +276,110 @@ def main() -> int:
         f"ms {ms_c:.3f}")
     check(rounds_c == 17 and ms_c > 0, "similarity_transform at 8192")
 
+    # --- 4b. the symmetric path: symmetric=True and the validate promotion ---
+    sym_cfg = evt.SolverConfig(symmetric=True)
+    check(all(resolve_backend(sym_cfg, n, dev) == "multiround" for n in mats),
+          "auto with symmetric=True must take multiround")
+    torch.cuda.synchronize()
+    kernels.matvec.launches = 0
+    kernels.multiround.launches = 0
+    kernels.multiround_sym.launches = 0
+    declared = {n: evt.max_eigenvalue(H_, sym_cfg) for n, H_ in mats.items()}
+    promoted = {n: evt.max_eigenvalue(H_, validate=True) for n, H_ in mats.items()}
+    torch.cuda.synchronize()
+    sym_launches = {"matvec": kernels.matvec.launches, "multiround": kernels.multiround.launches,
+                    "multiround_sym": kernels.multiround_sym.launches}
+    say(f"symmetric path launches: {sym_launches}")
+    check(sym_launches["multiround_sym"] > 0, "the symmetric path launched no multiround_sym")
+    check(sym_launches["multiround"] == sym_launches["matvec"] == 0,
+          "the symmetric path left the triangle kernel")
+    for n, H_ in mats.items():
+        plain = solve_matvec(H_, evt.EPS, evt.MAX_ITR)
+        for how, res in (("symmetric=True", declared[n]), ("validate=True", promoted[n])):
+            resid = float(evt.eigen_residual(H_, res))
+            lam, lam_p = float(res.eigenvalue), float(plain.eigenvalue)
+            rel = abs(lam - lam_p) / abs(lam_p)
+            say(f"hilbert {n} via {how}: rounds {int(res.rounds)} (table "
+                f"{fixtures.HILBERT_ROUNDS[n]}), λ {lam!r} (plain {lam_p!r}, rel {rel:.2e}), "
+                f"residual {resid:.3e}")
+            check(bool(res.converged), f"hilbert {n} {how} did not converge")
+            check(int(res.rounds) == fixtures.HILBERT_ROUNDS[n], f"hilbert {n} {how} rounds")
+            check(rel <= PARITY_REL, f"hilbert {n} {how} λ rel {rel}")
+            check(resid <= 1e-3, f"hilbert {n} {how} residual {resid}")
+            check(bool(torch.isfinite(res.eigenvector).all()), f"hilbert {n} {how} finite")
+
+    n = 8192
+    cache = sym_auto_cache_tiles(n, bt, dev)
+    dense_cache = sym_auto_cache_tiles(n, bt, dev, sym=False)
+    say(f"auto tile cache at {n}², tile {bt}: triangle {cache} tiles, dense {dense_cache} tiles "
+        f"({cache * bt * bt * 4 / 1e6:.1f} MB resident)")
+    check(cache > 0 and dense_cache > 0, "the auto tile cache at 8192² must be > 0")
+    dense_tiled = evt.max_eigenvalue(H, evt.SolverConfig(backend="multiround",
+                                                         cache_tiles=dense_cache))
+    rel = abs(float(dense_tiled.eigenvalue) - float(want.eigenvalue)) / float(want.eigenvalue)
+    resid = float(evt.eigen_residual(H, dense_tiled))
+    say(f"dense tiled-cached solve at {n}²: rounds {int(dense_tiled.rounds)}, λ rel {rel:.2e} "
+        f"to the matvec kernel loop, residual {resid:.3e}")
+    check(int(dense_tiled.rounds) == 17 and rel <= PARITY_REL and resid <= 1e-3,
+          "dense tiled-cached solve at 8192²")
+
+    # --- 4c. invariances of the triangle kernel at 8192², all bit-identical ---
+    def same(a, b):
+        return (int(a.rounds) == int(b.rounds) and torch.equal(a.eigenvalue, b.eigenvalue)
+                and torch.equal(a.eigenvector, b.eigenvector))
+
+    def tri(A, **kw):
+        return solve_multiround(A, evt.EPS, evt.MAX_ITR, symmetric=True, **kw)
+
+    base = tri(H, cache_tiles=0)
+    check(same(declared[n], tri(H, cache_tiles=cache)), "symmetric=True is not the auto cache")
+    for c in (7, cache):
+        ok = same(tri(H, cache_tiles=c), base)
+        say(f"triangle cache_tiles={c} vs 0 at {n}²: bit-identical {ok}")
+        check(ok, f"cache_tiles={c} changed the result")
+    for chunk in (1, 5, 18, None):
+        ok = same(tri(H, cache_tiles=cache, chunk=chunk), base)
+        say(f"triangle chunk={chunk or 'whole budget'} at {n}²: bit-identical {ok}")
+        check(ok, f"chunk={chunk} changed the result")
+    blk = torch.arange(n, device=dev) // bt
+    bad = torch.where(blk[:, None] > blk[None, :], torch.full_like(H, 7.25), H)
+    for c in (0, cache):
+        ok = same(tri(bad, cache_tiles=c), base)
+        say(f"triangle with the lower block triangle overwritten, cache {c}: bit-identical {ok}")
+        check(ok, "the triangle kernel read below the block diagonal")
+    del bad, blk
+    x = torch.ones(n, device=dev)
+    z = torch.zeros((), device=dev)
+    sym_kw = dict(chunk=evt.MAX_ITR + 1, eps=evt.EPS, init=True, tile=bt)
+    first = kernels.multiround_sym(H, x, x, z, evt.MAX_ITR, cache_tiles=cache, **sym_kw)
+    again = kernels.multiround_sym(H, x, x, z, evt.MAX_ITR, cache_tiles=cache, **sym_kw)
+    ok = all(torch.equal(a, b) for a, b in zip(first, again))
+    say(f"repeated multiround_sym launch: bitwise the same {ok}")
+    check(ok, "a repeated multiround_sym launch differs")
+
     # --- 5. times at 8192², CUDA events, median and min ---
-    n, reps = 8192, 12
+    reps = 12
     rounds = int(want.rounds)
+    tile_mb = bt * bt * 4
+    streamed = {"triangle": len(kernels.sym_cache_split(n, bt, 0)[0]),
+                "triangle cached": len(kernels.sym_cache_split(n, bt, cache)[0]),
+                "dense cached": (n // bt) ** 2 - dense_cache}
+    arm_bytes = {
+        "multiround kernel (stripes)": (rounds + 1) * n * n * 4,
+        "triangle kernel, streaming": (rounds + 1) * streamed["triangle"] * tile_mb,
+        f"triangle kernel, cache {cache}":
+            (rounds + 1) * streamed["triangle cached"] * tile_mb + cache * tile_mb,
+        f"dense tiled kernel, cache {dense_cache}":
+            (rounds + 1) * streamed["dense cached"] * tile_mb + dense_cache * tile_mb,
+        "matvec kernel loop": (rounds + 1) * n * n * 4,
+        "torch.mv loop (plain)": (rounds + 1) * n * n * 4,
+    }
     arms = {
-        "multiround kernel": lambda: solve_multiround(H, evt.EPS, evt.MAX_ITR),
+        "multiround kernel (stripes)": lambda: solve_multiround(H, evt.EPS, evt.MAX_ITR),
+        "triangle kernel, streaming": lambda: tri(H, cache_tiles=0),
+        f"triangle kernel, cache {cache}": lambda: tri(H, cache_tiles=cache),
+        f"dense tiled kernel, cache {dense_cache}":
+            lambda: solve_multiround(H, evt.EPS, evt.MAX_ITR, cache_tiles=dense_cache),
         "matvec kernel loop": lambda: solve_matvec_kernel(H, evt.EPS, evt.MAX_ITR),
         "torch.mv loop (plain)": lambda: solve_matvec(H, evt.EPS, evt.MAX_ITR),
     }
@@ -242,18 +390,17 @@ def main() -> int:
             t = time_call(arms[k], reps=1, warmup=0)
             if rep:
                 samples[k].append(t.min_ms)
-    solve_bytes = (rounds + 1) * n * n * 4
-    say(f"solve times at {n}² ({rounds} rounds, {rounds + 1} passes of A), card {card}:")
+    say(f"solve times at {n}² ({rounds} rounds, {rounds + 1} passes), card {card}; GB/s "
+        f"against the bytes each arm reads (the cache fill once):")
     for k, ms in samples.items():
         med = statistics.median(ms)
         say(f"  {k}: median {med:.4f} ms, min {min(ms):.4f} ms over {len(ms)} solves, "
-            f"{solve_bytes / (med * 1e-3) / 1e9:.1f} GB/s at the median "
-            f"({roofline_pct(med, solve_bytes, H100_SXM_GBPS):.1f}% of {H100_SXM_GBPS:.0f} GB/s)")
+            f"{arm_bytes[k] / 1e6:.1f} MB, {arm_bytes[k] / (med * 1e-3) / 1e9:.1f} GB/s at the "
+            f"median ({roofline_pct(med, arm_bytes[k], H100_SXM_GBPS):.1f}% of "
+            f"{H100_SXM_GBPS:.0f} GB/s)")
 
-    x = torch.ones(n, device=dev)
     t_mv = time_call(lambda: kernels.matvec(H, x), reps=20)
     t_mv_p = time_call(lambda: kernels.matvec_plain(H, x), reps=20)
-    z = torch.zeros((), device=dev)
     # the main path's one launch: init, the whole budget, freezes after 17 rounds
     mr_kw = dict(chunk=evt.MAX_ITR + 1, eps=evt.EPS, init=True)
     t_mr = time_call(lambda: kernels.multiround(H, x, x, z, evt.MAX_ITR, **mr_kw), reps=10)
@@ -262,6 +409,22 @@ def main() -> int:
         f"({n * n * 4 / (t_mv.median_ms * 1e-3) / 1e9:.1f} GB/s), torch.mv {t_mv_p.median_ms:.4f} ms")
     say(f"multiround init, chunk {evt.MAX_ITR + 1} ({rounds + 1} passes) at {n}²: kernel median "
         f"{t_mr.median_ms:.4f} ms, plain {t_mr_p.median_ms:.4f} ms")
+
+    # the symmetric path's one launch: init, the whole budget, the auto cache
+    t_sym = {}
+    for label, c in (("streaming", 0), (f"cache {cache}", cache)):
+        t_sym[label] = time_call(
+            lambda: kernels.multiround_sym(H, x, x, z, evt.MAX_ITR, cache_tiles=c, **sym_kw),
+            reps=10)
+    t_sym_p = time_call(lambda: kernels.multiround_sym_plain(H, x, x, z, evt.MAX_ITR, **sym_kw),
+                        reps=5)
+    for label, t in t_sym.items():
+        c = cache if label != "streaming" else 0
+        b = (rounds + 1) * len(kernels.sym_cache_split(n, bt, c)[0]) * tile_mb + c * tile_mb
+        say(f"multiround_sym init, chunk {evt.MAX_ITR + 1}, {label} at {n}²: kernel median "
+            f"{t.median_ms:.4f} ms ({b / (t.median_ms * 1e-3) / 1e9:.1f} GB/s of {b / 1e6:.1f} MB)")
+    say(f"multiround_sym_plain init, chunk {evt.MAX_ITR + 1} at {n}²: median "
+        f"{t_sym_p.median_ms:.4f} ms")
 
     say(json.dumps({"kernels": [
         {"name": "matvec", "route": "cuda", "source": "eigen_value_tpu_torch/csrc/matvec.cu",
@@ -273,6 +436,11 @@ def main() -> int:
          "replaces": "eigen_value_tpu/ops/pallas/kernels.py:483",
          "launches": launches["multiround"], "max_abs_err": mr_err,
          "ms": t_mr.median_ms, "plain_ms": t_mr_p.median_ms},
+        {"name": "multiround_sym", "route": "cuda",
+         "source": "eigen_value_tpu_torch/csrc/multiround_sym.cu",
+         "replaces": "eigen_value_tpu/ops/pallas/kernels.py:720",
+         "launches": sym_launches["multiround_sym"], "max_abs_err": sym_err,
+         "ms": t_sym[f"cache {cache}"].median_ms, "plain_ms": t_sym_p.median_ms},
     ]}))
     say(smi)
     say(json.dumps({"ok": True, "device": {

@@ -9,6 +9,7 @@ plain versions.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from functools import partial
 from typing import Optional, Tuple
@@ -17,21 +18,40 @@ import numpy as np
 import torch
 
 from .config import DEFAULT_CONFIG, SolverConfig
-from .device import multiround_fits
+from .device import multiround_fits, multiround_sym_fits, sym_auto_cache_tiles
+from .ops.cuda.kernels import SYM_TILE, sym_tile
 from .ops.solver import SolveResult
+
+
+def _tile(config: SolverConfig) -> int:
+    """The tiled kernel's tile edge: ``block_rows`` when set (as in JAX),
+    else the port's own default (``kernels.SYM_TILE``)."""
+    return config.block_rows or SYM_TILE
+
+
+def _takes_triangle(config: SolverConfig, n: int, device: torch.device) -> bool:
+    """Whether a declared-symmetric dim-n solve on ``device`` can run the
+    triangle kernel: n has a 128-aligned square tile, and on a card the
+    kernel's state fits one block."""
+    bt = sym_tile(n, _tile(config))
+    return bt is not None and (device.type != "cuda" or multiround_sym_fits(n, bt, device))
 
 
 def resolve_backend(config: SolverConfig, n: int, device: torch.device) -> str:
     """Resolve "auto" to a concrete backend for a dim-n solve on ``device``.
 
-    On a CUDA device "auto" takes the multiround kernel at every n whose ev
-    vector fits its shared memory (the JAX package's 6144 boundary is a TPU
-    VMEM-residency cliff with no counterpart here), the matvec kernel loop
-    beyond; on the CPU it takes the ``torch.mv`` loop, as JAX does off-TPU.
+    On a CUDA device "auto" takes the multiround backend at every n whose
+    state fits its kernel: the triangle kernel for a declared-symmetric,
+    sym-tileable n, else the stripes kernel, whose ev copy must fit shared
+    memory (the JAX package's 6144 boundary is a TPU VMEM-residency cliff
+    with no counterpart here); the matvec kernel loop beyond.  On the CPU
+    it takes the ``torch.mv`` loop, as JAX does off-TPU.
     """
     if config.backend != "auto":
         return config.backend
     if device.type == "cuda":
+        if config.symmetric and _takes_triangle(config, n, device):
+            return "multiround"
         return "multiround" if multiround_fits(n, device) else "matvec_pallas"
     return "matvec"
 
@@ -40,10 +60,27 @@ def _not_ported(knob: str, item: str) -> ValueError:
     return ValueError(f"{knob} is not ported to eigen_value_tpu_torch yet (ROADMAP: {item})")
 
 
-def _solve_fn(config: SolverConfig, backend: str):
-    """The solve callable for ``backend``.  Every knob is honored or
-    rejected with a ValueError (the JAX package's contract); the knobs this
-    port has not implemented name their ROADMAP item."""
+def _cache_unservable(cache_tiles: int, n: int, tile: int, consequence: str) -> ValueError:
+    """The honored-or-rejected error for an explicit cache request that the
+    tiled kernel cannot serve at this dim and tile (JAX's
+    ``_cache_unalignable``)."""
+    why = (
+        f"kernels.sym_tile(n, {tile}) is None — "
+        f"{'raise block_rows to >= 128' if tile < 128 else 'this dim has no such divisor'}"
+        if sym_tile(n, tile) is None
+        else "the triangle kernel's state does not fit one block on this card"
+    )
+    return ValueError(
+        f"cache_tiles={cache_tiles} needs a 128-aligned square tile that divides "
+        f"n={n} ({why}); {consequence}. Drop cache_tiles or adjust block_rows."
+    )
+
+
+def _solve_fn(config: SolverConfig, backend: str, n: int, device: torch.device):
+    """The solve callable for ``backend`` at dim ``n`` on ``device``.  Every
+    knob is honored or rejected with a ValueError (the JAX package's
+    contract); the knobs this port has not implemented name their ROADMAP
+    item."""
     if backend in ("xla", "pallas"):
         raise _not_ported(
             f"backend={backend!r} (the iterated mutate-A solve)", "Queue 1 item 7"
@@ -52,30 +89,18 @@ def _solve_fn(config: SolverConfig, backend: str):
         raise _not_ported(
             f"storage_dtype={config.storage_dtype}", "Queue 1 item 6"
         )
-    if config.cache_tiles:
-        raise _not_ported(
-            f"cache_tiles={config.cache_tiles} (the resident tile cache of "
-            f"multiround_sym)",
-            "Queue 2 item 3",
-        )
-    if config.symmetric and config.backend != "auto":
-        if backend == "multiround":
-            raise _not_ported(
-                "symmetric=True with backend='multiround' (the upper-triangle "
-                "kernel multiround_sym)",
-                "Queue 2 item 3",
-            )
+    if config.symmetric and backend != "multiround" and config.backend != "auto":
         raise ValueError(
             f"symmetric=True is implemented by the multiround backend only; "
             f"backend={config.backend!r} would silently stream the full matrix"
         )
-    for knob in ("block_rows", "block_cols", "interpret"):
+    for knob in ("block_cols", "interpret"):
         if getattr(config, knob) is not None:
             raise ValueError(
                 f"{knob}={getattr(config, knob)!r} is a TPU tile/interpret knob: "
-                f"the Hopper kernels give each row to one warp and the device of "
-                f"the matrix picks kernel or plain version, so it would be "
-                f"silently dropped"
+                f"the Hopper kernels take square tiles or whole rows, and the "
+                f"device of the matrix picks kernel or plain version, so it "
+                f"would be silently dropped"
             )
     if config.chunk is not None and backend != "multiround":
         raise ValueError(
@@ -91,11 +116,65 @@ def _solve_fn(config: SolverConfig, backend: str):
     from .ops import solver_matvec as sm
 
     kw = dict(eps=config.eps, max_itr=config.max_itr, eps_mode=config.eps_mode)
+    tiled = {}
     if backend == "multiround":
-        return partial(sm.solve_multiround, chunk=config.chunk, **kw)
+        tile = _tile(config)
+        bt = sym_tile(n, tile)
+        if config.symmetric and (config.backend != "auto" or _takes_triangle(config, n, device)):
+            # the triangle kernel; block_rows is its tile edge, and an unset
+            # cache_tiles takes the card's auto budget (0 streams)
+            tiled = dict(symmetric=True, tile=tile, cache_tiles=config.cache_tiles)
+            if tiled["cache_tiles"] is None:
+                tiled["cache_tiles"] = sym_auto_cache_tiles(n, bt, device) if bt else 0
+        elif config.symmetric:
+            # auto consumed the declaration, but the triangle kernel cannot
+            # take this dim: the stripes kernel keeps the job, and has no cache
+            if config.cache_tiles:
+                raise _cache_unservable(
+                    config.cache_tiles, n, tile,
+                    "the cache-less stripes fallback would silently drop it",
+                )
+        elif config.cache_tiles:
+            # an explicit dense cache: the tiled kernel over all g² tiles
+            if bt is None:
+                raise _cache_unservable(
+                    config.cache_tiles, n, tile,
+                    "the stripes kernel would silently run without the cache",
+                )
+            tiled = dict(tile=tile, cache_tiles=config.cache_tiles)
+    if config.block_rows is not None and not tiled:
+        raise ValueError(
+            f"block_rows={config.block_rows} is the tiled kernel's tile edge "
+            f"(symmetric=True or cache_tiles > 0 with the multiround backend); "
+            f"backend {backend!r} here gives each row to one warp and takes no "
+            f"tile shape, so it would be silently dropped"
+        )
+    if backend == "multiround":
+        return partial(sm.solve_multiround, chunk=config.chunk, **tiled, **kw)
     if backend == "matvec_pallas":
         return partial(sm.solve_matvec_kernel, **kw)
     return partial(sm.solve_matvec, **kw)
+
+
+def _promotion(config: SolverConfig, n: int, device: torch.device) -> Optional[SolverConfig]:
+    """The symmetric config that ``validate=True`` promotes an undeclared
+    ``auto`` solve to, if the matrix proves bitwise symmetric: only where
+    the triangle route would then be taken (on a card, at a sym-tileable n
+    whose state fits), as at the JAX package's ``max_eigenvalue``."""
+    if config.symmetric or config.backend != "auto":
+        return None
+    cand = dataclasses.replace(config, symmetric=True)
+    return cand if device.type == "cuda" and _takes_triangle(cand, n, device) else None
+
+
+def _validate_on_device(mat: torch.Tensor, check_sym: bool) -> Tuple[bool, bool]:
+    """Positivity and (when asked) bitwise symmetry, read back to the host
+    in one copy."""
+    checks = [torch.all(mat > 0)]
+    if check_sym:
+        checks.append(torch.all(mat == mat.T))
+    flags = torch.stack(checks).tolist()
+    return flags[0], check_sym and flags[-1]
 
 
 def _as_matrix(mat, dtype) -> torch.Tensor:
@@ -114,21 +193,29 @@ def max_eigenvalue(
     ``mat`` (a tensor, or anything ``torch.as_tensor`` takes) is cast to
     ``config.dtype`` and solved on its device.  ``validate=True`` checks
     positivity on the device, and bitwise symmetry when ``symmetric=True``
-    is declared, and raises instead of returning garbage.  ``mesh`` (the
+    is declared, and raises instead of returning garbage.  Under "auto" on
+    a card it also checks symmetry where the triangle kernel could take the
+    solve, and a matrix that passes is solved there (as the JAX package
+    does on the TPU).  ``mesh`` (the
     sharded solves) is rejected until ported.
     """
     if mesh is not None:
         raise _not_ported("mesh= (the sharded solves)", "Queue 1 item 10")
     mat = _as_matrix(mat, config.dtype)
-    backend = resolve_backend(config, mat.shape[0], mat.device)
-    solve = _solve_fn(config, backend)
+    n = mat.shape[0]
+    backend = resolve_backend(config, n, mat.device)
+    solve = _solve_fn(config, backend, n, mat.device)
     if validate:
-        if not bool(torch.all(mat > 0)):
+        cand = _promotion(config, n, mat.device)
+        pos, sym_ok = _validate_on_device(mat, config.symmetric or cand is not None)
+        if not pos:
             raise ValueError("similarity-transform method requires all entries > 0")
-        if config.symmetric and not bool(torch.equal(mat, mat.T)):
+        if config.symmetric and not sym_ok:
             raise ValueError(
                 "symmetric=True declared but the matrix is not bitwise symmetric"
             )
+        if cand is not None and sym_ok:
+            solve = _solve_fn(cand, "multiround", n, mat.device)
     return solve(mat)
 
 

@@ -47,23 +47,35 @@ class SolverConfig:
           * "matvec": power-form loop with ``torch.mv`` in true f32.
           * "matvec_pallas": the same loop over the hand-written matvec
             kernel (csrc/matvec.cu).
-          * "multiround": up to ``chunk`` rounds per launch of the
-            persistent kernel (csrc/multiround.cu).
-        "auto" picks "multiround" for a matrix on a CUDA device whose
-        ev vector fits the kernel's shared memory, "matvec_pallas" for a
-        larger one, and "matvec" for a matrix on the CPU.
-      block_rows / block_cols / interpret: TPU tile and interpret knobs.
-        The Hopper kernels give each row to one warp and take no tile
-        shape, and the port decides between kernel and plain version by
-        the tensor's device, so any non-None value is rejected.
+          * "multiround": up to ``chunk`` rounds per launch of a persistent
+            kernel: the stripes kernel (csrc/multiround.cu), or the tiled
+            triangle kernel (csrc/multiround_sym.cu) for ``symmetric=True``
+            or an explicit ``cache_tiles > 0``.
+        "auto" picks, for a matrix on a CUDA device, "multiround" (the
+        triangle kernel when ``symmetric`` is declared and n has a
+        128-aligned square tile, else the stripes kernel while its ev copy
+        fits shared memory), else "matvec_pallas"; "matvec" for a matrix
+        on the CPU.
+      block_rows: the tiled kernel's square tile edge (default
+        ``kernels.SYM_TILE`` = 128); rejected wherever the tiled kernel
+        does not run (the other kernels give each row to one warp).
+      block_cols / interpret: TPU tile and interpret knobs.  The port
+        decides between kernel and plain version by the tensor's device,
+        so any non-None value is rejected.
       storage_dtype: reduced-precision storage; rejected until ported.
       chunk: rounds per launch for "multiround" (None = the whole budget
         in one launch; the kernel leaves its loop once frozen).
-      symmetric: declares A symmetric.  Consumed under "auto" by the dense
-        kernel (results are identical); rejected with an explicit
-        "multiround" until the symmetric kernel is ported.
-      cache_tiles: resident tile cache of the symmetric kernel; 0 is the
-        streaming kernel this port has, > 0 is rejected until ported.
+      symmetric: declares A bitwise symmetric.  With "multiround", or under
+        "auto" on a card at a sym-tileable n, the triangle kernel reads only
+        the upper block triangle (a wrong declaration gives a wrong
+        answer; ``validate=True`` checks it).  Elsewhere under "auto" it is
+        consumed by the dense solve (identical results).
+      cache_tiles: tiles the tiled kernel keeps resident in shared memory
+        across a launch's rounds.  None = the card's budget for the
+        triangle kernel (``device.sym_auto_cache_tiles``) and no tiled
+        kernel for a dense matrix; 0 = streaming; > 0 without
+        ``symmetric`` = the dense tiled kernel with that cache.  A request
+        the card cannot hold is rejected.
     """
 
     eps: float = EPS

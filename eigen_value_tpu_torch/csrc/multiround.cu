@@ -17,11 +17,8 @@
 // One barrier per round is enough because every block redoes the O(n)
 // prologue for the whole vector, from the same global raw row sums, into
 // its own shared-memory copy of ev:
-//   * the prologue reproduces _round_prologue expression for expression:
-//     v = raw / ev; tol = eps or eps * max|v|; fired = all |v - roll(v,-1)|
-//     < tol (taken as max|...| < tol, which is the same test, NaN included);
-//     halt = fired | (adv >= budget); lambda = v[0]; m = max(v);
-//     ev = ev * (v / m).  Max is exact in any order, so every block computes
+//   * the prologue (prologue.cuh, shared with multiround_sym.cu) reproduces
+//     _round_prologue expression for expression; every block computes
 //     bit-identical ev, m and halt, and all blocks leave the round loop
 //     together once the solve is frozen (the TPU grid had to stream the
 //     rest of the chunk);
@@ -34,60 +31,15 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include <math.h>
-
+#include "prologue.cuh"
 #include "rowdot.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-
-// max that propagates NaN, like jnp.max / torch.max
-__device__ __forceinline__ float nanmax(float a, float b) {
-  return (a > b || isnan(a)) ? a : b;
-}
-
-__device__ __forceinline__ float warp_max(float a) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    a = nanmax(a, __shfl_xor_sync(0xffffffffu, a, off));
-  return a;
-}
-
-// Block-wide max of three values; every thread gets the results.
-__device__ __forceinline__ void block_max3(float& a, float& b, float& c,
-                                           float (*red)[kWarps], float* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  a = warp_max(a);
-  b = warp_max(b);
-  c = warp_max(c);
-  if (lane == 0) {
-    red[0][warp] = a;
-    red[1][warp] = b;
-    red[2][warp] = c;
-  }
-  __syncthreads();
-  if (warp == 0) {
-    a = lane < kWarps ? red[0][lane] : -INFINITY;
-    b = lane < kWarps ? red[1][lane] : -INFINITY;
-    c = lane < kWarps ? red[2][lane] : -INFINITY;
-    a = warp_max(a);
-    b = warp_max(b);
-    c = warp_max(c);
-    if (lane == 0) {
-      out[0] = a;
-      out[1] = b;
-      out[2] = c;
-    }
-  }
-  __syncthreads();
-  a = out[0];
-  b = out[1];
-  c = out[2];
-}
+using evt::kThreads;
+using evt::kWarps;
 
 __global__ void __launch_bounds__(kThreads) multiround_kernel(
     const float* __restrict__ A, const float* __restrict__ ev_in,
@@ -115,26 +67,9 @@ __global__ void __launch_bounds__(kThreads) multiround_kernel(
     // this round's v: the input at r == 0, else the previous matvec / ev
     const float* prev = raw + static_cast<size_t>((r + 1) & 1) * n;
     if (!init || r != 0) {
-      float mx = -INFINITY, mabs = -INFINITY, md = -INFINITY;
-      for (int j = tid; j < n; j += kThreads) {
-        const int jn = j + 1 == n ? 0 : j + 1;
-        const float vj = r == 0 ? v_in[j] : __ldcg(prev + j) / ev_s[j];
-        const float vn = r == 0 ? v_in[jn] : __ldcg(prev + jn) / ev_s[jn];
-        mx = nanmax(mx, vj);
-        mabs = nanmax(mabs, fabsf(vj));
-        md = nanmax(md, fabsf(vj - vn));
-      }
-      block_max3(mx, mabs, md, red, stats);
-      const float tol = rel ? eps * mabs : eps;
-      if (md < tol || adv >= budget) break;  // same decision in every block
-      // thread 0 owns j == 0, so it reads v[0] before its own ev update
-      if (tid == 0) lam = r == 0 ? v_in[0] : __ldcg(prev) / ev_s[0];
-      for (int j = tid; j < n; j += kThreads) {
-        const float vj = r == 0 ? v_in[j] : __ldcg(prev + j) / ev_s[j];
-        ev_s[j] = ev_s[j] * (vj / mx);
-      }
-      __syncthreads();
-      ++adv;
+      if (evt::round_prologue(v_in, prev, r == 0, ev_s, n, eps, rel, budget,
+                              adv, lam, red, stats))
+        break;  // same decision in every block
     }
     float* out = raw + static_cast<size_t>(r & 1) * n;
     for (int row = gwarp; row < n; row += nwarps) {

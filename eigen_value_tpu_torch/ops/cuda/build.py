@@ -1,11 +1,12 @@
 """Build and load the Hopper kernels.
 
 The CUDA sources under ``eigen_value_tpu_torch/csrc`` have a plain C
-interface; ``nvcc`` compiles them for ``sm_90a`` into one shared library,
-which is loaded with ``ctypes``.  Nothing is built at import: the first
-call of :func:`load` builds (seconds) into ``eigen_value_tpu_torch/_build``,
-named by a hash of the sources and flags, so an unchanged tree reuses its
-library and a changed one never loads a stale build.
+interface; ``nvcc`` compiles each for ``sm_90a``, all at once in parallel,
+and links them into one shared library, which is loaded with ``ctypes``.
+Nothing is built at import: the first call of :func:`load` builds
+(seconds) into ``eigen_value_tpu_torch/_build``, named by a hash of the
+sources and flags, so an unchanged tree reuses its library and a changed
+one never loads a stale build.
 """
 
 from __future__ import annotations
@@ -21,11 +22,11 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("matvec.cu", "multiround.cu")
-HEADERS = ("rowdot.cuh",)
+SOURCES = ("matvec.cu", "multiround.cu", "multiround_sym.cu")
+HEADERS = ("prologue.cuh", "rowdot.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -39,6 +40,14 @@ _SIGNATURES = {
         _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I, _P,
     ),
     "evt_multiround_grid": (_I,),
+    # A, tiles, T, C, slots, ev_in, v_in, lam_in, budget, ev_out, v_out,
+    # adv_out, lam_out, raw, part, n, bt, chunk, eps, init, rel, sym, grid,
+    # stream
+    "evt_multiround_sym": (
+        _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+        ctypes.c_float, _I, _I, _I, _I, _P,
+    ),
+    "evt_multiround_sym_grid": (_I, _I, _I),
 }
 
 
@@ -67,22 +76,39 @@ def report_path() -> Path:
     return BUILD_DIR / f"ptxas_{_digest()}.txt"
 
 
+def _run(cmds) -> str:
+    """Run the commands at once; their output, or RuntimeError on a failure."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{out}")
+    return "".join(outs)
+
+
 def build() -> Path:
-    """Compile the kernels unless a library for these sources exists.  The
+    """Compile the kernels unless a library for these sources exists: one
+    ``nvcc`` per source, all started together, then one link.  The
     compiler's resource report is kept beside the library
     (:func:`report_path`)."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    nvcc = _nvcc()
+    report = _run(
+        [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)] for s, o in zip(SOURCES, objs)]
+    )
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    report_path().write_text(proc.stdout + proc.stderr)
+    _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for o in objs:
+        o.unlink()
+    report_path().write_text(report)
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out
 

@@ -1,11 +1,12 @@
 """Wrappers of the Hopper kernels, each with its plain PyTorch version.
 
-Counterparts of ``eigen_value_tpu.ops.pallas.kernels.matvec`` and
-``.multiround``: same arguments and returns.  A wrapper checks device,
-dtype (float32), shape and contiguity and raises on anything else.  For
-CPU tensors it runs the plain version; for CUDA tensors it launches the
-kernel or raises — there is no fallback.  ``<wrapper>.launches`` counts
-kernel launches (a plain int; plain-version calls do not count).
+Counterparts of ``eigen_value_tpu.ops.pallas.kernels.matvec``,
+``.multiround`` and ``.multiround_sym``: same arguments and returns.  A
+wrapper checks device, dtype (float32), shape and contiguity and raises on
+anything else.  For CPU tensors it runs the plain version; for CUDA
+tensors it launches the kernel or raises — there is no fallback.
+``<wrapper>.launches`` counts kernel launches (a plain int; plain-version
+calls do not count).
 
 The plain versions run anywhere.  ``matvec_plain`` is ``torch.mv``: a GEMV
 in full float32 (cuBLAS gemv on the card, which has no TF32 mode; TF32
@@ -15,10 +16,18 @@ would put row-sum noise above the absolute 1e-3 stop once λ ≳ 1).
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
-from ...device import multiround_fits, tensor_device
+from ...device import (
+    cuda_limits,
+    multiround_fits,
+    multiround_sym_fits,
+    sym_auto_cache_tiles,
+    sym_smem_bytes,
+    tensor_device,
+)
 from ..solver import stop_check
 
 
@@ -83,6 +92,30 @@ def _as_scalar(lam, dev: torch.device) -> torch.Tensor:
     return lam.reshape(())
 
 
+def _rounds_plain(matvec, ev, v, lam, budget, chunk, eps, init, eps_mode):
+    """Up to ``chunk`` rounds over ``matvec(ev) -> A @ ev``: the round
+    structure of both multiround kernels, shared by their plain versions."""
+    lam = _as_scalar(lam, ev.device)
+    adv = 0
+    frozen = False
+    raw = None
+    for r in range(chunk):
+        if r != 0:
+            v = raw / ev
+        if not init or r != 0:
+            if bool(stop_check(v, eps, eps_mode)) or adv >= budget:
+                frozen = True
+                break
+            lam = v[0]
+            m = torch.max(v)
+            ev = ev * (v / m)
+            adv += 1
+        raw = matvec(ev)
+    if not frozen:
+        v = raw / ev
+    return ev, v, torch.tensor(adv, dtype=torch.int32, device=ev.device), lam
+
+
 def multiround_plain(
     A: torch.Tensor,
     ev: torch.Tensor,
@@ -100,25 +133,9 @@ def multiround_plain(
     at the round that stops (or that reaches ``budget`` advanced rounds).
     ``init=True`` makes round 0 the row-sum pass (no check, not counted; v
     is then ignored).  Returns ``(ev, v, advanced, λ)``."""
-    lam = _as_scalar(lam, A.device)
-    adv = 0
-    frozen = False
-    raw = None
-    for r in range(chunk):
-        if r != 0:
-            v = raw / ev
-        if not init or r != 0:
-            if bool(stop_check(v, eps, eps_mode)) or adv >= budget:
-                frozen = True
-                break
-            lam = v[0]
-            m = torch.max(v)
-            ev = ev * (v / m)
-            adv += 1
-        raw = matvec_plain(A, ev)
-    if not frozen:
-        v = raw / ev
-    return ev, v, torch.tensor(adv, dtype=torch.int32, device=A.device), lam
+    return _rounds_plain(
+        lambda e: matvec_plain(A, e), ev, v, lam, budget, chunk, eps, init, eps_mode
+    )
 
 
 @functools.lru_cache(maxsize=None)
@@ -197,3 +214,249 @@ def multiround(
 
 
 multiround.launches = 0
+
+
+#: The triangle kernel's default tile edge on Hopper.  The JAX default (512)
+#: was measured on a v5e, whose VMEM holds megabytes; a 512-edge f32 tile is
+#: 1 MiB, more than one block's 227 KB of shared memory.  128 divides every
+#: sym-tileable n, lets a 64 KiB tile sit resident beside the block's state,
+#: and costs 0.8% extra traffic at 8192² (the diagonal tiles' lower halves).
+#: An explicit ``tile`` (``block_rows`` in the config) wins.
+SYM_TILE = 128
+
+
+def sym_tile(n: int, tile: int = SYM_TILE) -> Optional[int]:
+    """Largest square tile edge ≤ ``tile`` that divides ``n`` and is a
+    multiple of 128 (the rule of the JAX package's ``sym_tile``); None if
+    the dim admits none."""
+    top = min(tile, n) // 128 * 128
+    return next((b for b in range(top, 127, -128) if n % b == 0), None)
+
+
+def sym_cache_split(n: int, bt: int, cache_tiles: int):
+    """Partition the upper-triangle tile grid into (streamed, cached), as
+    the JAX package's ``sym_cache_split``: up to ``cache_tiles`` strictly
+    off-diagonal tiles, those furthest from the diagonal first, are
+    cached; a negative count caches nothing.  Tuples of (i, j)."""
+    g = n // bt
+    offdiag = sorted(
+        ((i, j) for i in range(g) for j in range(i + 1, g)), key=lambda ij: ij[0] - ij[1]
+    )
+    c = max(0, min(cache_tiles, len(offdiag)))
+    streamed = tuple(sorted([(i, i) for i in range(g)] + offdiag[c:]))
+    return streamed, tuple(offdiag[:c])
+
+
+def _tile_split(n: int, bt: int, cache_tiles: int, sym: bool):
+    """(streamed, cached) tiles of the kernel: the triangle split, or in
+    dense tiled mode all g² tiles with up to g² − 1 cached, furthest from
+    the diagonal first (the JAX kernel's rule)."""
+    if sym:
+        return sym_cache_split(n, bt, cache_tiles)
+    g = n // bt
+    all_tiles = [(i, j) for i in range(g) for j in range(g)]
+    c = max(0, min(cache_tiles, len(all_tiles) - 1))
+    cached = tuple(sorted(all_tiles, key=lambda ij: -abs(ij[0] - ij[1]))[:c])
+    cset = set(cached)
+    return tuple(t for t in all_tiles if t not in cset), cached
+
+
+@functools.lru_cache(maxsize=None)
+def _tile_index(device: torch.device, n: int, bt: int, sym: bool):
+    """Row and column block of every tile the plain version reads, and
+    which of them give a transpose term, as index tensors (built once)."""
+    streamed, _ = _tile_split(n, bt, 0, sym)
+    ti = torch.tensor([i for i, _ in streamed], device=device)
+    tj = torch.tensor([j for _, j in streamed], device=device)
+    off = (ti != tj) if sym else torch.zeros_like(ti, dtype=torch.bool)
+    return ti, tj, off
+
+
+def tiled_matvec_plain(A: torch.Tensor, ev: torch.Tensor, bt: int, sym: bool) -> torch.Tensor:
+    """``A @ ev`` over square bt-edge tiles, reading only the upper block
+    triangle when ``sym``: each tile's row term ``T @ ev[j_blk]`` and, off
+    the diagonal, its transpose term ``ev[i_blk] @ T`` land in the slot of
+    their (row block, column block), and the slots are summed over column
+    blocks.  Batched f32 products (no TF32)."""
+    n = A.shape[0]
+    g = n // bt
+    ti, tj, off = _tile_index(A.device, n, bt, sym)
+    tiles = A.view(g, bt, g, bt)[ti, :, tj, :]  # (tiles, bt, bt): only these are read
+    evb = ev.view(g, bt)
+    part = A.new_zeros(g, g, bt)
+    part[ti, tj] = torch.bmm(tiles, evb[tj].unsqueeze(-1)).squeeze(-1)
+    if sym:
+        part[tj[off], ti[off]] = torch.bmm(evb[ti[off]].unsqueeze(1), tiles[off]).squeeze(1)
+    return part.sum(dim=1).reshape(n)
+
+
+def _check_tiled_knobs(formulation: str, mxu_tiles, fill_mode: str) -> None:
+    if formulation != "vpu":
+        raise ValueError(
+            f"formulation={formulation!r} is not ported: the triangle kernel has "
+            f"the 'vpu' reduction only (ROADMAP, Queue 2 item 3)"
+        )
+    if mxu_tiles is not None:
+        raise ValueError(
+            "mxu_tiles (the 'mixed' matrix-unit share of the resident tiles) is "
+            "not ported (ROADMAP, Queue 2 item 3)"
+        )
+    if fill_mode not in ("prologue", "pipelined"):
+        raise ValueError(f"unknown fill_mode {fill_mode!r}")
+    if fill_mode != "prologue":
+        raise ValueError(
+            f"fill_mode={fill_mode!r} (the wait-at-first-use cache fill) is not "
+            f"ported; the kernel fills its cache at the start of a launch "
+            f"(ROADMAP, Queue 2 item 3)"
+        )
+
+
+def _check_tiled(A, ev, v, chunk, eps_mode, tile) -> int:
+    """Shape/dtype checks of the tiled kernel; returns its tile edge."""
+    if A.dim() != 2 or A.shape[0] != A.shape[1]:
+        raise ValueError(f"A must be square, got shape {tuple(A.shape)}")
+    n = A.shape[0]
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    if eps_mode not in ("absolute", "relative"):
+        raise ValueError(f"unknown eps_mode {eps_mode!r}")
+    _check_f32("A", A, (n, n))
+    _check_f32("ev", ev, (n,))
+    _check_f32("v", v, (n,))
+    bt = sym_tile(n, tile)
+    if bt is None:
+        raise ValueError(
+            f"dim {n} admits no 128-aligned square tile for the symmetric "
+            f"kernel (need a divisor of n that is a multiple of 128, at most "
+            f"tile={tile}); use the dense multiround kernel"
+        )
+    return bt
+
+
+def multiround_sym_plain(
+    A: torch.Tensor,
+    ev: torch.Tensor,
+    v: torch.Tensor,
+    lam,
+    budget: int,
+    *,
+    chunk: int,
+    eps: float,
+    init: bool = False,
+    eps_mode: str = "absolute",
+    tile: int = SYM_TILE,
+    cache_tiles: int = 0,
+    sym: bool = True,
+):
+    """The rounds of :func:`multiround_plain` over :func:`tiled_matvec_plain`.
+    ``cache_tiles`` changes where tiles live, never the result, so the plain
+    version (which keeps nothing resident) accepts and ignores it."""
+    del cache_tiles
+    bt = _check_tiled(A, ev, v, chunk, eps_mode, tile)
+    return _rounds_plain(
+        lambda e: tiled_matvec_plain(A, e, bt, sym),
+        ev, v, lam, int(budget), chunk, eps, init, eps_mode,
+    )
+
+
+@functools.lru_cache(maxsize=None)
+def multiround_sym_plan(device: torch.device, n: int, bt: int, cache_tiles: int, sym: bool):
+    """Launch plan of the triangle kernel, built once per (device, n, bt,
+    cache_tiles, sym): the tile table on the card (streamed tiles, then
+    resident ones), their counts, the grid and the resident tiles per
+    block.  Resident tile s lives in block s % grid.  Raises ValueError
+    when the cache does not fit the card (a request is rejected, never
+    shrunk)."""
+    from . import build
+
+    streamed, cached = _tile_split(n, bt, cache_tiles, sym)
+    T, C = len(streamed), len(cached)
+    sms = cuda_limits(device).sms
+    slots0 = -(-C // sms)  # the grid holds at least one block per SM
+    if not multiround_sym_fits(n, bt, device, slots0):
+        most = sym_auto_cache_tiles(n, bt, device, sym)
+        raise ValueError(
+            f"cache_tiles={cache_tiles} does not fit the card: {slots0} resident "
+            f"{bt}x{bt} tiles per block need {sym_smem_bytes(n, bt, slots0)} bytes "
+            f"of shared memory; at most {most} tiles fit at n={n}"
+        )
+    with torch.cuda.device(device):
+        cap = build.load().evt_multiround_sym_grid(n, bt, slots0)
+    if cap < 0:
+        raise RuntimeError(f"multiround_sym occupancy query failed with cudaError {-cap}")
+    if cap == 0:
+        raise ValueError(f"n={n}, tile {bt}: one block of the triangle kernel does not fit")
+    grid = min(cap, max(T + C, -(-n // 1024), 1))
+    slots = -(-C // grid) if C else 0
+    tab = torch.tensor(streamed + cached, dtype=torch.int32, device=device).reshape(-1, 2)
+    return tab.contiguous(), T, C, grid, slots
+
+
+def multiround_sym(
+    A: torch.Tensor,
+    ev: torch.Tensor,
+    v: torch.Tensor,
+    lam,
+    budget: int,
+    *,
+    chunk: int,
+    eps: float,
+    init: bool = False,
+    eps_mode: str = "absolute",
+    tile: int = SYM_TILE,
+    cache_tiles: int = 0,
+    sym: bool = True,
+    formulation: str = "vpu",
+    mxu_tiles: Optional[int] = None,
+    fill_mode: str = "prologue",
+):
+    """Up to ``chunk`` matvec-form rounds in one launch of the tiled
+    kernel; semantics of :func:`multiround_plain`.  ``sym=True`` declares A
+    symmetric and reads only the upper block triangle; ``sym=False`` reads
+    all tiles (dense tiled mode).  ``cache_tiles`` tiles (off-diagonal
+    ones when ``sym``; clamped to the cacheable count, as in JAX) stay in
+    shared memory across the launch's rounds.  Returns
+    ``(ev, v, advanced, λ)``; results are bit-identical for every
+    ``cache_tiles`` and every chunking."""
+    _check_tiled_knobs(formulation, mxu_tiles, fill_mode)
+    bt = _check_tiled(A, ev, v, chunk, eps_mode, tile)
+    n = A.shape[0]
+    dev = tensor_device(A, ev, v)
+    lam = _as_scalar(lam, dev)
+    budget = int(budget)
+    if dev.type == "cpu":
+        return multiround_sym_plain(
+            A, ev, v, lam, budget, chunk=chunk, eps=eps, init=init, eps_mode=eps_mode,
+            tile=tile, cache_tiles=cache_tiles, sym=sym,
+        )
+    _check_aligned(n, A)
+    if not multiround_sym_fits(n, bt, dev):
+        raise ValueError(
+            f"n={n}: the triangle kernel keeps ev and its tile terms "
+            f"({sym_smem_bytes(n, bt)} bytes) in one block's shared memory, more "
+            f"than this card allows; use the dense multiround or matvec kernel"
+        )
+    from . import build
+
+    tab, T, C, grid, slots = multiround_sym_plan(dev, n, bt, int(cache_tiles), bool(sym))
+    ev_out = torch.empty(n, dtype=torch.float32, device=dev)
+    v_out = torch.empty(n, dtype=torch.float32, device=dev)
+    adv = torch.empty((), dtype=torch.int32, device=dev)
+    lam_out = torch.empty((), dtype=torch.float32, device=dev)
+    raw = torch.empty(n, dtype=torch.float32, device=dev)
+    part = torch.empty((n // bt) * n, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = build.load().evt_multiround_sym(
+            A.data_ptr(), tab.data_ptr(), T, C, slots,
+            ev.data_ptr(), v.data_ptr(), lam.data_ptr(), min(budget, 2**31 - 1),
+            ev_out.data_ptr(), v_out.data_ptr(), adv.data_ptr(), lam_out.data_ptr(),
+            raw.data_ptr(), part.data_ptr(), n, bt, min(chunk, 2**31 - 1), eps,
+            int(init), int(eps_mode == "relative"), int(sym), grid, stream,
+        )
+        _launch(rc, "multiround_sym")
+    multiround_sym.launches += 1
+    return ev_out, v_out, adv, lam_out
+
+
+multiround_sym.launches = 0

@@ -13,11 +13,14 @@ reference's: the stop is checked BEFORE the update, λ = v[0], rounds are
 
 Here the loop runs on the host with one stop read per round (JAX runs it
 as a ``lax.while_loop`` on the device); :func:`solve_multiround` moves up
-to ``chunk`` rounds into one kernel launch and reads one count per launch.
+to ``chunk`` rounds into one kernel launch (the stripes kernel, or the
+tiled triangle kernel for a declared-symmetric matrix) and reads one count
+per launch.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import NamedTuple, Optional
 
 import torch
@@ -132,29 +135,68 @@ def solve_multiround(
     ev0=None,
     eps_mode: str = "absolute",
     formulation: str = "vpu",
+    symmetric: bool = False,
+    tile: Optional[int] = None,
+    cache_tiles: int = 0,
+    mxu_tiles: Optional[int] = None,
+    fill_mode: str = "prologue",
 ) -> SolveResult:
-    """Matvec-form solve with up to ``chunk`` rounds per launch of the
-    multiround kernel (stripes form only).
+    """Matvec-form solve with up to ``chunk`` rounds per launch of a
+    multiround kernel.
 
-    Any split into chunks gives results bit-identical to
-    :func:`solve_matvec_kernel`: the kernel checks the stop before each round
-    and freezes where it fires, and the epilogue is the shared
-    :func:`_finish`.  The first launch (``init=True``) spends its round 0 on
-    the row-sum pass.  A launch that advanced fewer rounds than it had froze
-    (stop or budget), so the host reads only that count.  Once frozen the
-    kernel leaves its round loop, so an oversized chunk wastes no pass; the
-    default (None) is the whole budget, ``max_itr + 1`` rounds, in one
-    launch.
+    Any split into chunks gives bit-identical results: the kernel checks
+    the stop before each round and freezes where it fires, and the
+    epilogue is the shared :func:`_finish`.  The first launch
+    (``init=True``) spends its round 0 on the row-sum pass.  A launch that
+    advanced fewer rounds than it had froze (stop or budget), so the host
+    reads only that count.  Once frozen the kernel leaves its round loop,
+    so an oversized chunk wastes no pass; the default (None) is the whole
+    budget, ``max_itr + 1`` rounds, in one launch.
 
-    ``formulation`` keeps the JAX name: only "vpu" (the matvec kernel's
-    reduction order) exists here; "dot" is not ported (ROADMAP, Queue 2
-    item 2).
+    Without ``symmetric`` or a cache this is the stripes kernel, whose
+    v-sequence is bit-identical to :func:`solve_matvec_kernel`.
+    ``symmetric=True`` declares A symmetric and takes the tiled triangle
+    kernel (:func:`kernels.multiround_sym`), which reads only the upper
+    block triangle: a non-symmetric A gives a wrong answer, as with a BLAS
+    ``symv``.  ``cache_tiles > 0`` without the declaration takes the same
+    kernel in dense tiled mode.  ``tile`` (square edge, default
+    ``kernels.SYM_TILE``) is a tiled-kernel knob; the tiled kernel sums in
+    another order than the stripes one, so its results agree with the
+    stripes kernel's in rounds and within rounding.
+
+    ``formulation``, ``mxu_tiles`` and ``fill_mode`` keep the JAX names:
+    only "vpu" and the prologue fill exist here; the rest raise (ROADMAP,
+    Queue 2 items 2 and 3).
     """
-    if formulation != "vpu":
-        raise ValueError(
-            f"formulation={formulation!r} is not ported: the multiround kernel "
-            f"has the 'vpu' reduction only (ROADMAP, Queue 2 item 2)"
+    if symmetric or cache_tiles > 0:
+        kernel = partial(
+            kernels.multiround_sym,
+            tile=kernels.SYM_TILE if tile is None else tile,
+            cache_tiles=cache_tiles,
+            sym=symmetric,
+            formulation=formulation,
+            mxu_tiles=mxu_tiles,
+            fill_mode=fill_mode,
         )
+    else:
+        if formulation != "vpu":
+            raise ValueError(
+                f"formulation={formulation!r} is not ported: the multiround kernel "
+                f"has the 'vpu' reduction only (ROADMAP, Queue 2 item 2)"
+            )
+        if mxu_tiles is not None:
+            raise ValueError(
+                "mxu_tiles needs the tiled kernel (symmetric=True or "
+                "cache_tiles > 0) with formulation='mixed'"
+            )
+        if fill_mode != "prologue":
+            raise ValueError("fill_mode needs the tiled kernel with cache_tiles > 0")
+        if tile is not None:
+            raise ValueError(
+                f"tile={tile} is a tiled-kernel knob (symmetric=True or "
+                f"cache_tiles > 0); the stripes kernel streams full-width rows"
+            )
+        kernel = kernels.multiround
     n = A.shape[0]
     if ev0 is None:
         ev0 = torch.ones(n, dtype=A.dtype, device=A.device)
@@ -164,14 +206,12 @@ def solve_multiround(
         chunk = max_itr + 1
     kw = dict(chunk=chunk, eps=eps, eps_mode=eps_mode)
     zero = torch.zeros((), dtype=A.dtype, device=A.device)
-    ev, v, adv, lam = kernels.multiround(A, ev0, ev0, zero, max_itr, init=True, **kw)
+    ev, v, adv, lam = kernel(A, ev0, ev0, zero, max_itr, init=True, **kw)
     adv = int(adv)
     c = _Carry(ev, v, lam, adv)
     frozen = adv < chunk - 1  # round 0 of the first launch is the row-sum pass
     while not frozen and c.i < max_itr:
-        ev, v, adv, lam = kernels.multiround(
-            A, c.ev, c.v, c.lam, max_itr - c.i, init=False, **kw
-        )
+        ev, v, adv, lam = kernel(A, c.ev, c.v, c.lam, max_itr - c.i, init=False, **kw)
         adv = int(adv)
         c = _Carry(ev, v, lam, c.i + adv)
         frozen = adv < chunk

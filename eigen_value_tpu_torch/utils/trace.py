@@ -2,8 +2,10 @@
 
     python -m eigen_value_tpu_torch.utils.trace [--n 8192] [--solves 5]
 
-For each arm of a Hilbert n² solve (the multiround kernel, the matvec
-kernel loop, the plain ``torch.mv`` loop) it times ``--solves`` solves with
+For each arm of a Hilbert n² solve (the stripes multiround kernel, the
+triangle kernel streaming and with the card's auto tile cache, the dense
+tiled kernel with that cache, the matvec kernel loop, the plain
+``torch.mv`` loop) it times ``--solves`` solves with
 CUDA events, then traces as many more under ``torch.profiler`` and adds up
 the device intervals (kernels, copies, fills) the trace holds.  Prints one
 JSON object per arm:
@@ -29,6 +31,7 @@ import json
 import sys
 import time
 from collections import defaultdict
+from functools import partial
 from typing import Iterable, Tuple
 
 import torch
@@ -90,14 +93,26 @@ def main(argv=None) -> int:
         raise SystemExit("FAILED: no CUDA device")
 
     from .. import EPS, MAX_ITR, fixtures
+    from ..device import sym_auto_cache_tiles
+    from ..ops.cuda.kernels import SYM_TILE, sym_tile
     from ..ops.solver_matvec import solve_matvec, solve_matvec_kernel, solve_multiround
 
     H = fixtures.hilbert_matrix(args.n, device="cuda")
-    arms = {
-        "multiround kernel": lambda: solve_multiround(H, EPS, MAX_ITR),
+    bt = sym_tile(args.n, SYM_TILE)
+    multi = partial(solve_multiround, H, EPS, MAX_ITR)
+    arms = {"multiround kernel": multi}
+    if bt is not None:
+        cache = sym_auto_cache_tiles(args.n, bt, H.device)
+        dense_cache = sym_auto_cache_tiles(args.n, bt, H.device, sym=False)
+        arms.update({
+            "triangle kernel, streaming": partial(multi, symmetric=True, cache_tiles=0),
+            f"triangle kernel, cache {cache}": partial(multi, symmetric=True, cache_tiles=cache),
+            f"dense tiled kernel, cache {dense_cache}": partial(multi, cache_tiles=dense_cache),
+        })
+    arms.update({
         "matvec kernel loop": lambda: solve_matvec_kernel(H, EPS, MAX_ITR),
         "torch.mv loop (plain)": lambda: solve_matvec(H, EPS, MAX_ITR),
-    }
+    })
     for name, fn in arms.items():
         print(json.dumps({"arm": name, "n": args.n, **trace_arm(fn, args.solves)}), flush=True)
     return 0

@@ -15,6 +15,7 @@ torch = pytest.importorskip("torch")
 import eigen_value_tpu_torch as evt  # noqa: E402
 from eigen_value_tpu_torch import fixtures as tfx  # noqa: E402
 from eigen_value_tpu_torch.api import resolve_backend  # noqa: E402
+from eigen_value_tpu_torch.device import sym_auto_cache_tiles  # noqa: E402
 from eigen_value_tpu_torch.ops.cuda import kernels as tk  # noqa: E402
 from eigen_value_tpu_torch.ops.solver_matvec import (  # noqa: E402
     solve_matvec_kernel,
@@ -105,3 +106,103 @@ def test_auto_backend_solves_through_the_kernel(cuda, n):
         want = solve_matvec_kernel(A, EPS, MAX_ITR)
         assert torch.equal(got.eigenvector, want.eigenvector)
         assert int(got.rounds) == int(want.rounds)
+
+
+# --- the triangle kernel (csrc/multiround_sym.cu) ---------------------------
+
+
+def _below_block_diagonal(n, bt, device):
+    blk = torch.arange(n, device=device) // bt
+    return blk[:, None] > blk[None, :]
+
+
+def _same(got, want):
+    assert int(got.rounds) == int(want.rounds)
+    assert torch.equal(got.eigenvalue, want.eigenvalue)
+    assert torch.equal(got.eigenvector, want.eigenvector)
+
+
+@pytest.mark.parametrize("cache", [0, "auto"])
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("init", [True, False])
+@pytest.mark.parametrize("n", [384, 1024])
+def test_multiround_sym_matches_plain(cuda, n, init, sym, cache):
+    # the dense mode gets an asymmetric Hilbert: rounding stays far below the stop
+    A = tfx.hilbert_matrix(n, device=cuda)
+    if not sym:
+        A = A * (1 + 0.25 * torch.rand(n, n, generator=torch.Generator().manual_seed(n)).to(cuda))
+    cache_tiles = sym_auto_cache_tiles(n, 128, cuda, sym=sym) if cache else 0
+    assert not cache or cache_tiles > 0
+    ev = torch.ones(n, device=cuda)
+    v, lam = ev, torch.zeros((), device=cuda)
+    kw = dict(chunk=5, eps=EPS, tile=128, sym=sym)
+    if not init:
+        ev, v, _, lam = tk.multiround_sym_plain(A, ev, ev, lam, MAX_ITR, init=True, **kw)
+    before = tk.multiround_sym.launches
+    got = tk.multiround_sym(A, ev, v, lam, MAX_ITR, init=init, cache_tiles=cache_tiles, **kw)
+    want = tk.multiround_sym_plain(A, ev, v, lam, MAX_ITR, init=init, **kw)
+    assert tk.multiround_sym.launches == before + 1
+    assert int(got[2]) == int(want[2])
+    for g_, w in zip((got[0], got[1], got[3]), (want[0], want[1], want[3])):
+        torch.testing.assert_close(g_, w, rtol=1e-5, atol=0)
+
+
+def test_multiround_sym_invariances(cuda):
+    n = 1024
+    H = tfx.hilbert_matrix(n, device=cuda)
+    auto = sym_auto_cache_tiles(n, 128, cuda)
+    base = solve_multiround(H, EPS, MAX_ITR, symmetric=True, cache_tiles=0)
+    assert int(base.rounds) == tfx.HILBERT_ROUNDS[n]
+    for cache in (3, auto):
+        _same(solve_multiround(H, EPS, MAX_ITR, symmetric=True, cache_tiles=cache), base)
+    for chunk in (1, 5, 18):
+        _same(solve_multiround(H, EPS, MAX_ITR, chunk=chunk, symmetric=True, cache_tiles=auto),
+              base)
+    bad = torch.where(_below_block_diagonal(n, 128, cuda), torch.full_like(H, 7.25), H)
+    _same(solve_multiround(bad, EPS, MAX_ITR, symmetric=True, cache_tiles=auto), base)
+    _same(solve_multiround(H, EPS, MAX_ITR, symmetric=True, cache_tiles=0), base)
+
+
+def test_multiround_sym_rejects_a_cache_the_card_cannot_hold(cuda):
+    n = 8192
+    H = tfx.hilbert_matrix(n, device=cuda)
+    most = sym_auto_cache_tiles(n, 128, cuda)
+    ev = torch.ones(n, device=cuda)
+    before = tk.multiround_sym.launches
+    with pytest.raises(ValueError, match="does not fit"):
+        tk.multiround_sym(H, ev, ev, 0.0, MAX_ITR, chunk=2, eps=EPS, cache_tiles=most + 200)
+    assert tk.multiround_sym.launches == before
+
+
+@pytest.mark.parametrize("n", sorted(tfx.HILBERT_ROUNDS))
+def test_symmetric_path_keeps_the_hilbert_table(cuda, n):
+    H = tfx.hilbert_matrix(n, device=cuda)
+    assert resolve_backend(evt.SolverConfig(symmetric=True), n, cuda) == "multiround"
+    plain = evt.max_eigenvalue(H, evt.SolverConfig(backend="matvec"))
+    for kw in (dict(config=evt.SolverConfig(symmetric=True)), dict(validate=True)):
+        before = tk.multiround_sym.launches
+        res = evt.max_eigenvalue(H, **kw)
+        assert tk.multiround_sym.launches > before
+        assert int(res.rounds) == tfx.HILBERT_ROUNDS[n] and bool(res.converged)
+        assert float(res.eigenvalue) == pytest.approx(float(plain.eigenvalue), rel=1e-5)
+        assert float(evt.eigen_residual(H, res)) < 1e-3
+
+
+def test_validate_does_not_promote_an_asymmetric_matrix(cuda):
+    A = tfx.hilbert_matrix(512, device=cuda)
+    A[0, 1] += 1.0
+    before = (tk.multiround.launches, tk.multiround_sym.launches)
+    evt.max_eigenvalue(A, validate=True)
+    assert (tk.multiround.launches, tk.multiround_sym.launches) == (before[0] + 1, before[1])
+
+
+def test_dense_tiled_cached_solve(cuda):
+    H = tfx.hilbert_matrix(2048, device=cuda)
+    cache = sym_auto_cache_tiles(2048, 128, cuda, sym=False)
+    cfg = evt.SolverConfig(backend="multiround", cache_tiles=cache)
+    before = tk.multiround_sym.launches
+    res = evt.max_eigenvalue(H, cfg)
+    assert tk.multiround_sym.launches == before + 1
+    assert int(res.rounds) == tfx.HILBERT_ROUNDS[2048]
+    want = solve_matvec_kernel(H, EPS, MAX_ITR)
+    torch.testing.assert_close(res.eigenvector, want.eigenvector, rtol=1e-4, atol=0)

@@ -182,8 +182,12 @@ def test_config_validation_mirrors_jax(kw):
 def test_not_ported_errors_name_the_roadmap():
     with pytest.raises(ValueError, match="ROADMAP"):
         _reject_cases()["storage_dtype"]()
+    H = tfx.hilbert_matrix(128)
     with pytest.raises(ValueError, match="ROADMAP"):
-        _reject_cases()["symmetric+multiround"]()
+        solve_multiround(H, EPS, MAX_ITR, symmetric=True, formulation="dot")
+    with pytest.raises(ValueError, match="ROADMAP"):
+        solve_multiround(H, EPS, MAX_ITR, symmetric=True, cache_tiles=1,
+                         fill_mode="pipelined")
 
 
 def test_symmetric_under_auto_is_consumed_by_the_dense_solve():

@@ -1,0 +1,388 @@
+"""The symmetric (upper-triangle) path of the port against the JAX package.
+
+``kernels.multiround_sym`` and ``solve_multiround(symmetric=True)`` on the
+CPU run the plain tiled version; JAX runs ``multiround_sym`` with
+``interpret=True``, as tests/test_multiround_sym.py does.  Inputs are made
+with numpy from a seed (or are the bitwise-equal Hilbert fixtures) and
+handed to both.  Routing on a card is tested with a fake CUDA device: the
+card's limits are patched in, nothing is launched.  The kernel itself is
+tested on the card by tests/test_torch_cuda.py.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from eigen_value_tpu import SolverConfig as JaxConfig  # noqa: E402
+from eigen_value_tpu import fixtures as jfx  # noqa: E402
+from eigen_value_tpu import max_eigenvalue as jax_max_eigenvalue  # noqa: E402
+from eigen_value_tpu.ops.pallas import kernels as jk  # noqa: E402
+from eigen_value_tpu.ops.solver_matvec import solve_matvec as jax_solve_matvec  # noqa: E402
+from eigen_value_tpu.ops.solver_matvec import solve_multiround as jax_solve_multiround  # noqa: E402
+import eigen_value_tpu_torch as evt  # noqa: E402
+from eigen_value_tpu_torch import api, device  # noqa: E402
+from eigen_value_tpu_torch import fixtures as tfx  # noqa: E402
+from eigen_value_tpu_torch.ops.cuda import kernels as tk  # noqa: E402
+from eigen_value_tpu_torch.ops.solver_matvec import solve_multiround  # noqa: E402
+
+EPS, MAX_ITR = 1e-3, 1000
+H100 = device.CudaLimits(sms=132, smem_per_block_optin=232448)
+
+
+def _sym(n, seed=3, scale=1.0):
+    """A random symmetric matrix with all entries > 0 (numpy)."""
+    r = np.random.default_rng(seed).random((n, n), np.float32) + np.float32(0.1)
+    return ((r + r.T) * np.float32(scale)).astype(np.float32)
+
+
+def _below_block_diagonal(n, bt):
+    blk = np.arange(n) // bt
+    return blk[:, None] > blk[None, :]
+
+
+def _corrupt(a, bt, value=7.25):
+    return np.where(_below_block_diagonal(a.shape[0], bt), np.float32(value), a)
+
+
+def _solve_sym(A, chunk=18, **kw):
+    return solve_multiround(torch.as_tensor(A), EPS, MAX_ITR, chunk=chunk, symmetric=True, **kw)
+
+
+def _same(got, want):
+    assert int(got.rounds) == int(want.rounds)
+    assert bool(got.converged) == bool(want.converged)
+    assert torch.equal(got.eigenvalue, want.eigenvalue)
+    assert torch.equal(got.eigenvector, want.eigenvector)
+
+
+@pytest.fixture
+def fake_h100(monkeypatch):
+    """A CUDA device whose limits are an H100's; nothing may launch on it."""
+    monkeypatch.setattr(device, "cuda_limits", lambda dev: H100)
+    return torch.device("cuda", 0)
+
+
+# --- tile rules, held equal to JAX's -----------------------------------------
+
+
+@pytest.mark.parametrize(
+    "n, tile",
+    [(8192, 512), (8192, 1024), (1024, 512), (640, 512), (384, 512), (96, 512),
+     (3, 512), (8200, 512), (8192, 128), (384, 128), (256, 100)],
+)
+def test_sym_tile_matches_jax(n, tile):
+    assert tk.sym_tile(n, tile) == jk.sym_tile(n, tile)
+
+
+@pytest.mark.parametrize("n, bt, c", [(8192, 512, 0), (8192, 512, 96), (8192, 512, 10_000),
+                                      (8192, 512, -1), (512, 128, 3), (8192, 128, 264)])
+def test_sym_cache_split_matches_jax(n, bt, c):
+    assert tk.sym_cache_split(n, bt, c) == jk.sym_cache_split(n, bt, c)
+
+
+def test_dense_tile_split_covers_every_tile_once():
+    streamed, cached = tk._tile_split(384, 128, 5, sym=False)
+    assert len(cached) == 5 and len(streamed) == 4
+    assert sorted(streamed + cached) == [(i, j) for i in range(3) for j in range(3)]
+    assert all(abs(i - j) == 2 for i, j in cached[:2])  # furthest first
+    assert len(tk._tile_split(384, 128, 100, sym=False)[1]) == 8  # one tile streams
+
+
+def test_sym_auto_cache_tiles_from_the_cards_limits(fake_h100):
+    # 232448 - 1024 - 4 * (8192 + 32*128) = 182272 bytes: two 64 KiB
+    # tiles per block, one block per SM
+    assert device.sym_auto_cache_tiles(8192, 128, fake_h100) == 264
+    assert device.sym_auto_cache_tiles(8192, 128, fake_h100, sym=False) == 264
+    assert device.sym_auto_cache_tiles(384, 128, fake_h100) == 3  # g(g-1)/2
+    assert device.sym_auto_cache_tiles(384, 128, fake_h100, sym=False) == 8  # g² - 1
+    assert device.sym_auto_cache_tiles(8192, 512, fake_h100) == 0  # a 1 MiB tile
+    assert device.sym_auto_cache_tiles(32768, 128, fake_h100) == 132  # one a block
+    assert device.sym_auto_cache_tiles(40960, 128, fake_h100) == 0  # none beside ev
+    assert device.sym_auto_cache_tiles(8192, 128, torch.device("cpu")) == 0
+
+
+# --- kernel: plain version against the JAX kernel in interpret mode ----------
+
+
+def _jax_state(A, init_chunk=3):
+    ev0 = jnp.ones((A.shape[0],), jnp.float32)
+    ev, v, _, lam = jk.multiround(jnp.asarray(A), ev0, ev0, 0.0, 1000, chunk=init_chunk,
+                                  eps=EPS, init=True, interpret=True)
+    return np.asarray(ev), np.asarray(v), np.asarray(lam)
+
+
+@pytest.mark.parametrize("cache_tiles", [0, 3])
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("chunk", [1, 4])
+@pytest.mark.parametrize("init", [True, False])
+@pytest.mark.parametrize("n", [256, 512])
+def test_multiround_sym_plain_matches_pallas(n, init, chunk, sym, cache_tiles):
+    # the triangle mode gets a symmetric matrix, the dense mode a general one
+    A = np.asarray(jfx.hilbert_matrix(n)) if sym else (
+        np.random.default_rng(n).random((n, n), np.float32) + np.float32(0.1))
+    if init:
+        ev = v = np.ones(n, np.float32)
+        lam = np.float32(0.0)
+    else:
+        ev, v, lam = _jax_state(A)
+    kw = dict(chunk=chunk, eps=EPS, init=init, tile=128, cache_tiles=cache_tiles, sym=sym)
+    want = jk.multiround_sym(jnp.asarray(A), jnp.asarray(ev), jnp.asarray(v),
+                             jnp.asarray(lam), 1000, interpret=True, **kw)
+    before = tk.multiround_sym.launches
+    got = tk.multiround_sym(torch.tensor(A), torch.tensor(ev), torch.tensor(v),
+                            torch.tensor(lam), 1000, **kw)
+    assert tk.multiround_sym.launches == before  # a CPU tensor runs the plain version
+    assert int(got[2]) == int(want[2])
+    for g, w in zip((got[0], got[1], got[3]), (want[0], want[1], want[3])):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5)
+
+
+@pytest.mark.parametrize("budget", [0, 2])
+def test_multiround_sym_budget_freeze_matches_pallas(budget):
+    A = np.asarray(jfx.hilbert_matrix(256))
+    ev, v, lam = _jax_state(A)
+    want = jk.multiround_sym(jnp.asarray(A), jnp.asarray(ev), jnp.asarray(v), jnp.asarray(lam),
+                             budget, chunk=6, eps=EPS, tile=128, interpret=True)
+    got = tk.multiround_sym(torch.tensor(A), torch.tensor(ev), torch.tensor(v),
+                            torch.tensor(lam), budget, chunk=6, eps=EPS, tile=128)
+    assert int(got[2]) == int(want[2]) == budget
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=1e-5)
+
+
+def test_tiled_matvec_plain_reads_only_the_upper_block_triangle():
+    a = _sym(512)
+    x = torch.from_numpy(np.random.default_rng(1).random(512, np.float32) + np.float32(0.5))
+    want = torch.from_numpy(a).double() @ x.double()
+    got = tk.tiled_matvec_plain(torch.from_numpy(_corrupt(a, 128)), x, 128, sym=True)
+    assert float(((got.double() - want).abs() / want).max()) < 1e-6
+    dense = np.random.default_rng(2).random((384, 384), np.float32)
+    got = tk.tiled_matvec_plain(torch.from_numpy(dense), x[:384], 128, sym=False)
+    np.testing.assert_allclose(got.numpy(), dense @ x[:384].numpy(), rtol=1e-5)
+
+
+def test_multiround_sym_wrapper_rejects():
+    H, ev = tfx.hilbert_matrix(256), torch.ones(256)
+    call = lambda **kw: tk.multiround_sym(H, ev, ev, 0.0, 10, **{"chunk": 2, "eps": EPS, **kw})  # noqa: E731
+    for kw, match in [
+        (dict(formulation="dot"), "ROADMAP"),
+        (dict(formulation="mixed", cache_tiles=2), "ROADMAP"),
+        (dict(cache_tiles=2, mxu_tiles=1), "ROADMAP"),
+        (dict(cache_tiles=2, fill_mode="pipelined"), "ROADMAP"),
+        (dict(cache_tiles=2, fill_mode="bogus"), "unknown fill_mode"),
+        (dict(chunk=0), "chunk"),
+        (dict(eps_mode="rel"), "eps_mode"),
+        (dict(tile=100), "128-aligned"),
+    ]:
+        with pytest.raises(ValueError, match=match):
+            call(**kw)
+    with pytest.raises(ValueError, match="128-aligned"):
+        tk.multiround_sym(tfx.hilbert_matrix(96), torch.ones(96), torch.ones(96), 0.0, 10,
+                          chunk=2, eps=EPS)
+    with pytest.raises(ValueError, match="shape"):
+        tk.multiround_sym(H, torch.ones(255), ev, 0.0, 10, chunk=2, eps=EPS)
+    with pytest.raises(ValueError, match="float32"):
+        tk.multiround_sym(H.double(), ev.double(), ev.double(), 0.0, 10, chunk=2, eps=EPS)
+
+
+# --- the solve against JAX ---------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [128, 256, 512])
+def test_symmetric_solve_round_parity_matches_jax(n):
+    H = jfx.hilbert_matrix(n)
+    want = jax_solve_multiround(H, EPS, MAX_ITR, chunk=18, interpret=True, symmetric=True,
+                                tile=128)
+    got = _solve_sym(tfx.hilbert_matrix(n))
+    assert int(got.rounds) == int(want.rounds) == tfx.HILBERT_ROUNDS[n]
+    assert bool(got.converged)
+    assert float(got.eigenvalue) == pytest.approx(float(want.eigenvalue), rel=1e-5)
+    np.testing.assert_allclose(got.eigenvector.numpy(), np.asarray(want.eigenvector), rtol=1e-4)
+    dense = jax_solve_matvec(H, EPS, MAX_ITR)
+    np.testing.assert_allclose(got.eigenvector.numpy(), np.asarray(dense.eigenvector), rtol=1e-4)
+
+
+@pytest.mark.parametrize("n", [128, 256, 512])
+def test_symmetric_api_path_matches_jax(n):
+    cfg = dict(backend="multiround", symmetric=True, block_rows=128)
+    want = jax_max_eigenvalue(jfx.hilbert_matrix(n), JaxConfig(interpret=True, **cfg))
+    got = evt.max_eigenvalue(tfx.hilbert_matrix(n), evt.SolverConfig(**cfg), validate=True)
+    assert int(got.rounds) == int(want.rounds) == tfx.HILBERT_ROUNDS[n]
+    assert float(got.eigenvalue) == pytest.approx(float(want.eigenvalue), rel=1e-5)
+    np.testing.assert_allclose(got.eigenvector.numpy(), np.asarray(want.eigenvector), rtol=1e-4)
+
+
+@pytest.mark.parametrize("cap", [0, 1, 9, 10])
+def test_cap_exhaustion_matches_jax(cap):
+    H = tfx.hilbert_matrix(256)
+    want = jax_solve_multiround(jfx.hilbert_matrix(256), EPS, cap, chunk=50, interpret=True,
+                                symmetric=True, tile=128)
+    got = solve_multiround(H, EPS, cap, chunk=4, symmetric=True)
+    assert int(got.rounds) == int(want.rounds) == min(cap, tfx.HILBERT_ROUNDS[256])
+    assert bool(got.converged) == bool(want.converged) == (cap > tfx.HILBERT_ROUNDS[256])
+    if cap == 0:
+        assert float(got.eigenvalue) == float(want.eigenvalue) == 0.0
+    else:
+        assert float(got.eigenvalue) == pytest.approx(float(want.eigenvalue), rel=1e-5)
+    _same(got, solve_multiround(H, EPS, cap, chunk=50, symmetric=True))
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 5, 16, 40])
+def test_chunk_boundaries_are_invisible(chunk):
+    H = tfx.hilbert_matrix(256)
+    _same(_solve_sym(H, chunk=chunk), _solve_sym(H, chunk=18))
+
+
+@pytest.mark.parametrize("n, cache_tiles", [(256, 0), (512, 3), (512, 6)])
+def test_lower_block_triangle_is_never_read(n, cache_tiles):
+    a = _sym(n)
+    want = _solve_sym(a, cache_tiles=cache_tiles)
+    got = _solve_sym(_corrupt(a, 128), cache_tiles=cache_tiles)
+    _same(got, want)
+    _same(_solve_sym(a), want)  # the cache changes nothing
+
+
+def test_relative_eps_mode_matches_jax():
+    a = _sym(128, scale=1e5)
+    want = jax_solve_matvec(jnp.asarray(a), EPS, MAX_ITR, eps_mode="relative")
+    got = _solve_sym(a, eps_mode="relative")
+    assert int(got.rounds) == int(want.rounds) and bool(got.converged)
+    assert float(got.eigenvalue) == pytest.approx(float(want.eigenvalue), rel=1e-5)
+
+
+def test_dense_cached_mode_matches_jax():
+    a = np.random.default_rng(11).random((384, 384), np.float32) + np.float32(0.1)
+    want = jax_solve_matvec(jnp.asarray(a), EPS, MAX_ITR)
+    for c in (1, 5):
+        got = solve_multiround(torch.from_numpy(a), EPS, MAX_ITR, chunk=5, cache_tiles=c)
+        assert int(got.rounds) == int(want.rounds) and bool(got.converged)
+        assert float(got.eigenvalue) == pytest.approx(float(want.eigenvalue), rel=1e-5)
+    one = solve_multiround(torch.from_numpy(a), EPS, MAX_ITR, chunk=1, cache_tiles=3)
+    _same(one, solve_multiround(torch.from_numpy(a), EPS, MAX_ITR, chunk=18, cache_tiles=3))
+
+
+def test_solve_multiround_knob_rules():
+    H = tfx.hilbert_matrix(256)
+    with pytest.raises(ValueError, match="tiled-kernel knob"):
+        solve_multiround(H, EPS, MAX_ITR, tile=128)
+    with pytest.raises(ValueError, match="mxu_tiles"):
+        solve_multiround(H, EPS, MAX_ITR, mxu_tiles=1)
+    with pytest.raises(ValueError, match="fill_mode"):
+        solve_multiround(H, EPS, MAX_ITR, fill_mode="pipelined")
+    with pytest.raises(ValueError, match="128-aligned"):
+        solve_multiround(tfx.hilbert_matrix(96), EPS, MAX_ITR, symmetric=True)
+
+
+# --- routing: the honored-or-rejected contract -------------------------------
+
+
+def test_explicit_multiround_uses_the_triangle():
+    a = _sym(256)
+    cfg = evt.SolverConfig(backend="multiround", symmetric=True, block_rows=128)
+    _same(evt.max_eigenvalue(_corrupt(a, 128, 9.5), cfg), evt.max_eigenvalue(a, cfg))
+
+
+def test_block_rows_is_the_tile_edge():
+    cpu = torch.device("cpu")
+    fn = api._solve_fn(evt.SolverConfig(backend="multiround", symmetric=True, block_rows=256),
+                       "multiround", 384, cpu)
+    assert fn.keywords["tile"] == 256 and fn.keywords["symmetric"] is True
+    # 384 has no 128-multiple divisor at most 256 but 128: sym_tile picks 128
+    res = evt.max_eigenvalue(tfx.hilbert_matrix(384), evt.SolverConfig(
+        backend="multiround", symmetric=True, block_rows=256))
+    assert bool(res.converged)
+    with pytest.raises(ValueError, match="block_rows"):  # the stripes kernel takes none
+        evt.max_eigenvalue(tfx.hilbert_matrix(384), evt.SolverConfig(
+            backend="multiround", block_rows=128))
+
+
+def test_cache_tiles_routing(fake_h100):
+    def kw(n=8192, **cfg):
+        return api._solve_fn(evt.SolverConfig(**cfg), "multiround", n, fake_h100).keywords
+
+    assert kw(backend="multiround", symmetric=True)["cache_tiles"] == 264  # the card's budget
+    assert kw(backend="multiround", symmetric=True)["tile"] == tk.SYM_TILE
+    assert kw(backend="multiround", symmetric=True, cache_tiles=0)["cache_tiles"] == 0
+    assert kw(backend="multiround", symmetric=True, cache_tiles=7)["cache_tiles"] == 7
+    # dense: the stripes kernel unless a cache is asked for explicitly
+    assert "cache_tiles" not in kw(backend="multiround")
+    assert "cache_tiles" not in kw(backend="multiround", cache_tiles=0)
+    dense = kw(backend="multiround", cache_tiles=5)
+    assert dense["cache_tiles"] == 5 and "symmetric" not in dense
+    with pytest.raises(ValueError, match="128-aligned"):
+        kw(8200, backend="multiround", cache_tiles=4)
+    with pytest.raises(ValueError, match="cache_tiles"):
+        api._solve_fn(evt.SolverConfig(backend="matvec", cache_tiles=4), "matvec", 512,
+                      torch.device("cpu"))
+    # the explicit and the auto cache give the same answer (CPU: plain version)
+    H = tfx.hilbert_matrix(512)
+    _same(evt.max_eigenvalue(H, evt.SolverConfig(backend="multiround", symmetric=True)),
+          evt.max_eigenvalue(H, evt.SolverConfig(backend="multiround", symmetric=True,
+                                                 cache_tiles=0)))
+
+
+def test_auto_routes_a_declared_symmetric_matrix_to_the_triangle_on_a_card(fake_h100):
+    sym = evt.SolverConfig(symmetric=True)
+    for n in (128, 384, 8192):
+        assert api.resolve_backend(sym, n, fake_h100) == "multiround"
+        assert api._solve_fn(sym, "multiround", n, fake_h100).keywords["symmetric"] is True
+    # an unalignable n keeps the stripes kernel, which has no cache
+    assert api.resolve_backend(sym, 8200, fake_h100) == "multiround"
+    assert "symmetric" not in api._solve_fn(sym, "multiround", 8200, fake_h100).keywords
+    with pytest.raises(ValueError, match="128-aligned"):
+        api._solve_fn(evt.SolverConfig(symmetric=True, cache_tiles=4), "multiround", 8200,
+                      fake_h100)
+    # past the triangle kernel's shared memory (ev and the warps' column
+    # sums) but inside the stripes kernel's (ev only)
+    assert not device.multiround_sym_fits(54272, 128, fake_h100)
+    assert "symmetric" not in api._solve_fn(sym, "multiround", 54272, fake_h100).keywords
+    assert api.resolve_backend(sym, 54272, fake_h100) == "multiround"
+    # dense auto stays on the stripes kernel
+    assert "tile" not in api._solve_fn(evt.SolverConfig(), "multiround", 8192, fake_h100).keywords
+    assert api.resolve_backend(sym, 8192, torch.device("cpu")) == "matvec"
+
+
+def test_validate_promotes_only_where_the_triangle_would_run(fake_h100):
+    auto = evt.SolverConfig()
+    cand = api._promotion(auto, 8192, fake_h100)
+    assert cand is not None and cand.symmetric and cand.backend == "auto"
+    assert api._promotion(auto, 8200, fake_h100) is None  # unalignable
+    assert api._promotion(evt.SolverConfig(block_rows=100), 8192, fake_h100) is None
+    assert api._promotion(evt.SolverConfig(backend="multiround"), 8192, fake_h100) is None
+    assert api._promotion(evt.SolverConfig(symmetric=True), 8192, fake_h100) is None
+    assert api._promotion(auto, 8192, torch.device("cpu")) is None  # off the card, as JAX
+
+
+def test_auto_consumes_the_declaration_on_cpu():
+    H = tfx.hilbert_matrix(256)
+    _same(evt.max_eigenvalue(H, evt.SolverConfig(symmetric=True)), evt.max_eigenvalue(H))
+
+
+@pytest.mark.parametrize("backend", ["matvec", "matvec_pallas", "xla", "pallas"])
+def test_explicit_other_backend_rejects(backend):
+    with pytest.raises(ValueError, match="symmetric|not ported"):
+        evt.max_eigenvalue(tfx.hilbert_matrix(128), evt.SolverConfig(backend=backend,
+                                                                     symmetric=True))
+
+
+def test_validate_checks_the_promise():
+    a = _sym(128)
+    a[3, 2] += np.float32(0.5)
+    with pytest.raises(ValueError, match="not bitwise symmetric"):
+        evt.max_eigenvalue(a, evt.SolverConfig(backend="multiround", symmetric=True),
+                           validate=True)
+    with pytest.raises(ValueError, match="entries > 0"):
+        evt.max_eigenvalue(-_sym(128), evt.SolverConfig(backend="multiround", symmetric=True),
+                           validate=True)
+
+
+def test_validate_on_device_reads_both_checks():
+    a = torch.from_numpy(_sym(64))
+    assert api._validate_on_device(a, True) == (True, True)
+    assert api._validate_on_device(a, False) == (True, False)
+    b = a.clone()
+    b[0, 1] = 5.0
+    assert api._validate_on_device(b, True) == (True, False)
+    assert api._validate_on_device(-a, True) == (False, True)
