@@ -21,9 +21,22 @@ invariances at 8192² (tile cache, chunking, the lower block triangle,
 a repeated launch, all bit-identical); and, with the launch counters read
 around exactly these calls, ``max_eigenvalue(H, SolverConfig(symmetric=True))``
 and the ``validate=True`` promotion over the Hilbert table, plus one dense
-tiled-cached solve at 8192².  Uses torch only (no jax).  Exits non-zero,
-without the final result line, on any failed check or when there is no
-CUDA device.
+tiled-cached solve at 8192².
+
+The iterated (mutate-A) path: the ``rowsum``, ``rowsum_bias``, ``scale``
+and ``scale_rowsum`` kernels (csrc/rowsum.cu, csrc/scale.cu) against their
+plain versions and their bit identities (``rowsum == matvec(·, ones)``,
+``scale == scale_plain`` in and out of place, ``scale_rowsum == (scale,
+rowsum)``); then, with the launch counters read around exactly these
+calls, ``max_eigenvalue(·, SolverConfig(backend="pallas"))`` over the
+Hilbert table, the 3×3 anchor (a host array, so it goes to the card) and a
+random positive 1000², held to ``backend="xla"`` (the plain versions on the
+card) with the caller's matrix bitwise unchanged; and the kernel ladder
+``bench_kernels(dims=[8192])``, whose rungs launch ``rowsum_bias``,
+``scale``, ``scale_rowsum`` and ``matvec``.
+
+Uses torch only (no jax).  Exits non-zero, without the final result line,
+on any failed check or when there is no CUDA device.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -42,6 +55,7 @@ SEED = 20261016
 PLAIN_TOL = 2e-5  # matvec against an f64 product: row error ~ sqrt(terms) ulps
 PARITY_REL = 1e-5  # λ against the plain loop (float32 up to 8192², float64 at BIG_N)
 H100_SXM_GBPS = 3350.0  # NVIDIA's data sheet, at the full 700 W
+H100_SXM_F32_TFLOPS = 67.0  # the same sheet: float32 outside the tensor cores
 BIG_N = 65536  # beyond the multiround kernel's shared-memory limit (57856 on an H100)
 
 
@@ -76,8 +90,11 @@ def main() -> int:
     import eigen_value_tpu_torch as evt
     from eigen_value_tpu_torch import fixtures
     from eigen_value_tpu_torch.api import resolve_backend
+    from eigen_value_tpu_torch.bench import bench_kernels
     from eigen_value_tpu_torch.device import sym_auto_cache_tiles
     from eigen_value_tpu_torch.ops.cuda import build, kernels
+    from eigen_value_tpu_torch.ops.solver import solve_xla
+    from eigen_value_tpu_torch.ops.solver_kernel import solve_kernel
     from eigen_value_tpu_torch.ops.solver_matvec import (
         solve_matvec,
         solve_matvec_kernel,
@@ -86,6 +103,22 @@ def main() -> int:
     from eigen_value_tpu_torch.utils.timing import roofline_pct, time_call
 
     dev = torch.device("cuda", 0)
+    wrappers = {name: getattr(kernels, name) for name in (
+        "matvec", "multiround", "multiround_sym", "rowsum", "rowsum_bias", "scale",
+        "scale_rowsum")}
+
+    def reset_counts() -> None:
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+
+    def read_counts() -> dict:
+        torch.cuda.synchronize()
+        return {name: w.launches for name, w in wrappers.items()}
+
+    def rel_err(got, want) -> float:
+        return float(((got.double() - want).abs() / want.abs()).max())
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -201,25 +234,80 @@ def main() -> int:
                     state = (got[0], got[1], got[3])
     del A
 
+    # --- 2c. the iterated form's passes against their plain versions ---
+    # random positive matrices, then the iterated solve's own first round at
+    # full width: Hilbert 8192² with its row sums as v.  The sums are held to
+    # a float64 sum within PLAIN_TOL; every other check is bitwise.
+    it_err = {}
+    bias = torch.tensor(0.375, device=dev)
+    it_cases = [
+        (f"random n={n}", fixtures.random_positive_matrix(n, gen, device=dev),
+         (torch.rand(n, generator=gen) + 0.5).to(dev))
+        for n in (3, 1000, 1001, 4096, 8192)
+    ]
+    A = fixtures.hilbert_matrix(8192, device=dev)
+    it_cases.append(("hilbert n=8192", A, kernels.rowsum_plain(A)))
+    for name, A, v in it_cases:
+        n = A.shape[0]
+        keep = A.clone()
+        rs, rs_b = kernels.rowsum(A), kernels.rowsum_bias(A, bias)
+        rel = rel_err(rs, A.double().sum(1))
+        rel_b = rel_err(rs_b, (A.double() + 0.375).sum(1))
+        check(rel <= PLAIN_TOL, f"rowsum {name} rel err {rel} > {PLAIN_TOL}")
+        check(rel_b <= PLAIN_TOL, f"rowsum_bias {name} rel err {rel_b} > {PLAIN_TOL}")
+        check(torch.equal(rs, kernels.rowsum(A)), f"rowsum {name} not deterministic")
+        check(torch.equal(rs_b, kernels.rowsum_bias(A, bias)),
+              f"rowsum_bias {name} not deterministic")
+        check(torch.equal(rs, kernels.matvec(A, torch.ones(n, device=dev))),
+              f"rowsum {name} is not matvec(A, ones) bit for bit")
+        check(torch.equal(rs, kernels.rowsum_bias(A, torch.zeros((), device=dev))),
+              f"rowsum_bias {name} with a zero bias is not rowsum")
+        want = kernels.scale_plain(A, v)
+        sc = kernels.scale(A, v)
+        A2, v2 = kernels.scale_rowsum(A, v)
+        torch.cuda.synchronize()
+        check(torch.equal(A, keep), f"{name}: an update with another out= wrote its input")
+        check(torch.equal(sc, want), f"scale {name} is not scale_plain bit for bit")
+        check(torch.equal(A2, sc), f"scale_rowsum {name}: A' is not scale's")
+        check(torch.equal(v2, kernels.rowsum(sc)), f"scale_rowsum {name}: v' is not rowsum(A')")
+        B = A.clone()
+        check(kernels.scale(B, v, out=B) is B and torch.equal(B, want),
+              f"scale {name} in place differs")
+        B.copy_(A)
+        B2, w2 = kernels.scale_rowsum(B, v, out=B)
+        check(B2 is B and torch.equal(B, want) and torch.equal(w2, v2),
+              f"scale_rowsum {name} in place differs")
+        v2_plain = kernels.rowsum_plain(want)
+        err = {
+            "rowsum": float((rs - kernels.rowsum_plain(A)).abs().max()),
+            "rowsum_bias": float((rs_b - kernels.rowsum_bias_plain(A, bias)).abs().max()),
+            "scale": float((sc - want).abs().max()),
+            "scale_rowsum": max(float((A2 - want).abs().max()),
+                                float((v2 - v2_plain).abs().max())),
+        }
+        say(f"iterated passes {name}: rowsum rel err {rel:.3e}, rowsum_bias rel err {rel_b:.3e}, "
+            f"v' rel diff to plain {rel_err(v2, v2_plain.double()):.3e}, max |kernel - plain| {err}; "
+            f"bit identities hold")
+        it_err = err  # the last case is the main path's shape
+    del it_cases, A, keep, want, sc, A2, B, B2
+
     # --- 3. the main path, through the public API, backend "auto" only ---
     mats = {n: fixtures.hilbert_matrix(n, device=dev) for n in fixtures.HILBERT_ROUNDS}
     routes = {n: resolve_backend(evt.DEFAULT_CONFIG, n, dev) for n in (*mats, BIG_N)}
     say(f"auto routes: {routes}")
     check(all(routes[n] == "multiround" for n in mats), "auto must take multiround up to 8192")
     check(routes[BIG_N] == "matvec_pallas", f"auto must take the matvec kernel loop at {BIG_N}")
-    torch.cuda.synchronize()
-    kernels.matvec.launches = 0
-    kernels.multiround.launches = 0
-    kernels.multiround_sym.launches = 0
+    reset_counts()
     auto = {n: evt.max_eigenvalue(H) for n, H in mats.items()}
     auto_big = evt.max_eigenvalue(big)
     lam_c, vec_c, ms_c, rounds_c = evt.EigenValue().similarity_transform(mats[8192])
-    torch.cuda.synchronize()
-    launches = {"matvec": kernels.matvec.launches, "multiround": kernels.multiround.launches}
-    say(f"main path launches: {launches}, multiround_sym {kernels.multiround_sym.launches}")
+    launches = read_counts()
+    say(f"main path launches: {launches}")
     for name, count in launches.items():
-        check(count > 0, f"the main path launched no {name} kernel")
-    check(kernels.multiround_sym.launches == 0, "a dense auto solve took the triangle kernel")
+        if name in ("matvec", "multiround"):
+            check(count > 0, f"the main path launched no {name} kernel")
+        else:
+            check(count == 0, f"a dense auto solve launched {name}")
 
     # the oracle here is the plain loop in float64: at this width cuBLAS's
     # float32 gemv drifts (Hilbert row sums off by ~3e-5 relative), the
@@ -280,18 +368,13 @@ def main() -> int:
     sym_cfg = evt.SolverConfig(symmetric=True)
     check(all(resolve_backend(sym_cfg, n, dev) == "multiround" for n in mats),
           "auto with symmetric=True must take multiround")
-    torch.cuda.synchronize()
-    kernels.matvec.launches = 0
-    kernels.multiround.launches = 0
-    kernels.multiround_sym.launches = 0
+    reset_counts()
     declared = {n: evt.max_eigenvalue(H_, sym_cfg) for n, H_ in mats.items()}
     promoted = {n: evt.max_eigenvalue(H_, validate=True) for n, H_ in mats.items()}
-    torch.cuda.synchronize()
-    sym_launches = {"matvec": kernels.matvec.launches, "multiround": kernels.multiround.launches,
-                    "multiround_sym": kernels.multiround_sym.launches}
+    sym_launches = read_counts()
     say(f"symmetric path launches: {sym_launches}")
     check(sym_launches["multiround_sym"] > 0, "the symmetric path launched no multiround_sym")
-    check(sym_launches["multiround"] == sym_launches["matvec"] == 0,
+    check(sum(sym_launches.values()) == sym_launches["multiround_sym"],
           "the symmetric path left the triangle kernel")
     for n, H_ in mats.items():
         plain = solve_matvec(H_, evt.EPS, evt.MAX_ITR)
@@ -357,9 +440,80 @@ def main() -> int:
     say(f"repeated multiround_sym launch: bitwise the same {ok}")
     check(ok, "a repeated multiround_sym launch differs")
 
+    # --- 4d. the iterated path through the API: backend="pallas" ---
+    # the Hilbert table, the 3×3 anchor as a host array (no device=: it goes
+    # to the card) and a random positive 1000²
+    it_cfg, xla_cfg = evt.SolverConfig(backend="pallas"), evt.SolverConfig(backend="xla")
+    inputs = {f"hilbert {n_}": H_ for n_, H_ in mats.items()}
+    inputs["anchor 3x3 (host array)"] = fixtures.ANCHOR_3X3
+    inputs["random 1000"] = fixtures.random_positive_matrix(1000, gen, device=dev)
+    keeps = {k: M.clone() if isinstance(M, torch.Tensor) else M.copy() for k, M in inputs.items()}
+    reset_counts()
+    iterated = {k: evt.max_eigenvalue(M, it_cfg) for k, M in inputs.items()}
+    it_launches = read_counts()
+    say(f"iterated path launches: {it_launches}")
+    it_rounds = sum(int(r.rounds) for r in iterated.values())
+    check(it_launches["rowsum"] == len(inputs), "one rowsum launch per iterated solve")
+    check(it_launches["scale_rowsum"] == it_rounds,
+          f"scale_rowsum launches {it_launches['scale_rowsum']} != rounds {it_rounds}")
+    check(sum(it_launches.values()) == len(inputs) + it_rounds,
+          "the iterated path launched another kernel")
+    for k, M in inputs.items():
+        res = iterated[k]
+        same_input = (torch.equal(M, keeps[k]) if isinstance(M, torch.Tensor)
+                      else bool((M == keeps[k]).all()))
+        check(same_input, f"{k}: the iterated solve wrote the caller's matrix")
+        check(res.eigenvector.is_cuda, f"{k}: solved off the card")
+        plain = evt.max_eigenvalue(M, xla_cfg)
+        resid = float(evt.eigen_residual(M, res))
+        lam, lam_p = float(res.eigenvalue), float(plain.eigenvalue)
+        rel = abs(lam - lam_p) / abs(lam_p)
+        ev_diff = float((res.eigenvector - plain.eigenvector).abs().max())
+        line = (f"{k} via backend='pallas': rounds {int(res.rounds)} (backend='xla' "
+                f"{int(plain.rounds)}), λ {lam!r} (xla {lam_p!r}, rel {rel:.2e}), "
+                f"max |ev - xla ev| {ev_diff:.2e}, residual {resid:.3e}")
+        n_ = M.shape[0]
+        if n_ in fixtures.HILBERT_ROUNDS:
+            line += f", table {fixtures.HILBERT_ROUNDS[n_]}"
+            if n_ <= 1024:
+                check(int(res.rounds) == fixtures.HILBERT_ROUNDS[n_], f"{k} iterated rounds")
+            else:
+                # the JAX tests pin the iterated form only up to 1024: beyond,
+                # report it beside a float64 run of the plain iterated loop
+                f64 = solve_xla(M.double(), evt.EPS, evt.MAX_ITR)
+                line += f", float64 iterated loop {int(f64.rounds)}"
+                del f64
+        say(line)
+        check(bool(res.converged), f"{k} iterated solve did not converge")
+        check(int(res.rounds) == int(plain.rounds), f"{k}: kernel and plain rounds differ")
+        check(rel <= PARITY_REL, f"{k} iterated λ rel {rel}")
+        check(ev_diff <= 1e-5, f"{k} iterated ev differs from the plain version's by {ev_diff}")
+        check(resid <= 1e-3, f"{k} iterated residual {resid}")
+        check(bool(torch.isfinite(res.eigenvector).all()), f"{k} iterated eigenvector finite")
+    check({n_: resolve_backend(evt.DEFAULT_CONFIG, n_, dev) for n_ in routes} == routes,
+          "the auto routes changed")
+    del inputs, keeps, iterated, plain
+
+    # --- 4e. the kernel ladder at 8192² ---
+    reset_counts()
+    ladder = bench_kernels(dims=[n])
+    ladder_launches = read_counts()
+    say(f"kernel ladder at {n}², card {card} (marginal ms per application, chained):")
+    for row in ladder:
+        say("  " + json.dumps(row, allow_nan=False))
+    say(f"ladder launches: {ladder_launches}")
+    check([r["kernel"] for r in ladder] == [
+        "rowsum_xla", "rowsum_pallas", "scale_xla", "scale_pallas", "scale_rowsum_pallas",
+        "matvec_xla", "matvec_pallas"], "the ladder's seven rungs")
+    check(all(r["ms"] > 0 for r in ladder), "a ladder rung's marginal time vanished")
+    for name in ("rowsum_bias", "scale", "scale_rowsum", "matvec"):
+        check(ladder_launches[name] > 0, f"the ladder launched no {name} kernel")
+    torch.cuda.empty_cache()
+
     # --- 5. times at 8192², CUDA events, median and min ---
     reps = 12
     rounds = int(want.rounds)
+    it_rounds_n = int(solve_kernel(H, evt.EPS, evt.MAX_ITR).rounds)
     tile_mb = bt * bt * 4
     streamed = {"triangle": len(kernels.sym_cache_split(n, bt, 0)[0]),
                 "triangle cached": len(kernels.sym_cache_split(n, bt, cache)[0]),
@@ -373,6 +527,9 @@ def main() -> int:
             (rounds + 1) * streamed["dense cached"] * tile_mb + dense_cache * tile_mb,
         "matvec kernel loop": (rounds + 1) * n * n * 4,
         "torch.mv loop (plain)": (rounds + 1) * n * n * 4,
+        # one read for the row sums, then a read and a write of A every round
+        "iterated kernel solve": (1 + 2 * it_rounds_n) * n * n * 4,
+        "iterated plain solve": (1 + 2 * it_rounds_n) * n * n * 4,
     }
     arms = {
         "multiround kernel (stripes)": lambda: solve_multiround(H, evt.EPS, evt.MAX_ITR),
@@ -382,6 +539,8 @@ def main() -> int:
             lambda: solve_multiround(H, evt.EPS, evt.MAX_ITR, cache_tiles=dense_cache),
         "matvec kernel loop": lambda: solve_matvec_kernel(H, evt.EPS, evt.MAX_ITR),
         "torch.mv loop (plain)": lambda: solve_matvec(H, evt.EPS, evt.MAX_ITR),
+        "iterated kernel solve": lambda: solve_kernel(H, evt.EPS, evt.MAX_ITR),
+        "iterated plain solve": lambda: solve_xla(H, evt.EPS, evt.MAX_ITR),
     }
     samples = {k: [] for k in arms}
     for rep in range(reps + 1):  # rep 0 warms up; the order alternates
@@ -390,8 +549,9 @@ def main() -> int:
             t = time_call(arms[k], reps=1, warmup=0)
             if rep:
                 samples[k].append(t.min_ms)
-    say(f"solve times at {n}² ({rounds} rounds, {rounds + 1} passes), card {card}; GB/s "
-        f"against the bytes each arm reads (the cache fill once):")
+    say(f"solve times at {n}² ({rounds} rounds, {rounds + 1} passes; the iterated arms "
+        f"{it_rounds_n} rounds), card {card}; GB/s against the bytes each arm moves (the cache "
+        f"fill once):")
     for k, ms in samples.items():
         med = statistics.median(ms)
         say(f"  {k}: median {med:.4f} ms, min {min(ms):.4f} ms over {len(ms)} solves, "
@@ -426,22 +586,72 @@ def main() -> int:
     say(f"multiround_sym_plain init, chunk {evt.MAX_ITR + 1} at {n}²: median "
         f"{t_sym_p.median_ms:.4f} ms")
 
+    # the iterated path's passes at the solve's first round: v = rowsum(H);
+    # the updates write a second buffer, so H and v stay what they are
+    v1 = kernels.rowsum(H)
+    buf = torch.empty_like(H)
+    timed = {
+        "rowsum": (lambda: kernels.rowsum(H), lambda: kernels.rowsum_plain(H),
+                   lambda: H.sum(1)),
+        "rowsum_bias": (lambda: kernels.rowsum_bias(H, bias),
+                        lambda: kernels.rowsum_bias_plain(H, bias), None),
+        "scale": (lambda: kernels.scale(H, v1, out=buf),
+                  lambda: kernels.scale_plain(H, v1, out=buf),
+                  lambda: H * ((1 / v1)[:, None] * v1[None, :])),
+        "scale_rowsum": (lambda: kernels.scale_rowsum(H, v1, out=buf),
+                         lambda: kernels.scale_rowsum_plain(H, v1, out=buf), None),
+    }
+    t_it = {}
+    for name, fns in timed.items():
+        t_it[name] = [time_call(fn, reps=20).median_ms if fn else None for fn in fns]
+        say(f"{name} at {n}²: kernel median {t_it[name][0]:.4f} ms, plain {t_it[name][1]:.4f} ms, "
+            f"one PyTorch call {t_it[name][2] if t_it[name][2] is None else round(t_it[name][2], 4)}")
+    t_mv_lib = time_call(lambda: torch.mv(H, x), reps=20).median_ms
+    del buf
+
+    # The least time the card could take: each input read once and each
+    # output written once at the published memory rate, against the float32
+    # operations at the published rate outside the tensor cores.  The two
+    # multiround kernels run this solve's rounds + 1 passes in one launch
+    # over a matrix five times the L2, so `passes_bound_ms` adds what the
+    # passes must stream when A cannot stay on the chip.
+    def bound(nbytes: float, ops: float) -> dict:
+        t_bytes = nbytes / (H100_SXM_GBPS * 1e9) * 1e3
+        t_ops = ops / (H100_SXM_F32_TFLOPS * 1e12) * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+    nn, vec, passes = n * n, 4 * n, rounds + 1
+    tri_bytes = len(kernels.sym_cache_split(n, bt, 0)[0]) * tile_mb
+    tri_streamed = len(kernels.sym_cache_split(n, bt, cache)[0]) * tile_mb
+
+    def record(name, source, replaces, count, err, ms, plain_ms, library_ms, bnd, **more):
+        return {"name": name, "route": "cuda", "source": f"eigen_value_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": count, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, **bnd, "library_ms": library_ms, **more}
+
+    jk = "eigen_value_tpu/ops/pallas/kernels.py"
     say(json.dumps({"kernels": [
-        {"name": "matvec", "route": "cuda", "source": "eigen_value_tpu_torch/csrc/matvec.cu",
-         "replaces": "eigen_value_tpu/ops/pallas/kernels.py:227",
-         "launches": launches["matvec"], "max_abs_err": mv_err,
-         "ms": t_mv.median_ms, "plain_ms": t_mv_p.median_ms},
-        {"name": "multiround", "route": "cuda",
-         "source": "eigen_value_tpu_torch/csrc/multiround.cu",
-         "replaces": "eigen_value_tpu/ops/pallas/kernels.py:483",
-         "launches": launches["multiround"], "max_abs_err": mr_err,
-         "ms": t_mr.median_ms, "plain_ms": t_mr_p.median_ms},
-        {"name": "multiround_sym", "route": "cuda",
-         "source": "eigen_value_tpu_torch/csrc/multiround_sym.cu",
-         "replaces": "eigen_value_tpu/ops/pallas/kernels.py:720",
-         "launches": sym_launches["multiround_sym"], "max_abs_err": sym_err,
-         "ms": t_sym[f"cache {cache}"].median_ms, "plain_ms": t_sym_p.median_ms},
-    ]}))
+        record("matvec", "matvec.cu", f"{jk}:227", launches["matvec"], mv_err,
+               t_mv.median_ms, t_mv_p.median_ms, t_mv_lib, bound(4 * nn + 2 * vec, 2 * nn)),
+        record("multiround", "multiround.cu", f"{jk}:483", launches["multiround"], mr_err,
+               t_mr.median_ms, t_mr_p.median_ms, None,
+               bound(4 * nn + 4 * vec, passes * 2 * nn),
+               passes_bound_ms=bound(passes * 4 * nn, 0)["bound_ms"]),
+        record("multiround_sym", "multiround_sym.cu", f"{jk}:720",
+               sym_launches["multiround_sym"], sym_err, t_sym[f"cache {cache}"].median_ms,
+               t_sym_p.median_ms, None, bound(tri_bytes + 4 * vec, passes * 2 * nn),
+               passes_bound_ms=bound(passes * tri_streamed + cache * tile_mb, 0)["bound_ms"]),
+        record("rowsum", "rowsum.cu", f"{jk}:58", it_launches["rowsum"], it_err["rowsum"],
+               *t_it["rowsum"], bound(4 * nn + vec, nn)),
+        record("rowsum_bias", "rowsum.cu", "eigen_value_tpu/bench/suite.py:694",
+               ladder_launches["rowsum_bias"], it_err["rowsum_bias"], *t_it["rowsum_bias"],
+               bound(4 * nn + vec + 4, 2 * nn)),
+        record("scale", "scale.cu", f"{jk}:181", ladder_launches["scale"], it_err["scale"],
+               *t_it["scale"], bound(8 * nn + vec, 2 * nn + n)),
+        record("scale_rowsum", "scale.cu", f"{jk}:277", it_launches["scale_rowsum"],
+               it_err["scale_rowsum"], *t_it["scale_rowsum"], bound(8 * nn + 2 * vec, 3 * nn + n)),
+    ]}, allow_nan=False))
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 """eigen_value_tpu_torch — the PyTorch and CUDA port of eigen_value_tpu.
 
 Maximum eigenvalue and eigenvector of a positive square matrix by the
-similarity-transform method, in its matvec ("power") form, with
-hand-written CUDA kernels for Hopper (``csrc/``) and a plain PyTorch
-version beside each kernel.  Imports torch and numpy only, never jax:
-``eigen_value_tpu`` stays the reference the port is tested against.
+similarity-transform method, in its matvec ("power") form and in the
+reference's iterated (mutate-A) form, with hand-written CUDA kernels for
+Hopper (``csrc/``) and a plain PyTorch version beside each kernel.  Imports
+torch and numpy only, never jax: ``eigen_value_tpu`` stays the reference
+the port is tested against.
 """
 
 from . import fixtures

@@ -2,9 +2,15 @@
 
 ``max_eigenvalue`` is the functional entry returning a :class:`SolveResult`
 of tensors; ``EigenValue.similarity_transform(mat)`` returns the reference
-wrapper's ``(λ, v, ms, rounds)``.  A matrix solves where it lives: on a
-CUDA device through the hand-written kernels, on the CPU through their
-plain versions.
+wrapper's ``(λ, v, ms, rounds)``.
+
+Where a solve runs.  A ``torch.Tensor`` solves where it lives (its owner
+placed it): on a CUDA device through the hand-written kernels, on the CPU
+through their plain versions.  Host input (a numpy array, a list, anything
+that is not a tensor) has no device of its own and goes to the CUDA card;
+with no card that raises, it never runs on the CPU unasked.
+``device="cpu"`` (an argument of ``max_eigenvalue`` and of ``EigenValue``)
+is how a caller asks for the CPU; a ``device`` also moves a tensor.
 """
 
 from __future__ import annotations
@@ -81,9 +87,17 @@ def _solve_fn(config: SolverConfig, backend: str, n: int, device: torch.device):
     knob is honored or rejected with a ValueError (the JAX package's
     contract); the knobs this port has not implemented name their ROADMAP
     item."""
-    if backend in ("xla", "pallas"):
-        raise _not_ported(
-            f"backend={backend!r} (the iterated mutate-A solve)", "Queue 1 item 7"
+    if config.storage_dtype is not None and backend in ("xla", "pallas"):
+        raise ValueError(
+            f"storage_dtype={config.storage_dtype} requires a matvec-family "
+            f"backend (the iterated form rewrites A in float32 every round); "
+            f"got backend={backend!r}"
+        )
+    if config.eps_mode != "absolute" and backend == "pallas":
+        raise ValueError(
+            "eps_mode='relative' is not supported by the iterated kernel "
+            "backend ('pallas' keeps the absolute stop, as in the JAX package); "
+            "use the matvec family or 'xla'"
         )
     if config.storage_dtype is not None:
         raise _not_ported(
@@ -98,9 +112,9 @@ def _solve_fn(config: SolverConfig, backend: str, n: int, device: torch.device):
         if getattr(config, knob) is not None:
             raise ValueError(
                 f"{knob}={getattr(config, knob)!r} is a TPU tile/interpret knob: "
-                f"the Hopper kernels take square tiles or whole rows, and the "
-                f"device of the matrix picks kernel or plain version, so it "
-                f"would be silently dropped"
+                f"the Hopper kernels take square tiles or give a row to a warp, "
+                f"and the device of the matrix picks kernel or plain version, so "
+                f"it would be silently dropped"
             )
     if config.chunk is not None and backend != "multiround":
         raise ValueError(
@@ -153,6 +167,14 @@ def _solve_fn(config: SolverConfig, backend: str, n: int, device: torch.device):
         return partial(sm.solve_multiround, chunk=config.chunk, **tiled, **kw)
     if backend == "matvec_pallas":
         return partial(sm.solve_matvec_kernel, **kw)
+    if backend == "pallas":
+        from .ops.solver_kernel import solve_kernel
+
+        return partial(solve_kernel, eps=config.eps, max_itr=config.max_itr)
+    if backend == "xla":
+        from .ops.solver import solve_xla
+
+        return partial(solve_xla, **kw)
     return partial(sm.solve_matvec, **kw)
 
 
@@ -177,22 +199,38 @@ def _validate_on_device(mat: torch.Tensor, check_sym: bool) -> Tuple[bool, bool]
     return flags[0], check_sym and flags[-1]
 
 
-def _as_matrix(mat, dtype) -> torch.Tensor:
+def _as_matrix(mat, dtype, device=None) -> torch.Tensor:
+    """``mat`` as a contiguous square ``dtype`` tensor on the solve's device:
+    ``device`` when given; else a tensor's own, and the CUDA card for host
+    input (which raises when there is none)."""
     if not isinstance(mat, torch.Tensor):
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "host input (not a torch.Tensor) is solved on the CUDA device "
+                    "and none is available; pass device='cpu' to solve on the CPU"
+                )
+            device = torch.device("cuda")
         mat = torch.tensor(np.asarray(mat))  # a copy: host arrays may be read-only
     if mat.dim() != 2 or mat.shape[0] != mat.shape[1]:
         raise ValueError(f"must be a square matrix, got shape {tuple(mat.shape)}")
-    return mat.to(dtype).contiguous()
+    return mat.to(device=device, dtype=dtype).contiguous()
 
 
 def max_eigenvalue(
-    mat, config: SolverConfig = DEFAULT_CONFIG, validate: bool = False, mesh=None
+    mat,
+    config: SolverConfig = DEFAULT_CONFIG,
+    validate: bool = False,
+    mesh=None,
+    device=None,
 ) -> SolveResult:
     """Maximum eigenvalue and eigenvector of a positive square matrix.
 
-    ``mat`` (a tensor, or anything ``torch.as_tensor`` takes) is cast to
-    ``config.dtype`` and solved on its device.  ``validate=True`` checks
-    positivity on the device, and bitwise symmetry when ``symmetric=True``
+    ``mat`` is cast to ``config.dtype`` and never written.  A tensor is
+    solved on its own device, host input (a numpy array, a list) on the
+    CUDA card; ``device`` overrides both (``"cpu"`` asks for the CPU).
+    ``validate=True`` checks positivity on the device, and bitwise symmetry
+    when ``symmetric=True``
     is declared, and raises instead of returning garbage.  Under "auto" on
     a card it also checks symmetry where the triangle kernel could take the
     solve, and a matrix that passes is solved there (as the JAX package
@@ -201,7 +239,7 @@ def max_eigenvalue(
     """
     if mesh is not None:
         raise _not_ported("mesh= (the sharded solves)", "Queue 1 item 10")
-    mat = _as_matrix(mat, config.dtype)
+    mat = _as_matrix(mat, config.dtype, device)
     n = mat.shape[0]
     backend = resolve_backend(config, n, mat.device)
     solve = _solve_fn(config, backend, n, mat.device)
@@ -232,10 +270,11 @@ class EigenValue:
     """Class API with the reference wrapper's return convention:
     ``similarity_transform(mat) -> (eigenvalue, eigenvector, ts_ms, rounds)``.
 
-    ``device`` pins solves to one device (None: the matrix's own).  On a
-    CUDA device ``ts_ms`` is the solve's time between two CUDA events on
-    the current stream, read after a synchronise; on the CPU it is the wall
-    time of the solve.
+    ``device`` pins solves to one device (None: a tensor's own, the CUDA
+    card for host input; ``"cpu"`` asks for the CPU).  On a CUDA device
+    ``ts_ms`` is the solve's time between two CUDA events on the current
+    stream, read after a synchronise; on the CPU it is the wall time of the
+    solve.
     """
 
     def __init__(
@@ -245,9 +284,7 @@ class EigenValue:
         self.device = torch.device(device) if device is not None else None
 
     def similarity_transform(self, mat) -> Tuple[np.float32, np.ndarray, float, int]:
-        mat = _as_matrix(mat, self.config.dtype)
-        if self.device is not None:
-            mat = mat.to(self.device)
+        mat = _as_matrix(mat, self.config.dtype, self.device)
         if mat.is_cuda:
             with torch.cuda.device(mat.device):
                 start = torch.cuda.Event(enable_timing=True)

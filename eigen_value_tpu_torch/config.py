@@ -6,7 +6,9 @@ The reference's two compile-time knobs (``EPS = 1e-3``, ``MAX_ITR = 1000``,
 reference ``include/similarity_transform.hpp:4-5``) keep their values.
 ``dtype`` is a torch dtype here.  Backend strings keep their names; on
 this side ``_pallas`` means "the hand-written kernel" (CUDA C++ for
-Hopper), so ``"matvec_pallas"`` is the loop over the port's matvec kernel.
+Hopper), so ``"matvec_pallas"`` is the loop over the port's matvec kernel
+and ``"pallas"`` the iterated solve over its ``rowsum`` and ``scale_rowsum``
+kernels; ``"xla"`` means plain PyTorch.
 
 CONSISTENCY CONTRACT (as in the JAX package): every entry point either
 honors a knob or rejects it with a ValueError; nothing is silently dropped.
@@ -41,9 +43,18 @@ class SolverConfig:
         (tol = eps * max|v|).
       dtype: matrix and state dtype (torch.float32; the kernels take f32
         only).
-      backend: "auto" | "matvec" | "matvec_pallas" | "multiround" run here;
-        "xla" and "pallas" (the iterated mutate-A forms) are rejected until
-        ported.
+      backend: "auto" | "xla" | "pallas" | "matvec" | "matvec_pallas" |
+        "multiround".
+          * "xla": the iterated (mutate-A) form in plain PyTorch: row sums
+            once, then every round ``A' = A·((1/v_r)·v_c)`` and its row
+            sums.  Twice the bytes of the power form per round; kept
+            because it is the reference's own structure.
+          * "pallas": the same loop over the hand-written kernels
+            (csrc/rowsum.cu, csrc/scale.cu), one read and one write of A
+            per round; absolute stop only.  Neither takes
+            ``storage_dtype``, ``chunk``, ``cache_tiles`` or ``symmetric``.
+            The caller's matrix is not written: the rounds rewrite a
+            second buffer (peak memory 2 × A).
           * "matvec": power-form loop with ``torch.mv`` in true f32.
           * "matvec_pallas": the same loop over the hand-written matvec
             kernel (csrc/matvec.cu).

@@ -22,8 +22,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("matvec.cu", "multiround.cu", "multiround_sym.cu")
-HEADERS = ("prologue.cuh", "rowdot.cuh")
+SOURCES = ("matvec.cu", "multiround.cu", "multiround_sym.cu", "rowsum.cu", "scale.cu")
+HEADERS = ("prologue.cuh", "rowdot.cuh", "rowsum.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,6 +48,14 @@ _SIGNATURES = {
         ctypes.c_float, _I, _I, _I, _I, _P,
     ),
     "evt_multiround_sym_grid": (_I, _I, _I),
+    # A, out, n, stream
+    "evt_rowsum": (_P, _P, _I, _P),
+    # A, bias, out, n, stream
+    "evt_rowsum_bias": (_P, _P, _P, _I, _P),
+    # A, v, out, n, stream
+    "evt_scale": (_P, _P, _P, _I, _P),
+    # A, v, out, v_out, n, stream
+    "evt_scale_rowsum": (_P, _P, _P, _P, _I, _P),
 }
 
 

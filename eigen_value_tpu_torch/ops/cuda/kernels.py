@@ -1,7 +1,11 @@
 """Wrappers of the Hopper kernels, each with its plain PyTorch version.
 
 Counterparts of ``eigen_value_tpu.ops.pallas.kernels.matvec``,
-``.multiround`` and ``.multiround_sym``: same arguments and returns.  A
+``.multiround``, ``.multiround_sym``, ``.rowsum``, ``.scale`` and
+``.scale_rowsum``, and of the bench's ``_rowsum_bias_pallas``: same
+arguments and returns, except that ``scale`` and ``scale_rowsum`` take an
+``out=`` (JAX arrays are immutable, tensors are not: the caller says where
+A' goes, and its own matrix is never written unless it names it).  A
 wrapper checks device, dtype (float32), shape and contiguity and raises on
 anything else.  For CPU tensors it runs the plain version; for CUDA
 tensors it launches the kernel or raises — there is no fallback.
@@ -460,3 +464,164 @@ def multiround_sym(
 
 
 multiround_sym.launches = 0
+
+
+# --- the iterated (mutate-A) form's O(n²) passes and the ladder's rungs ------
+
+
+def _check_square(A: torch.Tensor) -> int:
+    if A.dim() != 2 or A.shape[0] != A.shape[1]:
+        raise ValueError(f"A must be square, got shape {tuple(A.shape)}")
+    n = A.shape[0]
+    _check_f32("A", A, (n, n))
+    return n
+
+
+def rowsum_plain(A: torch.Tensor) -> torch.Tensor:
+    """``v[r] = Σ_c A[r, c]`` with PyTorch's reduction (its own order)."""
+    return torch.sum(A, dim=1)
+
+
+def rowsum(A: torch.Tensor) -> torch.Tensor:
+    """Row sums of a square float32 A.  On a card the sums run in the
+    matvec kernel's order: ``rowsum(A)`` equals ``matvec(A, ones)`` bit for
+    bit."""
+    n = _check_square(A)
+    dev = tensor_device(A)
+    if dev.type == "cpu":
+        return rowsum_plain(A)
+    _check_aligned(n, A)
+    from . import build
+
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(build.load().evt_rowsum(A.data_ptr(), out.data_ptr(), n, stream), "rowsum")
+    rowsum.launches += 1
+    return out
+
+
+rowsum.launches = 0
+
+
+def rowsum_bias_plain(A: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``Σ_c (A[r, c] + bias)``: the add materialises (a write and a read
+    of n² floats more than the kernel moves)."""
+    return torch.sum(A + bias, dim=1)
+
+
+def rowsum_bias(A: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """Row sums of ``A + bias`` in one read of A.  ``bias`` is a 0-d float32
+    tensor on A's device and is read there, by the kernel: a timing chain
+    whose bias comes from the previous result never waits for the host."""
+    n = _check_square(A)
+    if not isinstance(bias, torch.Tensor):
+        raise ValueError("bias must be a 0-d float32 tensor on A's device")
+    _check_f32("bias", bias, ())
+    dev = tensor_device(A, bias)
+    if dev.type == "cpu":
+        return rowsum_bias_plain(A, bias)
+    _check_aligned(n, A)
+    from . import build
+
+    out = torch.empty(n, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(
+            build.load().evt_rowsum_bias(A.data_ptr(), bias.data_ptr(), out.data_ptr(), n, stream),
+            "rowsum_bias",
+        )
+    rowsum_bias.launches += 1
+    return out
+
+
+rowsum_bias.launches = 0
+
+
+def _check_scale(A: torch.Tensor, v: torch.Tensor, out: Optional[torch.Tensor]):
+    """Checks of the update kernels; returns ``(n, device, out)`` with
+    ``out`` allocated when the caller gave none."""
+    n = _check_square(A)
+    _check_f32("v", v, (n,))
+    if out is None:
+        out = torch.empty_like(A)
+    _check_f32("out", out, (n, n))
+    dev = tensor_device(A, v, out)
+    if out.data_ptr() != A.data_ptr() and _overlap(out, A):
+        raise ValueError("out must be A itself or a buffer that does not overlap it")
+    if _overlap(out, v):
+        raise ValueError("out must not overlap v")
+    return n, dev, out
+
+
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.numel() * b.element_size() and b0 < a0 + a.numel() * a.element_size()
+
+
+def scale_plain(
+    A: torch.Tensor, v: torch.Tensor, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
+    """The similarity update ``A' = A · ((1/v_r) · v_c)``: a true IEEE
+    reciprocal, then two rounded products, right-associated as in the
+    reference, so every implementation gives the same bits.  Written to
+    ``out`` (A itself for an in-place update; a new tensor when None)."""
+    one = torch.ones((), dtype=A.dtype, device=A.device)
+    return torch.mul(A, (one / v)[:, None] * v[None, :], out=out)
+
+
+def scale(A: torch.Tensor, v: torch.Tensor, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``A' = A · ((1/v_r) · v_c)`` for square float32 A, written to ``out``
+    (None: a new tensor; A itself: in place) and returned."""
+    n, dev, out = _check_scale(A, v, out)
+    if dev.type == "cpu":
+        return scale_plain(A, v, out=out)
+    _check_aligned(n, A, v, out)
+    from . import build
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(
+            build.load().evt_scale(A.data_ptr(), v.data_ptr(), out.data_ptr(), n, stream),
+            "scale",
+        )
+    scale.launches += 1
+    return out
+
+
+scale.launches = 0
+
+
+def scale_rowsum_plain(A: torch.Tensor, v: torch.Tensor, out: Optional[torch.Tensor] = None):
+    """``(A', v')`` with ``A' = scale_plain(A, v)`` and ``v' = rowsum_plain(A')``:
+    two passes where the kernel makes one."""
+    A2 = scale_plain(A, v, out=out)
+    return A2, rowsum_plain(A2)
+
+
+def scale_rowsum(A: torch.Tensor, v: torch.Tensor, out: Optional[torch.Tensor] = None):
+    """The iterated form's round pass, one read and one write of A:
+    ``(A', v')`` with ``A'`` as :func:`scale` gives it (to ``out``) and
+    ``v'[r] = Σ_c A'[r, c]`` over the stored values, so ``v'`` equals
+    ``rowsum(A')`` bit for bit.  ``v'`` is always a new tensor: every row's
+    update reads all of ``v``."""
+    n, dev, out = _check_scale(A, v, out)
+    if dev.type == "cpu":
+        return scale_rowsum_plain(A, v, out=out)
+    _check_aligned(n, A, v, out)
+    from . import build
+
+    v_out = torch.empty(n, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(
+            build.load().evt_scale_rowsum(
+                A.data_ptr(), v.data_ptr(), out.data_ptr(), v_out.data_ptr(), n, stream
+            ),
+            "scale_rowsum",
+        )
+    scale_rowsum.launches += 1
+    return out, v_out
+
+
+scale_rowsum.launches = 0

@@ -1,10 +1,27 @@
-"""Result type and stop criterion shared by every solve (counterparts of
-``eigen_value_tpu.ops.solver``).  The iterated mutate-A loop
-(``solve_loop`` / ``solve_xla``) is not ported yet."""
+"""Result type, stop criterion and the iterated (mutate-A) solve
+(counterparts of ``eigen_value_tpu.ops.solver``).
+
+The iterated form is the reference's own structure: the row sums of A
+before the loop, then every round the similarity update of A fused with
+the next row sums,
+
+    A' = A · ((1/v_r) · v_c),    v' = rowsum(A'),
+
+one read and one write of A per round (the power form of
+``solver_matvec`` reads A once and never writes it).  The round semantics
+are shared with it: the stop is checked BEFORE the update, λ = v[0],
+rounds are 0-based, and the cap reports the last checked round
+(:func:`_finish`).  JAX runs the loop as a ``lax.while_loop`` on the
+device; here it runs on the host with one stop read per round.
+
+The caller's matrix is never written: the first round writes A' into a
+fresh buffer and every later round updates that buffer in place (peak
+memory 2 × A, no copy pass).
+"""
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -38,3 +55,112 @@ def stop_check(v: torch.Tensor, eps: float, eps_mode: str = "absolute") -> torch
     adjacent_ok = torch.all((v[1:] - v[:-1]).abs() < e)
     wrap_ok = (v[-1] - v[0]).abs() < e
     return adjacent_ok & wrap_ok
+
+
+RowsumFn = Callable[[torch.Tensor], torch.Tensor]
+#: ``(A, v, out) -> (A', v')``; ``out`` None allocates A', ``out is A``
+#: updates in place.
+ScaleRowsumFn = Callable[
+    [torch.Tensor, torch.Tensor, Optional[torch.Tensor]], Tuple[torch.Tensor, torch.Tensor]
+]
+
+
+def rowsum_xla(A: torch.Tensor) -> torch.Tensor:
+    """Row sums of A with PyTorch's reduction (``kernels.rowsum_plain``)."""
+    from .cuda import kernels  # kernels imports this module
+
+    return kernels.rowsum_plain(A)
+
+
+def scale_rowsum_xla(A: torch.Tensor, v: torch.Tensor, out: Optional[torch.Tensor] = None):
+    """Similarity update + next row sums in plain PyTorch
+    (``kernels.scale_rowsum_plain``): the same reciprocal-then-multiply
+    arithmetic as the kernel, in two passes."""
+    from .cuda import kernels
+
+    return kernels.scale_rowsum_plain(A, v, out=out)
+
+
+class _Carry(NamedTuple):
+    A: torch.Tensor
+    v: torch.Tensor
+    ev: torch.Tensor
+    lam: torch.Tensor  # λ snapshot (v[0]) of the last round advanced past
+    i: int
+
+
+def _finish(out, max_itr: int) -> SolveResult:
+    """Post-loop epilogue shared by every solve form (``out`` is a loop
+    carry with ``ev``, ``v``, ``lam`` and ``i``).
+
+    * converged at round k < max_itr: the stop fired on ``out.v``; apply the
+      converging round's ev update, λ = v[0], rounds = k.
+    * cap exhaustion (i == max_itr): report the last CHECKED round's λ (the
+      ``lam`` carry), ev as updated through round max_itr−1,
+      converged = False.
+    """
+    converged = out.i < max_itr
+    dev = out.v.device
+    if converged:
+        m = torch.max(out.v)
+        ev, lam = out.ev * (out.v / m), out.v[0]
+    else:
+        ev, lam = out.ev, out.lam
+    return SolveResult(
+        lam,
+        ev,
+        torch.tensor(out.i, dtype=torch.int32, device=dev),
+        torch.tensor(converged, device=dev),
+    )
+
+
+def solve_loop(
+    A: torch.Tensor,
+    *,
+    rowsum: RowsumFn,
+    scale_rowsum: ScaleRowsumFn,
+    eps: float,
+    max_itr: int,
+    ev0=None,
+    eps_mode: str = "absolute",
+) -> SolveResult:
+    """The iterated convergence loop with pluggable O(n²) passes.
+
+    ``v0 = rowsum(A)`` runs once before the loop; the stop check is the
+    loop condition, so the converging round's O(n²) update is skipped by
+    leaving the loop (the reference's break-before-update); its ev update
+    runs after the loop.  ``ev0`` overrides the all-ones start vector (the
+    iteration is scale-invariant in ev; λ and the round count are read
+    from v, which ev never feeds).  A is only read: round 0 writes its
+    update to a new buffer, which the later rounds rewrite in place.
+    """
+    n = A.shape[0]
+    if ev0 is None:
+        ev0 = torch.ones(n, dtype=A.dtype, device=A.device)
+    else:
+        ev0 = torch.as_tensor(ev0, dtype=A.dtype, device=A.device).contiguous()
+    c = _Carry(A, rowsum(A), ev0, torch.zeros((), dtype=A.dtype, device=A.device), 0)
+    while c.i < max_itr and not bool(stop_check(c.v, eps, eps_mode)):
+        v = c.v
+        m = torch.max(v)
+        ev = c.ev * (v / m)
+        lam = v[0]
+        A2, v2 = scale_rowsum(c.A, v, None if c.i == 0 else c.A)
+        c = _Carry(A2, v2, ev, lam, c.i + 1)
+    return _finish(c, max_itr)
+
+
+def solve_xla(
+    A: torch.Tensor, eps: float, max_itr: int, ev0=None, eps_mode: str = "absolute"
+) -> SolveResult:
+    """Iterated solve over the plain PyTorch passes, on any device (the
+    JAX package's pure-XLA solver)."""
+    return solve_loop(
+        A,
+        rowsum=rowsum_xla,
+        scale_rowsum=scale_rowsum_xla,
+        eps=eps,
+        max_itr=max_itr,
+        ev0=ev0,
+        eps_mode=eps_mode,
+    )

@@ -9,7 +9,7 @@ round's row sums are
 
 one matvec against the original matrix per round.  Round semantics are the
 reference's: the stop is checked BEFORE the update, λ = v[0], rounds are
-0-based, and the cap reports the last checked round (:func:`_finish`).
+0-based, and the cap reports the last checked round (``solver._finish``).
 
 Here the loop runs on the host with one stop read per round (JAX runs it
 as a ``lax.while_loop`` on the device); :func:`solve_multiround` moves up
@@ -26,7 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from .cuda import kernels
-from .solver import SolveResult, stop_check
+from .solver import SolveResult, _finish, stop_check
 
 
 class _Carry(NamedTuple):
@@ -60,30 +60,6 @@ def _init_carry(n: int, matvec, dtype, device, ev0=None) -> _Carry:
         ev0 = torch.as_tensor(ev0, dtype=dtype, device=device).contiguous()
     v0 = matvec(ev0)  # == row sums of A_0 for the all-ones start
     return _Carry(ev0, v0, torch.zeros((), dtype=dtype, device=device), 0)
-
-
-def _finish(out: _Carry, max_itr: int) -> SolveResult:
-    """Post-loop epilogue shared by every matvec-form solver.
-
-    * converged at round k < max_itr: the stop fired on ``out.v``; apply the
-      converging round's ev update, λ = v[0], rounds = k.
-    * cap exhaustion (i == max_itr): report the last CHECKED round's λ (the
-      ``lam`` carry), ev as updated through round max_itr−1,
-      converged = False.
-    """
-    converged = out.i < max_itr
-    dev = out.v.device
-    if converged:
-        m = torch.max(out.v)
-        ev, lam = out.ev * (out.v / m), out.v[0]
-    else:
-        ev, lam = out.ev, out.lam
-    return SolveResult(
-        lam,
-        ev,
-        torch.tensor(out.i, dtype=torch.int32, device=dev),
-        torch.tensor(converged, device=dev),
-    )
 
 
 def solve_matvec_loop(

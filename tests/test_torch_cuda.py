@@ -17,6 +17,8 @@ from eigen_value_tpu_torch import fixtures as tfx  # noqa: E402
 from eigen_value_tpu_torch.api import resolve_backend  # noqa: E402
 from eigen_value_tpu_torch.device import sym_auto_cache_tiles  # noqa: E402
 from eigen_value_tpu_torch.ops.cuda import kernels as tk  # noqa: E402
+from eigen_value_tpu_torch.ops.solver import solve_xla  # noqa: E402
+from eigen_value_tpu_torch.ops.solver_kernel import solve_kernel  # noqa: E402
 from eigen_value_tpu_torch.ops.solver_matvec import (  # noqa: E402
     solve_matvec_kernel,
     solve_multiround,
@@ -206,3 +208,94 @@ def test_dense_tiled_cached_solve(cuda):
     assert int(res.rounds) == tfx.HILBERT_ROUNDS[2048]
     want = solve_matvec_kernel(H, EPS, MAX_ITR)
     torch.testing.assert_close(res.eigenvector, want.eigenvector, rtol=1e-4, atol=0)
+
+
+# --- the iterated form's kernels (csrc/rowsum.cu, csrc/scale.cu) ------------
+
+
+def _positive(n, cuda):
+    g = torch.Generator().manual_seed(n)
+    A = tfx.random_positive_matrix(n, g, device=cuda)
+    v = (torch.rand(n, generator=g) + 0.5).to(cuda)
+    return A, v
+
+
+@pytest.mark.parametrize("n", [3, 1000, 1001, 4096])
+def test_rowsum_is_matvec_with_ones_bitwise(cuda, n):
+    A, _ = _positive(n, cuda)
+    before = tk.rowsum.launches
+    got = tk.rowsum(A)
+    assert tk.rowsum.launches == before + 1
+    assert torch.equal(got, tk.matvec(A, torch.ones(n, device=cuda)))
+    want = A.double().sum(1)
+    assert float(((got.double() - want).abs() / want).max()) < 2e-5
+    assert torch.equal(got, tk.rowsum(A))
+
+
+@pytest.mark.parametrize("n", [3, 1001, 4096])
+def test_rowsum_bias_matches_f64_and_reads_its_bias_on_the_card(cuda, n):
+    A, _ = _positive(n, cuda)
+    bias = torch.tensor(0.375, device=cuda)
+    before = tk.rowsum_bias.launches
+    got = tk.rowsum_bias(A, bias)
+    assert tk.rowsum_bias.launches == before + 1
+    want = (A.double() + 0.375).sum(1)
+    assert float(((got.double() - want).abs() / want).max()) < 2e-5
+    assert torch.equal(tk.rowsum_bias(A, torch.zeros((), device=cuda)), tk.rowsum(A))
+    with pytest.raises(ValueError):
+        tk.rowsum_bias(A, torch.tensor(0.375))  # a host scalar is not read
+
+
+@pytest.mark.parametrize("n", [3, 1000, 1001, 4096])
+def test_scale_and_scale_rowsum_identities(cuda, n):
+    A, v = _positive(n, cuda)
+    keep = A.clone()
+    want = tk.scale_plain(A, v)
+    before = (tk.scale.launches, tk.scale_rowsum.launches)
+    got = tk.scale(A, v)
+    A2, v2 = tk.scale_rowsum(A, v)
+    assert (tk.scale.launches, tk.scale_rowsum.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(A, keep)  # out of place leaves the input alone
+    assert torch.equal(got, want)
+    assert torch.equal(A2, got) and torch.equal(v2, tk.rowsum(got))
+    B = A.clone()
+    assert tk.scale(B, v, out=B) is B and torch.equal(B, want)
+    C = A.clone()
+    C2, w2 = tk.scale_rowsum(C, v, out=C)
+    assert C2 is C and torch.equal(C, want) and torch.equal(w2, v2)
+    with pytest.raises(ValueError, match="overlap"):
+        tk.scale_rowsum(A, A[0], out=A)
+
+
+@pytest.mark.parametrize("n", [3, 96, 1024, 2048])
+def test_iterated_kernel_solve(cuda, n):
+    A = (
+        torch.tensor(tfx.ANCHOR_3X3, dtype=torch.float32, device=cuda)
+        if n == 3
+        else tfx.hilbert_matrix(n, device=cuda)
+    )
+    keep = A.clone()
+    before = (tk.rowsum.launches, tk.scale_rowsum.launches, tk.matvec.launches,
+              tk.multiround.launches)
+    res = evt.max_eigenvalue(A, evt.SolverConfig(backend="pallas"))
+    rounds = int(res.rounds)
+    assert (tk.rowsum.launches, tk.scale_rowsum.launches, tk.matvec.launches,
+            tk.multiround.launches) == (before[0] + 1, before[1] + rounds, before[2], before[3])
+    assert torch.equal(A, keep)
+    assert bool(res.converged) and float(evt.eigen_residual(A, res)) < 1e-3
+    if n in tfx.HILBERT_ROUNDS:
+        assert rounds == tfx.HILBERT_ROUNDS[n]
+    plain = evt.max_eigenvalue(A, evt.SolverConfig(backend="xla"))
+    assert rounds == int(plain.rounds)
+    assert float(res.eigenvalue) == pytest.approx(float(plain.eigenvalue), rel=1e-5)
+    torch.testing.assert_close(res.eigenvector, plain.eigenvector, rtol=0, atol=1e-5)
+    same = solve_kernel(A, EPS, MAX_ITR)
+    assert torch.equal(same.eigenvector, res.eigenvector)
+    assert int(solve_xla(A, EPS, MAX_ITR).rounds) == rounds
+
+
+def test_host_input_goes_to_the_card(cuda):
+    res = evt.max_eigenvalue(tfx.ANCHOR_3X3)
+    assert res.eigenvector.is_cuda
+    assert float(res.eigenvalue) == pytest.approx(tfx.ANCHOR_3X3_EIGENVALUE, abs=1e-4)
+    assert not evt.max_eigenvalue(tfx.ANCHOR_3X3, device="cpu").eigenvector.is_cuda

@@ -68,12 +68,12 @@ def test_random_matrix_matches_jax(rng):
     a = rng.random((200, 200), dtype=np.float32) + np.float32(1e-4)
     want = jax_solve_matvec(jnp.asarray(a), EPS, MAX_ITR)
     for backend in BACKENDS:
-        _close_to(evt.max_eigenvalue(a, evt.SolverConfig(backend=backend)), want)
+        _close_to(evt.max_eigenvalue(a, evt.SolverConfig(backend=backend), device="cpu"), want)
 
 
 @pytest.mark.parametrize("backend", BACKENDS)
 def test_anchor_3x3(backend):
-    res = evt.max_eigenvalue(tfx.ANCHOR_3X3, evt.SolverConfig(backend=backend))
+    res = evt.max_eigenvalue(tfx.ANCHOR_3X3, evt.SolverConfig(backend=backend), device="cpu")
     assert bool(res.converged)
     assert abs(float(res.eigenvalue) - tfx.ANCHOR_3X3_EIGENVALUE) < 1e-4
     np.testing.assert_allclose(res.eigenvector.numpy(), tfx.ANCHOR_3X3_EIGENVECTOR, atol=1e-3)
@@ -110,7 +110,7 @@ def test_relative_eps_mode_matches_jax():
     want = jax_solve_matvec(jnp.asarray(a), EPS, MAX_ITR, eps_mode="relative")
     for backend in BACKENDS:
         cfg = evt.SolverConfig(backend=backend, eps_mode="relative")
-        got = evt.max_eigenvalue(a, cfg)
+        got = evt.max_eigenvalue(a, cfg, device="cpu")
         assert int(got.rounds) == int(want.rounds) and bool(got.converged)
         assert float(got.eigenvalue) == pytest.approx(float(want.eigenvalue), rel=1e-5)
 
@@ -144,8 +144,10 @@ def _reject_cases():
             H, evt.SolverConfig(backend="matvec", cache_tiles=0)),
         "storage_dtype": lambda: evt.max_eigenvalue(
             H, evt.SolverConfig(storage_dtype=torch.bfloat16)),
-        "xla": lambda: evt.max_eigenvalue(H, evt.SolverConfig(backend="xla")),
-        "pallas": lambda: evt.max_eigenvalue(H, evt.SolverConfig(backend="pallas")),
+        "xla": lambda: evt.max_eigenvalue(
+            H, evt.SolverConfig(backend="xla", storage_dtype=torch.bfloat16)),
+        "pallas": lambda: evt.max_eigenvalue(
+            H, evt.SolverConfig(backend="pallas", eps_mode="relative")),
         "mesh": lambda: evt.max_eigenvalue(H, mesh=object()),
         "formulation": lambda: solve_multiround(H, EPS, MAX_ITR, formulation="dot"),
         "block_rows": lambda: evt.max_eigenvalue(H, evt.SolverConfig(block_rows=128)),
@@ -207,8 +209,9 @@ def test_eigen_residual_and_similarity_transform():
     H = tfx.hilbert_matrix(256)
     res = evt.max_eigenvalue(H, evt.SolverConfig(backend="multiround"))
     assert float(evt.eigen_residual(H, res)) < 1e-3
-    lam, vec, ms, rounds = evt.EigenValue(evt.SolverConfig(backend="multiround")).similarity_transform(
-        np.asarray(jfx.hilbert_matrix(256)))
+    lam, vec, ms, rounds = evt.EigenValue(
+        evt.SolverConfig(backend="multiround"), device="cpu"
+    ).similarity_transform(np.asarray(jfx.hilbert_matrix(256)))
     assert isinstance(lam, np.float32) and isinstance(vec, np.ndarray)
     assert rounds == 10 and ms >= 0.0 and lam == float(res.eigenvalue)
 

@@ -281,7 +281,8 @@ def test_solve_multiround_knob_rules():
 def test_explicit_multiround_uses_the_triangle():
     a = _sym(256)
     cfg = evt.SolverConfig(backend="multiround", symmetric=True, block_rows=128)
-    _same(evt.max_eigenvalue(_corrupt(a, 128, 9.5), cfg), evt.max_eigenvalue(a, cfg))
+    _same(evt.max_eigenvalue(_corrupt(a, 128, 9.5), cfg, device="cpu"),
+          evt.max_eigenvalue(a, cfg, device="cpu"))
 
 
 def test_block_rows_is_the_tile_edge():
@@ -372,10 +373,10 @@ def test_validate_checks_the_promise():
     a[3, 2] += np.float32(0.5)
     with pytest.raises(ValueError, match="not bitwise symmetric"):
         evt.max_eigenvalue(a, evt.SolverConfig(backend="multiround", symmetric=True),
-                           validate=True)
+                           validate=True, device="cpu")
     with pytest.raises(ValueError, match="entries > 0"):
         evt.max_eigenvalue(-_sym(128), evt.SolverConfig(backend="multiround", symmetric=True),
-                           validate=True)
+                           validate=True, device="cpu")
 
 
 def test_validate_on_device_reads_both_checks():
