@@ -35,6 +35,19 @@ card) with the caller's matrix bitwise unchanged; and the kernel ladder
 ``bench_kernels(dims=[8192])``, whose rungs launch ``rowsum_bias``,
 ``scale``, ``scale_rowsum`` and ``matvec``.
 
+The fused-round path: the ``stop`` kernel (csrc/stop.cu) against its plain
+version at n = 1 … 2²⁵ (fixtures, single breaks, a NaN, random vectors,
+and every round's v of the 8192² Hilbert solve); ``round_matvec`` and
+``round_fused`` (csrc/round.cu) against their plain versions and their bit
+identities (``ev' == ev * (v / m)``, ``v' == matvec(A, ev') / ev'``,
+``round_fused == round_matvec`` at ``m = max v`` with ``stop_check`` and
+``v[0]``); then, with the launch counters read around exactly these calls,
+``solve_matvec_kernel_fused`` and ``solve_fused_round`` over the Hilbert
+table, the caps 0/1/5 and the 3×3 anchor, bit-identical to the matvec
+kernel loop; and the ``vector`` and ``e2e`` bench suites
+(``bench_vector_kernels()``, whose ``stop_pallas`` row launches ``stop``,
+and ``bench_e2e(dims=[8192])``).
+
 Uses torch only (no jax).  Exits non-zero, without the final result line,
 on any failed check or when there is no CUDA device.
 
@@ -90,14 +103,17 @@ def main() -> int:
     import eigen_value_tpu_torch as evt
     from eigen_value_tpu_torch import fixtures
     from eigen_value_tpu_torch.api import resolve_backend
-    from eigen_value_tpu_torch.bench import bench_kernels
+    from eigen_value_tpu_torch.bench import bench_e2e, bench_kernels, bench_vector_kernels
+    from eigen_value_tpu_torch.bench.__main__ import _fmt_e2e, _fmt_kernels
     from eigen_value_tpu_torch.device import sym_auto_cache_tiles
     from eigen_value_tpu_torch.ops.cuda import build, kernels
-    from eigen_value_tpu_torch.ops.solver import solve_xla
+    from eigen_value_tpu_torch.ops.solver import solve_xla, stop_check
     from eigen_value_tpu_torch.ops.solver_kernel import solve_kernel
     from eigen_value_tpu_torch.ops.solver_matvec import (
+        solve_fused_round,
         solve_matvec,
         solve_matvec_kernel,
+        solve_matvec_kernel_fused,
         solve_multiround,
     )
     from eigen_value_tpu_torch.utils.timing import roofline_pct, time_call
@@ -105,7 +121,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     wrappers = {name: getattr(kernels, name) for name in (
         "matvec", "multiround", "multiround_sym", "rowsum", "rowsum_bias", "scale",
-        "scale_rowsum")}
+        "scale_rowsum", "stop", "round_matvec", "round_fused")}
 
     def reset_counts() -> None:
         torch.cuda.synchronize()
@@ -128,7 +144,7 @@ def main() -> int:
     say(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmul must be off")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     lib = build.build()
     build.load()
     say(f"build: {time.perf_counter() - t0:.1f} s -> {os.path.relpath(lib, here)}")
@@ -290,6 +306,104 @@ def main() -> int:
             f"bit identities hold")
         it_err = err  # the last case is the main path's shape
     del it_cases, A, keep, want, sc, A2, B, B2
+
+    # --- 2d. the stop kernel against stop_plain: the verdicts are equal ---
+    eps_t = torch.tensor(evt.EPS, device=dev)
+    stop_cases = 0
+
+    def stop_both(v, eps, what) -> bool:
+        nonlocal stop_cases
+        got, want = kernels.stop(v, eps), kernels.stop_plain(v, eps)
+        check(got.dtype == torch.bool and got.shape == () and got.is_cuda, f"stop {what}: result")
+        check(bool(got) == bool(want), f"stop {what}: kernel {bool(got)}, plain {bool(want)}")
+        stop_cases += 1
+        return bool(got)
+
+    for n in (1, 3, 1000, 4096, 1 << 16, 1 << 25):
+        ok = fixtures.stop_success_vector(n, device=dev)
+        check(stop_both(ok, eps_t, f"n={n} success fixture"), f"stop n={n}: the success fixture")
+        failed = not stop_both(fixtures.stop_fail_vector(n, device=dev), eps_t,
+                               f"n={n} fail fixture")
+        check(failed or n < 1000, f"stop n={n}: the fail fixture passed")
+        # one break: first, last, at a block's edge (256 threads of 4 values, or of
+        # 1 where n % 4 != 0) and mid-block; then a NaN at the same places
+        for idx in sorted({0, n - 1, min(255, n - 1), min(256, n - 1), min(1023, n - 1),
+                           min(1024, n - 1), n // 2 + 1 if n > 2 else 0}):
+            bad = ok.clone()
+            bad[idx] += 1.0
+            check(stop_both(bad, eps_t, f"n={n} break at {idx}") == (n == 1),
+                  f"stop n={n}: a break at {idx}")
+            bad[idx] = float("nan")
+            check(not stop_both(bad, eps_t, f"n={n} NaN at {idx}"), f"stop n={n}: a NaN at {idx}")
+    for i in range(10):
+        v = (torch.rand(4096 + i, generator=gen) * (0.2 if i % 2 else 1.0)).to(dev)
+        check(stop_both(v, torch.tensor(0.5, device=dev), f"random vector {i}") == bool(i % 2),
+              f"stop random vector {i} at eps 0.5")
+    # every round's v of the 8192² Hilbert solve: only the last one stops
+    H8 = fixtures.hilbert_matrix(8192, device=dev)
+    ev = torch.ones(8192, device=dev)
+    v = kernels.matvec(H8, ev) / ev
+    verdicts = []
+    while len(verdicts) <= evt.MAX_ITR:
+        verdicts.append(stop_both(v, eps_t, f"hilbert 8192 round {len(verdicts)}"))
+        if verdicts[-1]:
+            break
+        ev = ev * (v / torch.max(v))
+        v = kernels.matvec(H8, ev) / ev
+    check(verdicts == [False] * fixtures.HILBERT_ROUNDS[8192] + [True],
+          f"stop over the hilbert 8192 solve: {verdicts}")
+    say(f"stop: {stop_cases} verdicts equal to stop_plain's (n = 1 … 2^25: fixtures, single "
+        f"breaks, NaNs, 10 random vectors, the {len(verdicts)} v of the hilbert 8192 solve: "
+        f"only the last stops)")
+
+    # --- 2e. the one-launch rounds against their plain versions, and bitwise
+    # against the unfused expressions over the matvec kernel ---
+    round_err = {}
+    round_cases = [
+        (f"random n={n}", fixtures.random_positive_matrix(n, gen, device=dev),
+         (torch.rand(n, generator=gen) + 0.5).to(dev), (torch.rand(n, generator=gen) + 0.5).to(dev))
+        for n in (3, 1000, 1001, 4096, 8192)
+    ]
+    # the fused solves' own first round at full width
+    ones8 = torch.ones(8192, device=dev)
+    round_cases.append(("hilbert n=8192", H8, ones8, kernels.matvec(H8, ones8) / ones8))
+    for name, A, ev, v in round_cases:
+        keep = (A.clone(), ev.clone(), v.clone())
+        m = torch.max(v)
+        v_next, ev_new = kernels.round_matvec(A, ev, v, m)
+        fused = kernels.round_fused(A, ev, v, eps=evt.EPS)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip((A, ev, v), keep)),
+              f"rounds {name}: an input was written")
+        check(torch.equal(ev_new, ev * (v / m)), f"round_matvec {name}: ev' is not ev * (v / m)")
+        check(torch.equal(v_next, kernels.matvec(A, ev_new) / ev_new),
+              f"round_matvec {name}: v' is not matvec(A, ev') / ev' bit for bit")
+        check(torch.equal(fused[0], v_next) and torch.equal(fused[1], ev_new),
+              f"round_fused {name} is not round_matvec at m = max v")
+        check(fused[2].dtype == torch.bool and bool(fused[2]) == bool(stop_check(v, evt.EPS)),
+              f"round_fused {name}: done")
+        check(torch.equal(fused[3], v[0]), f"round_fused {name}: λ is not v[0]")
+        want = kernels.round_matvec_plain(A, ev, v, m)
+        want_f = kernels.round_fused_plain(A, ev, v, eps=evt.EPS)
+        rel = max(rel_err(v_next, want[0].double()), rel_err(fused[0], want_f[0].double()))
+        check(torch.equal(ev_new, want[1]) and torch.equal(fused[1], want_f[1]),
+              f"rounds {name}: ev' differs from the plain version's")
+        check(rel <= PLAIN_TOL, f"rounds {name}: v' rel diff to plain {rel} > {PLAIN_TOL}")
+        check(bool(fused[2]) == bool(want_f[2]) and torch.equal(fused[3], want_f[3]),
+              f"round_fused {name}: done / λ differ from the plain version's")
+        check(torch.equal(v_next, kernels.round_matvec(A, ev, v, m)[0]),
+              f"round_matvec {name} not deterministic")
+        round_err = {"round_matvec": float((v_next - want[0]).abs().max()),
+                     "round_fused": float((fused[0] - want_f[0]).abs().max())}
+        say(f"one-launch rounds {name}: v' rel diff to plain {rel:.3e}, max |kernel - plain| "
+            f"{round_err}; bit identities hold")
+    # a v that stops: done is True and the round is computed all the same
+    ok = fixtures.stop_success_vector(8192, device=dev)
+    fused = kernels.round_fused(H8, ones8, ok, eps=evt.EPS)
+    ref = kernels.round_matvec(H8, ones8, ok, torch.max(ok))
+    check(bool(fused[2]) and torch.equal(fused[0], ref[0]) and torch.equal(fused[1], ref[1]),
+          "round_fused on a v that stops")
+    del round_cases, A, keep, want, want_f, fused, ref, v_next, ev_new, H8
 
     # --- 3. the main path, through the public API, backend "auto" only ---
     mats = {n: fixtures.hilbert_matrix(n, device=dev) for n in fixtures.HILBERT_ROUNDS}
@@ -494,7 +608,100 @@ def main() -> int:
           "the auto routes changed")
     del inputs, keeps, iterated, plain
 
-    # --- 4e. the kernel ladder at 8192² ---
+    # --- 4e. the fused-round solves: one launch per round ---
+    # the references first: their matvec launches stay out of the counts
+    anchor = torch.tensor(fixtures.ANCHOR_3X3, dtype=torch.float32, device=dev)
+    fused_inputs = [(f"hilbert {n_}", H_, evt.MAX_ITR) for n_, H_ in mats.items()]
+    fused_inputs += [(f"hilbert 256 cap {cap}", mats[256], cap) for cap in (0, 1, 5)]
+    fused_inputs.append(("anchor 3x3", anchor, evt.MAX_ITR))
+    refs = {k: solve_matvec_kernel(M, evt.EPS, cap) for k, M, cap in fused_inputs}
+    reset_counts()
+    fused_runs, per_solve = {}, {}
+
+    def counted(solve, M, cap):
+        """The solve's result and its (matvec, round_matvec, round_fused) launches."""
+        ws = (kernels.matvec, kernels.round_matvec, kernels.round_fused)
+        before = [w.launches for w in ws]
+        res = solve(M, evt.EPS, cap)
+        return res, tuple(w.launches - b for w, b in zip(ws, before))
+
+    for k, M, cap in fused_inputs:
+        a, count_a = counted(solve_matvec_kernel_fused, M, cap)
+        b, count_b = counted(solve_fused_round, M, cap)
+        fused_runs[k] = (a, b)
+        per_solve[k] = (count_a, count_b)
+    fused_launches = read_counts()
+    say(f"fused-round path launches: {fused_launches}")
+    check(fused_launches["round_matvec"] > 0 and fused_launches["round_fused"] > 0,
+          "the fused-round path launched no round kernel")
+    check(sum(fused_launches.values()) == fused_launches["matvec"]
+          + fused_launches["round_matvec"] + fused_launches["round_fused"],
+          "the fused-round path launched another kernel")
+    for k, M, cap in fused_inputs:
+        ref = refs[k]
+        r = int(ref.rounds)
+        stopped = bool(ref.converged)
+        for how, res in zip(("solve_matvec_kernel_fused", "solve_fused_round"), fused_runs[k]):
+            ok = (same(res, ref) and bool(res.converged) == stopped
+                  and res.rounds.dtype == torch.int32 and res.converged.dtype == torch.bool)
+            check(ok, f"{k}: {how} is not bit-identical to the matvec kernel loop")
+        n_ = M.shape[0]
+        if cap == evt.MAX_ITR:
+            check(stopped, f"{k}: did not converge")
+            if n_ in fixtures.HILBERT_ROUNDS:
+                check(r == fixtures.HILBERT_ROUNDS[n_], f"{k}: rounds {r}")
+            resid = float(evt.eigen_residual(M, fused_runs[k][1]))
+            check(resid <= 1e-3, f"{k}: residual {resid}")
+        else:
+            check(r == cap and not stopped, f"{k}: rounds {r}, converged {stopped}")
+        # one matvec, then a launch per round; the launch that finds the stop
+        # is round_fused's one pass more
+        want_counts = ((1, r, 0), (1, 0, r + (1 if stopped else 0)))
+        check(per_solve[k] == want_counts, f"{k}: launches {per_solve[k]}, want {want_counts}")
+        say(f"{k}: both fused-round solves bit-identical to the matvec kernel loop, rounds {r}, "
+            f"converged {stopped}, launches (matvec, round_matvec, round_fused) {per_solve[k]}")
+    check(per_solve["hilbert 8192"] == ((1, 17, 0), (1, 0, 18)), "launch counts at 8192²")
+    lam_a = float(fused_runs["anchor 3x3"][1].eigenvalue)
+    check(abs(lam_a - fixtures.ANCHOR_3X3_EIGENVALUE) <= 1e-4, f"anchor λ {lam_a}")
+    del refs, fused_runs
+
+    # --- 4f. the vector and e2e bench suites ---
+    reset_counts()
+    vector_rows = bench_vector_kernels()
+    vector_launches = read_counts()
+    say(f"vector suite, card {card} (marginal ms per application, chained; at 2^16 the host's "
+        f"cost per step):")
+    say(_fmt_kernels(vector_rows, size_key="size"))
+    for row in vector_rows:
+        say("  " + json.dumps(row, allow_nan=False))
+    say(f"vector suite launches: {vector_launches}")
+    check([(r["kernel"], r["size"]) for r in vector_rows] == [
+        (k, 1 << p) for p in (16, 19, 22, 25)
+        for k in ("find_max", "eigen_vector", "stop", "stop_pallas")], "the vector suite's rows")
+    check(all(r["ms"] > 0 for r in vector_rows), "a vector row's marginal time vanished")
+    check(vector_launches["stop"] > 0, "the vector suite launched no stop kernel")
+    check(sum(vector_launches.values()) == vector_launches["stop"],
+          "the vector suite launched another kernel")
+    e2e_rows = bench_e2e(dims=[n])
+    say(f"e2e suite at {n}², card {card}:")
+    say(_fmt_e2e(e2e_rows))
+    for row in e2e_rows:
+        say("  " + json.dumps(row, allow_nan=False))
+    check([r["backend"] for r in e2e_rows] == [
+        "xla", "pallas_fused", "matvec", "matvec_pallas", "matvec_bf16", "multiround",
+        "multiround_sym", "multiround_sym_bf16", "multiround_sym_cached", "multiround_cached"],
+        "the e2e suite's rungs")
+    for row in e2e_rows:
+        if "bf16" in row["backend"]:
+            check("Queue 1 item 6" in row.get("skipped", ""), f"{row['backend']}: no skip row")
+        else:
+            check("skipped" not in row and row["ms"] > 0 and row["device_ms"] is not None
+                  and row["device_ms"] > 0, f"e2e {row['backend']}: no time")
+            if row["backend"] not in ("xla", "pallas_fused"):  # the table pins the power form
+                check(row["rounds_ok"] and row["rounds"] == 17, f"e2e {row['backend']}: rounds")
+    torch.cuda.empty_cache()
+
+    # --- 4g. the kernel ladder at 8192² ---
     reset_counts()
     ladder = bench_kernels(dims=[n])
     ladder_launches = read_counts()
@@ -527,6 +734,9 @@ def main() -> int:
             (rounds + 1) * streamed["dense cached"] * tile_mb + dense_cache * tile_mb,
         "matvec kernel loop": (rounds + 1) * n * n * 4,
         "torch.mv loop (plain)": (rounds + 1) * n * n * 4,
+        "round_matvec kernel loop": (rounds + 1) * n * n * 4,
+        # the launch that finds the stop reads A once more
+        "round_fused kernel loop": (rounds + 2) * n * n * 4,
         # one read for the row sums, then a read and a write of A every round
         "iterated kernel solve": (1 + 2 * it_rounds_n) * n * n * 4,
         "iterated plain solve": (1 + 2 * it_rounds_n) * n * n * 4,
@@ -539,6 +749,8 @@ def main() -> int:
             lambda: solve_multiround(H, evt.EPS, evt.MAX_ITR, cache_tiles=dense_cache),
         "matvec kernel loop": lambda: solve_matvec_kernel(H, evt.EPS, evt.MAX_ITR),
         "torch.mv loop (plain)": lambda: solve_matvec(H, evt.EPS, evt.MAX_ITR),
+        "round_matvec kernel loop": lambda: solve_matvec_kernel_fused(H, evt.EPS, evt.MAX_ITR),
+        "round_fused kernel loop": lambda: solve_fused_round(H, evt.EPS, evt.MAX_ITR),
         "iterated kernel solve": lambda: solve_kernel(H, evt.EPS, evt.MAX_ITR),
         "iterated plain solve": lambda: solve_xla(H, evt.EPS, evt.MAX_ITR),
     }
@@ -549,9 +761,9 @@ def main() -> int:
             t = time_call(arms[k], reps=1, warmup=0)
             if rep:
                 samples[k].append(t.min_ms)
-    say(f"solve times at {n}² ({rounds} rounds, {rounds + 1} passes; the iterated arms "
-        f"{it_rounds_n} rounds), card {card}; GB/s against the bytes each arm moves (the cache "
-        f"fill once):")
+    say(f"solve times at {n}² ({rounds} rounds, {rounds + 1} passes, {rounds + 2} in the "
+        f"round_fused loop; the iterated arms {it_rounds_n} rounds), card {card}; GB/s against "
+        f"the bytes each arm moves (the cache fill once):")
     for k, ms in samples.items():
         med = statistics.median(ms)
         say(f"  {k}: median {med:.4f} ms, min {min(ms):.4f} ms over {len(ms)} solves, "
@@ -609,6 +821,25 @@ def main() -> int:
     t_mv_lib = time_call(lambda: torch.mv(H, x), reps=20).median_ms
     del buf
 
+    # the fused-round path's kernels at their paths' shapes: a round of the
+    # solve's first state (ev = ones, v = the row sums, m = max v), and the
+    # stop at the vector suite's largest size, eps on the card
+    m1 = torch.max(v1)
+    big_v = (torch.rand(1 << 25, generator=gen) + 0.5).to(dev)
+    timed = {
+        "round_matvec": (lambda: kernels.round_matvec(H, x, v1, m1),
+                         lambda: kernels.round_matvec_plain(H, x, v1, m1)),
+        "round_fused": (lambda: kernels.round_fused(H, x, v1, eps=evt.EPS),
+                        lambda: kernels.round_fused_plain(H, x, v1, eps=evt.EPS)),
+        "stop": (lambda: kernels.stop(big_v, eps_t), lambda: kernels.stop_plain(big_v, eps_t)),
+    }
+    for name, fns in timed.items():
+        t_it[name] = [time_call(fn, reps=20).median_ms for fn in fns] + [None]
+        at = "2^25" if name == "stop" else f"{n}²"
+        say(f"{name} at {at}: kernel median {t_it[name][0]:.4f} ms, plain {t_it[name][1]:.4f} ms "
+            f"(no one PyTorch call computes it; matvec beside it: {t_mv.median_ms:.4f} ms)")
+    del big_v
+
     # The least time the card could take: each input read once and each
     # output written once at the published memory rate, against the float32
     # operations at the published rate outside the tensor cores.  The two
@@ -651,7 +882,20 @@ def main() -> int:
                *t_it["scale"], bound(8 * nn + vec, 2 * nn + n)),
         record("scale_rowsum", "scale.cu", f"{jk}:277", it_launches["scale_rowsum"],
                it_err["scale_rowsum"], *t_it["scale_rowsum"], bound(8 * nn + 2 * vec, 3 * nn + n)),
+        # v read once, eps, one byte out; a subtraction and a compare per element.
+        # max_abs_err: every verdict of step 2d equalled stop_plain's
+        record("stop", "stop.cu", f"{jk}:99", vector_launches["stop"], 0.0, *t_it["stop"],
+               bound(4 * (1 << 25) + 5, 2 * (1 << 25)), size=1 << 25),
+        # A, ev, v and m read, v' and ev' written; the products and sums, then
+        # three operations per row for the update and the division
+        record("round_matvec", "round.cu", f"{jk}:340", fused_launches["round_matvec"],
+               round_err["round_matvec"], *t_it["round_matvec"],
+               bound(4 * nn + 4 * vec + 4, 2 * nn + 3 * n), matvec_ms=t_mv.median_ms),
+        record("round_fused", "round.cu", f"{jk}:1434", fused_launches["round_fused"],
+               round_err["round_fused"], *t_it["round_fused"],
+               bound(4 * nn + 4 * vec + 5, 2 * nn + 7 * n), matvec_ms=t_mv.median_ms),
     ]}, allow_nan=False))
+    say(f"wall: {time.perf_counter() - t_start:.1f} s")
     say(smi)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,24 @@
 """Benchmark suites of the port (counterpart of ``eigen_value_tpu.bench``):
-``python -m eigen_value_tpu_torch.bench --suite kernels``."""
+``python -m eigen_value_tpu_torch.bench --suite {e2e,kernels,vector}``."""
 
-from .suite import MATRIX_DIMS, bench_kernels, kernel_steps
+from .suite import (
+    E2E_BACKENDS,
+    MATRIX_DIMS,
+    VECTOR_SIZES,
+    bench_e2e,
+    bench_kernels,
+    bench_vector_kernels,
+    kernel_steps,
+    vector_steps,
+)
 
-__all__ = ["MATRIX_DIMS", "bench_kernels", "kernel_steps"]
+__all__ = [
+    "E2E_BACKENDS",
+    "MATRIX_DIMS",
+    "VECTOR_SIZES",
+    "bench_e2e",
+    "bench_kernels",
+    "bench_vector_kernels",
+    "kernel_steps",
+    "vector_steps",
+]

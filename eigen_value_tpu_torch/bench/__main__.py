@@ -1,10 +1,13 @@
-"""Benchmark CLI: ``python -m eigen_value_tpu_torch.bench --suite kernels
-[--dims 8192 ...] [--json]``.
+"""Benchmark CLI: ``python -m eigen_value_tpu_torch.bench --suite
+{e2e,kernels,vector,all} [--dims 8192 ...] [--sizes 65536 ...]
+[--backends matvec_pallas ...] [--reps 5] [--json]``.
 
-Prints the JAX CLI's per-kernel table (one block per kernel, ``dim   us
-GB/s   % roofline`` rows), or one JSON object per row with ``--json``.
-Only the ``kernels`` suite is ported; the other suite names of the JAX CLI
-are accepted and raise, naming the ROADMAP item that holds them.
+Prints the JAX CLI's tables: for ``e2e`` one block per backend of
+``dim x dim   ms   rounds   (device ms, chained)`` rows; for ``kernels`` and
+``vector`` one block per kernel of ``dim   us   GB/s   % roofline`` rows;
+or one JSON object per row with ``--json`` (RFC-valid: nulls, never NaN).
+``all`` runs the three.  The other suite names of the JAX CLI are accepted
+and raise, naming the ROADMAP item that holds them.
 """
 
 from __future__ import annotations
@@ -17,6 +20,32 @@ SUITES = [
     "e2e", "kernels", "vector", "sharded", "multihost", "native", "model",
     "calibrate", "drift", "operator", "batched", "large", "all",
 ]
+#: The suites that run here; ``all`` is these three, as in the JAX CLI.
+PORTED = ("e2e", "kernels", "vector", "all")
+
+
+def _fmt_e2e(rows) -> str:
+    out = []
+    backend = None
+    for r in rows:
+        if r["backend"] != backend:
+            backend = r["backend"]
+            out.append(f"\nSimilarity Transform (backend: {backend})\n")
+        if "skipped" in r:
+            out.append(f"{r['dim']:<5} x {r['dim']:>5}\t\tskipped: {r['skipped']}")
+            continue
+        parity = "" if r["rounds_ok"] else "   [PARITY BREAK]"
+        dev = (
+            f"{r['device_ms']:.3f} ms"
+            if r["device_ms"] is not None
+            else "below chain resolution"
+        )
+        out.append(
+            f"{r['dim']:<5} x {r['dim']:>5}\t\t{r['ms']:>10.3f} ms"
+            f"\t\t{r['rounds']:>6} round(s)"
+            f"\t\t(device {dev}, chained){parity}"
+        )
+    return "\n".join(out)
 
 
 def _fmt_kernels(rows, size_key="dim") -> str:
@@ -38,25 +67,44 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="eigen_value_tpu_torch.bench")
     p.add_argument("--suite", choices=SUITES, default="kernels")
     p.add_argument("--dims", type=int, nargs="*", help="matrix dims to sweep")
+    p.add_argument("--sizes", type=int, nargs="*",
+                   help="vector sizes for --suite vector (default 2^16..2^25)")
+    p.add_argument("--backends", nargs="*", help="e2e backends to run")
+    p.add_argument("--reps", type=int, default=5)
     p.add_argument("--json", action="store_true", help="emit JSON lines")
     args = p.parse_args(argv)
-    if args.suite != "kernels":
+    if args.suite not in PORTED:
         raise SystemExit(
             f"--suite {args.suite} is not ported to eigen_value_tpu_torch yet "
-            f"(ROADMAP: Queue 1 item 13); only 'kernels' runs"
+            f"(ROADMAP: Queue 1 item 13); {', '.join(PORTED)} run"
         )
 
     from . import suite
 
-    rows = suite.bench_kernels(args.dims or suite.MATRIX_DIMS)
+    unknown = sorted(set(args.backends or ()) - set(suite.E2E_BACKENDS))
+    if unknown:
+        raise SystemExit(f"unknown e2e backends {unknown}; known: {list(suite.E2E_BACKENDS)}")
+    dims = args.dims or suite.MATRIX_DIMS
+    tables = []
+    if args.suite in ("e2e", "all"):
+        rows = suite.bench_e2e(dims, backends=args.backends, reps=args.reps)
+        tables.append((rows, _fmt_e2e(rows)))
+    if args.suite in ("kernels", "all"):
+        rows = suite.bench_kernels(dims)
+        tables.append((rows, _fmt_kernels(rows)))
+    if args.suite in ("vector", "all"):
+        rows = suite.bench_vector_kernels(args.sizes or suite.VECTOR_SIZES)
+        tables.append((rows, _fmt_kernels(rows, size_key="size")))
     if args.json:
-        for r in rows:
-            print(json.dumps(r, allow_nan=False))
+        for rows, _ in tables:
+            for r in rows:
+                print(json.dumps(r, allow_nan=False))
     else:
         import torch
 
         print(f"device: {torch.cuda.get_device_name(0)}")
-        print(_fmt_kernels(rows))
+        for _, table in tables:
+            print(table)
     return 0
 
 

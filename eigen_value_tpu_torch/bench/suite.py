@@ -1,7 +1,9 @@
-"""Benchmark suite (counterpart of ``eigen_value_tpu.bench.suite``): so far
-the per-kernel ladder of the O(n²) passes.
+"""Benchmark suite (counterpart of ``eigen_value_tpu.bench.suite``): the
+end-to-end sweep over the solve forms (``bench_e2e``), the per-kernel ladder
+of the O(n²) passes (``bench_kernels``) and the O(n) vector kernels
+(``bench_vector_kernels``).
 
-Each rung is timed marginally, (T(k+1 chained) − T(1)) / k with CUDA
+Each kernel rung is timed marginally, (T(k+1 chained) − T(1)) / k with CUDA
 events (``utils.timing.time_marginal``), and reported with its achieved
 bandwidth against the card's published memory rate.  The rows keep the JAX
 suite's names and keys so the two tables read side by side: ``*_xla`` is
@@ -12,15 +14,23 @@ the suite raises.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 from .. import fixtures
+from ..config import EPS, MAX_ITR
+from ..device import sym_auto_cache_tiles
 from ..ops.cuda import kernels
-from ..utils.timing import detect_peak_gbps, roofline_pct, time_marginal
+from ..ops.solver import solve_xla, stop_check
+from ..ops.solver_kernel import solve_kernel
+from ..ops.solver_matvec import solve_matvec, solve_matvec_kernel, solve_multiround
+from ..utils.timing import detect_peak_gbps, roofline_pct, time_call, time_marginal
 
 MATRIX_DIMS = [1 << p for p in range(7, 14)]  # 128 .. 8192
+VECTOR_SIZES = [1 << p for p in range(16, 26, 3)]  # 2^16 .. 2^25
+#: Seed of the vector suite's v (an explicit generator: one v on every run).
+VECTOR_SEED = 0
 
 #: Scale of the row-sum chain's bias (times v[0]): too small to change a
 #: sum, enough to make each launch depend on the one before.
@@ -111,6 +121,260 @@ def bench_kernels(dims: List[int] = MATRIX_DIMS, k: int = 64) -> List[dict]:
                     "bench": "kernel",
                     "kernel": name,
                     "dim": n,
+                    "ms": ms,
+                    "gbps": nbytes / (ms * 1e-3) / 1e9 if ms > 0 else None,
+                    "roofline_pct": None if pct != pct else pct,
+                }
+            )
+    return rows
+
+
+# --- the end-to-end sweep ------------------------------------------------------
+
+#: The tiled rungs' (tile edge, symmetric?): one table for the backends
+#: below and the skip predicate.  The edge is the port's own
+#: (``kernels.SYM_TILE``: a tile must fit a block's shared memory), not the
+#: JAX suite's, which were tuned to a TPU's memory.
+TILED_RUNGS = {
+    "multiround_sym": (kernels.SYM_TILE, True),
+    "multiround_sym_cached": (kernels.SYM_TILE, True),
+    "multiround_cached": (kernels.SYM_TILE, False),
+}
+
+
+def _tiled(name: str, cached: bool) -> Callable:
+    tile, sym = TILED_RUNGS[name]
+
+    def solve(A):
+        n, cache = A.shape[0], 0
+        if cached:
+            cache = sym_auto_cache_tiles(n, kernels.sym_tile(n, tile) or 128, A.device, sym=sym)
+        return solve_multiround(A, EPS, MAX_ITR, symmetric=sym, tile=tile, cache_tiles=cache)
+
+    return solve
+
+
+#: The JAX suite's rungs, by its names and in its order; None where the
+#: rung is not ported (reduced-precision storage: ROADMAP Queue 1 item 6),
+#: which gives a skip row.  ``pallas_fused`` is the iterated solve over the
+#: kernels, ``matvec_pallas`` the matvec kernel loop; the multiround rungs
+#: run their whole budget in one launch (the kernels leave their round loop
+#: once the solve is frozen, so no chunk needs tuning to the round count).
+E2E_BACKENDS: Dict[str, Optional[Callable]] = {
+    "xla": lambda A: solve_xla(A, EPS, MAX_ITR),
+    "pallas_fused": lambda A: solve_kernel(A, EPS, MAX_ITR),
+    "matvec": lambda A: solve_matvec(A, EPS, MAX_ITR),
+    "matvec_pallas": lambda A: solve_matvec_kernel(A, EPS, MAX_ITR),
+    "matvec_bf16": None,
+    "multiround": lambda A: solve_multiround(A, EPS, MAX_ITR),
+    "multiround_sym": _tiled("multiround_sym", cached=False),
+    "multiround_sym_bf16": None,
+    "multiround_sym_cached": _tiled("multiround_sym_cached", cached=True),
+    "multiround_cached": _tiled("multiround_cached", cached=True),
+}
+
+_SKIP_NOT_PORTED = (
+    "reduced-precision storage of A is not ported to eigen_value_tpu_torch "
+    "(ROADMAP Queue 1 item 6)"
+)
+_SKIP_NOT_TILEABLE = (
+    "tiled rung not measurable at this dim (no 128-aligned square tile "
+    "divides n, or the auto cache sizes to zero): the stripes/dense rungs "
+    "keep the job"
+)
+
+
+def _sym_alignable(backend: str, n: int, device) -> bool:
+    """False when a tiled rung cannot run at dim ``n`` on ``device``: no
+    128-aligned square tile divides n, or (cached rungs) the card's auto
+    cache sizes to zero, so the rung would measure the uncached kernel
+    under the cached label.  ``bench_e2e`` records a skip row instead."""
+    if backend not in TILED_RUNGS:
+        return True
+    tile, sym = TILED_RUNGS[backend]
+    bt = kernels.sym_tile(n, tile)
+    if bt is None:
+        return False
+    if backend == "multiround_cached":
+        return sym_auto_cache_tiles(n, bt, torch.device(device), sym=sym) > 0
+    return True
+
+
+def _e2e_skip(backend: str, n: int, device) -> Optional[str]:
+    """Why rung ``backend`` gives a skip row at dim ``n`` on ``device``, or
+    None when it runs."""
+    if E2E_BACKENDS[backend] is None:
+        return _SKIP_NOT_PORTED
+    return None if _sym_alignable(backend, n, device) else _SKIP_NOT_TILEABLE
+
+
+def _e2e_chain_step(fn: Callable) -> Step:
+    """Chain step for marginal e2e timing: one solve of the state's matrix.
+    Eager PyTorch hoists nothing and every solve reads the card back before
+    it returns, so the chain needs no data dependence from solve to solve;
+    the state keeps the last eigenvalue so a caller can look at it."""
+
+    def step(i, state):
+        A, _ = state
+        return (A, fn(A).eigenvalue)
+
+    return step
+
+
+def _marginal_resolved(step, init, k: int, reps: int = 5, min_signal_ms: float = 1.0,
+                       max_k: int = 1024):
+    """``time_marginal`` with resolution escalation: the chain length
+    quadruples until the long-minus-short difference (``ms · k``) clears
+    ``min_signal_ms``, so a reported time is never the clamped-to-zero
+    artifact of a chain too short to resolve.  CUDA events tick at about
+    half a microsecond and a chain's host-side start varies by tens of
+    microseconds, so 1 ms of signal holds both under a few percent.
+    Returns ``(device_ms | None, k_used, resolved)``: when even ``max_k``
+    steps stay under the floor the time is None with ``resolved=False``."""
+    while True:
+        ms = time_marginal(step, init, k=k, reps=reps)
+        if ms * k >= min_signal_ms:
+            return ms, k, True
+        if k >= max_k:
+            return None, k, False
+        k = min(k * 4, max_k)
+
+
+def _e2e_chain_len(n: int) -> int:
+    """First chain length at dim ``n``.  A solve here reads the card back at
+    least once, which alone costs tens of microseconds, and CUDA events
+    resolve half a microsecond: a few solves already clear the signal floor
+    of :func:`_marginal_resolved`, and the escalation covers the rest.
+    (The JAX suite chained up to 32 solves to average out milliseconds of
+    launch jitter on a remote device; there is no such term here.)"""
+    return 8 if n <= 1024 else 4
+
+
+def bench_e2e(
+    dims: List[int] = MATRIX_DIMS,
+    backends: Optional[List[str]] = None,
+    reps: int = 5,
+) -> List[dict]:
+    """End-to-end Hilbert solves on the CUDA card, one row per rung of
+    :data:`E2E_BACKENDS` and dim, with the JAX suite's keys.
+
+    ``ms`` is the median of ``reps`` single solves, each between its own
+    pair of CUDA events.  ``device_ms`` is the marginal time of one solve in
+    a chain of solves (``time_marginal`` with :func:`_marginal_resolved`'s
+    escalation).  A solve of this port has host reads inside it (the stop
+    of a loop round, the ``advanced`` count of a multiround launch), so
+    ``device_ms`` is the time of one solve INCLUDING the card's idle gaps
+    while the host works, not the card's busy time: ``utils/trace.py``
+    separates the two.  ``elems_per_s`` counts n² elements per round.  A
+    rung that cannot run gives a row with ``skipped`` and no time."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_e2e measures the CUDA device; none is available")
+    device = torch.device("cuda")
+    rows = []
+    for name in backends or list(E2E_BACKENDS):
+        fn = E2E_BACKENDS[name]
+        for n in dims:
+            skipped = _e2e_skip(name, n, device)
+            if skipped:
+                rows.append({"bench": "e2e", "backend": name, "dim": n, "skipped": skipped})
+                continue
+            A = fixtures.hilbert_matrix(n, device=device)
+            res = fn(A)  # build and warm up
+            rounds = int(res.rounds)
+            ms = time_call(lambda: fn(A), reps=reps).median_ms
+            dev_ms, chain_k, resolved = _marginal_resolved(
+                _e2e_chain_step(fn), (A, res.eigenvalue), k=_e2e_chain_len(n), reps=reps
+            )
+            row = {
+                "bench": "e2e",
+                "backend": name,
+                "dim": n,
+                "ms": ms,
+                "device_ms": dev_ms,
+                "ms_per_round": dev_ms / max(rounds, 1) if resolved else None,
+                "elems_per_s": rounds * n * n / (dev_ms * 1e-3) if resolved else None,
+                "rounds": rounds,
+                "eigenvalue": float(res.eigenvalue),
+                "rounds_ok": rounds == fixtures.HILBERT_ROUNDS.get(n, rounds),
+                "chain_k": chain_k,
+            }
+            if not resolved:
+                row["below_resolution"] = True
+            rows.append(row)
+    return rows
+
+
+# --- the O(n) vector kernels ---------------------------------------------------
+
+
+def vector_steps(n: int, device) -> Dict[str, Tuple[Step, tuple, int]]:
+    """The vector suite's rows at size ``n`` on ``device``: name ->
+    ``(step, init, bytes)`` as :func:`kernel_steps` gives them.
+
+      find_max (read v) -> eigen_vector (read v and ev, write ev) ->
+      stop (the plain expression, read v) -> stop_pallas (the kernel).
+
+    v is U[0.5, 1.5) from a generator with a fixed seed; the second slot of
+    a state holds the step's result.  Eager PyTorch hoists nothing, so the
+    read-only steps need no dependence from one application to the next;
+    ``stop_pallas`` reads its eps from a 0-d tensor on the device, as a
+    chain on the card does.  On a CPU device it runs the plain version
+    (what the tests step through)."""
+    gen = torch.Generator().manual_seed(VECTOR_SEED)
+    v = (torch.rand(n, generator=gen, dtype=torch.float32) + 0.5).to(device)
+    ev = torch.ones(n, dtype=torch.float32, device=device)
+    eps = torch.tensor(EPS, dtype=torch.float32, device=device)
+    none = torch.zeros((), dtype=torch.float32, device=device)
+
+    def find_max_step(i, s):
+        return (s[0], torch.max(s[0]))
+
+    def eigen_vector_step(i, s):
+        vi, evi = s
+        return (vi, evi * (vi / torch.max(vi)))
+
+    def stop_step(i, s):
+        return (s[0], stop_check(s[0], EPS))
+
+    def stop_pallas_step(i, s):
+        return (s[0], kernels.stop(s[0], eps))
+
+    return {
+        "find_max": (find_max_step, (v, none), n * 4),
+        "eigen_vector": (eigen_vector_step, (v, ev), 3 * n * 4),
+        "stop": (stop_step, (v, none), n * 4),
+        "stop_pallas": (stop_pallas_step, (v, none), n * 4),
+    }
+
+
+def bench_vector_kernels(sizes: List[int] = VECTOR_SIZES, k: int = 256) -> List[dict]:
+    """The O(n) kernels (find_max, the eigenvector update, the stop as
+    PyTorch's expression and as the hand-written kernel) at vector sizes
+    2^16..2^25 on the CUDA card: one row per step of :func:`vector_steps`
+    and size, with ``ms`` (marginal, chained), ``gbps`` and
+    ``roofline_pct``.
+
+    ``time_marginal`` measures the card only while the host enqueues faster
+    than the card works.  At 2^16 (256 KB) it does not: a step's kernels
+    take a few microseconds and its Python about as long or longer, so that
+    row is the host's cost per step and an upper bound on the card's; the
+    row is reported as measured, not hidden.  The eigen_vector step is
+    three PyTorch kernels (max, divide, multiply) and moves more than the
+    3 n floats it is charged."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_vector_kernels measures the CUDA device; none is available")
+    device = torch.device("cuda")
+    peak = detect_peak_gbps(device)
+    rows = []
+    for n in sizes:
+        for name, (step, init, nbytes) in vector_steps(n, device).items():
+            ms = time_marginal(step, init, k=k)
+            pct = roofline_pct(ms, nbytes, peak) if ms > 0 else None
+            rows.append(
+                {
+                    "bench": "vector_kernel",
+                    "kernel": name,
+                    "size": n,
                     "ms": ms,
                     "gbps": nbytes / (ms * 1e-3) / 1e9 if ms > 0 else None,
                     "roofline_pct": None if pct != pct else pct,

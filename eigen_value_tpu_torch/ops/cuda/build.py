@@ -22,7 +22,10 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("matvec.cu", "multiround.cu", "multiround_sym.cu", "rowsum.cu", "scale.cu")
+SOURCES = (
+    "matvec.cu", "multiround.cu", "multiround_sym.cu", "round.cu", "rowsum.cu", "scale.cu",
+    "stop.cu",
+)
 HEADERS = ("prologue.cuh", "rowdot.cuh", "rowsum.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,6 +51,11 @@ _SIGNATURES = {
         ctypes.c_float, _I, _I, _I, _I, _P,
     ),
     "evt_multiround_sym_grid": (_I, _I, _I),
+    "evt_round_grid": (_I,),
+    # A, ev, v, m, v_next, ev_new, n, grid, stream
+    "evt_round_matvec": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    # A, ev, v, eps, v_next, ev_new, done, lam, n, grid, stream
+    "evt_round_fused": (_P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _I, _I, _P),
     # A, out, n, stream
     "evt_rowsum": (_P, _P, _I, _P),
     # A, bias, out, n, stream
@@ -56,6 +64,8 @@ _SIGNATURES = {
     "evt_scale": (_P, _P, _P, _I, _P),
     # A, v, out, v_out, n, stream
     "evt_scale_rowsum": (_P, _P, _P, _P, _I, _P),
+    # v, eps, n, state, out, stream
+    "evt_stop": (_P, _P, _I, _P, _P, _P),
 }
 
 

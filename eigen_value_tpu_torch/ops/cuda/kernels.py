@@ -1,14 +1,16 @@
 """Wrappers of the Hopper kernels, each with its plain PyTorch version.
 
 Counterparts of ``eigen_value_tpu.ops.pallas.kernels.matvec``,
-``.multiround``, ``.multiround_sym``, ``.rowsum``, ``.scale`` and
-``.scale_rowsum``, and of the bench's ``_rowsum_bias_pallas``: same
-arguments and returns, except that ``scale`` and ``scale_rowsum`` take an
-``out=`` (JAX arrays are immutable, tensors are not: the caller says where
-A' goes, and its own matrix is never written unless it names it).  A
-wrapper checks device, dtype (float32), shape and contiguity and raises on
-anything else.  For CPU tensors it runs the plain version; for CUDA
-tensors it launches the kernel or raises — there is no fallback.
+``.multiround``, ``.multiround_sym``, ``.rowsum``, ``.scale``,
+``.scale_rowsum``, ``.stop``, ``.round_matvec`` and ``.round_fused``, and of
+the bench's ``_rowsum_bias_pallas``: same arguments and returns, except that
+``scale`` and ``scale_rowsum`` take an ``out=`` (JAX arrays are immutable,
+tensors are not: the caller says where A' goes, and its own matrix is never
+written unless it names it), and that no kernel takes a tile shape or an
+``interpret`` flag.  A wrapper checks device, dtype (float32), shape and
+contiguity and raises on anything else.  For CPU tensors it runs the plain
+version; for CUDA tensors it launches the kernel or raises — there is no
+fallback.
 ``<wrapper>.launches`` counts kernel launches (a plain int; plain-version
 calls do not count).
 
@@ -625,3 +627,183 @@ def scale_rowsum(A: torch.Tensor, v: torch.Tensor, out: Optional[torch.Tensor] =
 
 
 scale_rowsum.launches = 0
+
+
+# --- the stop criterion and the one-launch rounds ----------------------------
+
+
+def _operand(x, dev: torch.device, name: str) -> torch.Tensor:
+    """A scalar that a kernel reads on the card: a 0-d float32 tensor on
+    ``dev`` as it is (one that lies elsewhere raises: moving it would wait
+    for its device), a number wrapped into one."""
+    if not isinstance(x, torch.Tensor):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+    _check_f32(name, x, ())
+    if x.device != dev:
+        raise ValueError(f"{name} must be on {dev}, got {x.device}")
+    return x
+
+
+def stop_plain(v: torch.Tensor, eps) -> torch.Tensor:
+    """``all |v[i] - v[(i+1) % n]| < eps`` with PyTorch's operations
+    (``solver.stop_check``): a shifted difference, an ``abs``, a compare
+    and a reduction, each a pass of its own."""
+    return stop_check(v, eps)
+
+
+@functools.lru_cache(maxsize=None)
+def _stop_state(device: torch.device, stream: int) -> torch.Tensor:
+    """The two words (flag, ticket) through which the blocks of a ``stop``
+    launch combine their results (csrc/stop.cu).  The kernel leaves them
+    zero, so they are zeroed once, here; launches on one stream are
+    ordered, so each (device, stream) has its own pair."""
+    return torch.zeros(2, dtype=torch.int32, device=device)
+
+
+def stop(v: torch.Tensor, eps) -> torch.Tensor:
+    """Wraparound stop criterion ``all |v[i] - v[(i+1) % n]| < eps`` (strict;
+    a NaN gives False) for float32 v of any length n ≥ 1, in one launch and
+    one read of v.  ``eps`` is a 0-d float32 tensor on v's device and is
+    read there, by the kernel (a number is wrapped into one).  Returns a
+    0-d bool tensor on v's device; nothing is read back."""
+    if v.dim() != 1 or v.shape[0] < 1:
+        raise ValueError(f"v must be a non-empty vector, got shape {tuple(v.shape)}")
+    n = v.shape[0]
+    _check_f32("v", v, (n,))
+    dev = tensor_device(v)
+    eps = _operand(eps, dev, "eps")
+    if dev.type == "cpu":
+        return stop_plain(v, eps)
+    _check_aligned(n, v)
+    from . import build
+
+    out = torch.empty((), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        state = _stop_state(dev, stream)
+        _launch(
+            build.load().evt_stop(v.data_ptr(), eps.data_ptr(), n, state.data_ptr(),
+                                  out.data_ptr(), stream),
+            "stop",
+        )
+    stop.launches += 1
+    return out
+
+
+stop.launches = 0
+
+
+def round_matvec_plain(A: torch.Tensor, ev: torch.Tensor, v: torch.Tensor, m):
+    """``(v', ev')`` with ``ev' = ev · (v / m)`` and ``v' = (A @ ev') / ev'``:
+    the unfused expressions of the host loop's round over
+    :func:`matvec_plain`."""
+    ev_new = ev * (v / m)
+    return matvec_plain(A, ev_new) / ev_new, ev_new
+
+
+@functools.lru_cache(maxsize=None)
+def round_grid(device: torch.device, n: int) -> int:
+    """Blocks of the one-round kernels at dimension ``n`` on ``device``
+    (csrc/round.cu ``evt_round_grid``), computed once."""
+    from . import build
+
+    with torch.cuda.device(device):
+        grid = build.load().evt_round_grid(n)
+    if grid < 0:
+        raise RuntimeError(f"round kernel occupancy query failed with cudaError {-grid}")
+    return grid
+
+
+def _check_round(A: torch.Tensor, ev: torch.Tensor, v: torch.Tensor) -> torch.device:
+    """Checks shared by the one-round kernels; the tensors' device."""
+    n = _check_square(A)
+    if n == 0:
+        raise ValueError("A must be non-empty")
+    _check_f32("ev", ev, (n,))
+    _check_f32("v", v, (n,))
+    dev = tensor_device(A, ev, v)
+    if dev.type == "cuda":
+        _check_aligned(n, A)
+        if not multiround_fits(n, dev):
+            raise ValueError(
+                f"n={n}: the one-round kernels keep ev' ({4 * n} bytes) in one "
+                f"block's shared memory, more than this card allows; use the "
+                f"matvec kernel loop (backend='matvec_pallas')"
+            )
+    return dev
+
+
+def round_matvec(A: torch.Tensor, ev: torch.Tensor, v: torch.Tensor, m):
+    """One matvec-form round minus its reductions, in one launch: given the
+    round's ``v`` and its max ``m`` (a 0-d float32 tensor on A's device,
+    read by the kernel; a number is wrapped into one), returns
+    ``(v_next, ev_new)`` with ``ev_new = ev · (v / m)`` and
+    ``v_next = (A @ ev_new) / ev_new``.  On a card both hold bit for bit
+    against ``ev * (v / m)`` and ``matvec(A, ev_new) / ev_new``.  The
+    results are new tensors; no input is written."""
+    dev = _check_round(A, ev, v)
+    m = _operand(m, dev, "m")
+    if dev.type == "cpu":
+        return round_matvec_plain(A, ev, v, m)
+    from . import build
+
+    n = A.shape[0]
+    v_next = torch.empty(n, dtype=torch.float32, device=dev)
+    ev_new = torch.empty(n, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(
+            build.load().evt_round_matvec(
+                A.data_ptr(), ev.data_ptr(), v.data_ptr(), m.data_ptr(),
+                v_next.data_ptr(), ev_new.data_ptr(), n, round_grid(dev, n), stream,
+            ),
+            "round_matvec",
+        )
+    round_matvec.launches += 1
+    return v_next, ev_new
+
+
+round_matvec.launches = 0
+
+
+def round_fused_plain(A: torch.Tensor, ev: torch.Tensor, v: torch.Tensor, *, eps: float):
+    """``(v', ev', done, λ)``: the whole round in PyTorch's operations:
+    ``m = max v``, the wraparound stop on v, ``λ = v[0]``, then
+    :func:`round_matvec_plain`."""
+    v_next, ev_new = round_matvec_plain(A, ev, v, torch.max(v))
+    return v_next, ev_new, stop_check(v, eps), v[0].clone()
+
+
+def round_fused(A: torch.Tensor, ev: torch.Tensor, v: torch.Tensor, *, eps: float):
+    """One whole matvec-form round in one launch.  Returns
+    ``(v_next, ev_new, done, lam)`` with ``m = max(v)``,
+    ``done = all |v[k] − v[(k+1) % n]| < eps`` (a 0-d bool tensor; absolute
+    eps only, as in the JAX kernel), ``lam = v[0]``, and ``ev_new``,
+    ``v_next`` as :func:`round_matvec` gives them for that ``m``, bit for
+    bit.  ``v_next`` and ``ev_new`` are computed even when ``done``.
+    Nothing is read back; the results are new tensors."""
+    dev = _check_round(A, ev, v)
+    if dev.type == "cpu":
+        return round_fused_plain(A, ev, v, eps=eps)
+    from . import build
+
+    n = A.shape[0]
+    v_next = torch.empty(n, dtype=torch.float32, device=dev)
+    ev_new = torch.empty(n, dtype=torch.float32, device=dev)
+    done = torch.empty((), dtype=torch.bool, device=dev)
+    lam = torch.empty((), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _launch(
+            build.load().evt_round_fused(
+                A.data_ptr(), ev.data_ptr(), v.data_ptr(), eps, v_next.data_ptr(),
+                ev_new.data_ptr(), done.data_ptr(), lam.data_ptr(), n, round_grid(dev, n),
+                stream,
+            ),
+            "round_fused",
+        )
+    round_fused.launches += 1
+    return v_next, ev_new, done, lam
+
+
+round_fused.launches = 0

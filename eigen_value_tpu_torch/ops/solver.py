@@ -40,14 +40,19 @@ class SolveResult(NamedTuple):
     converged: torch.Tensor
 
 
-def stop_check(v: torch.Tensor, eps: float, eps_mode: str = "absolute") -> torch.Tensor:
+def stop_check(v: torch.Tensor, eps, eps_mode: str = "absolute") -> torch.Tensor:
     """Wraparound stop criterion: all |v[i] - v[(i+1) % n]| < tol, a 0-d bool
     tensor on v's device.
 
     ``eps_mode="absolute"`` (reference-exact): tol = eps, rounded to v's
     dtype.  ``"relative"``: tol = eps · max|v|.  The comparison is strict.
+    ``eps`` is a number, or a 0-d tensor of v's dtype that is used where it
+    lies (nothing is read back to the host).
     """
-    e = torch.tensor(eps, dtype=v.dtype)  # a 0-d CPU tensor acts as a scalar
+    if isinstance(eps, torch.Tensor):
+        e = eps
+    else:
+        e = torch.tensor(eps, dtype=v.dtype)  # a 0-d CPU tensor acts as a scalar
     if eps_mode == "relative":
         e = e * v.abs().max()
     elif eps_mode != "absolute":

@@ -15,7 +15,8 @@ Here the loop runs on the host with one stop read per round (JAX runs it
 as a ``lax.while_loop`` on the device); :func:`solve_multiround` moves up
 to ``chunk`` rounds into one kernel launch (the stripes kernel, or the
 tiled triangle kernel for a declared-symmetric matrix) and reads one count
-per launch.
+per launch.  :func:`solve_matvec_kernel_fused` and :func:`solve_fused_round`
+keep the host loop and fuse a round's O(n) glue into its one O(n²) launch.
 """
 
 from __future__ import annotations
@@ -101,6 +102,59 @@ def solve_matvec_kernel(
         return kernels.matvec(A, ev) / ev
 
     return solve_matvec_loop(A, matvec, eps, max_itr, ev0=ev0, eps_mode=eps_mode)
+
+
+def _first_row_sums(A: torch.Tensor):
+    """``(ones, v0)``: the all-ones start and ``v0 = (A @ ones) / ones`` by
+    the matvec kernel, the round 0 of both fused-round solves."""
+    ones = torch.ones(A.shape[0], dtype=A.dtype, device=A.device)
+    return ones, kernels.matvec(A, ones) / ones
+
+
+def solve_matvec_kernel_fused(A: torch.Tensor, eps: float, max_itr: int) -> SolveResult:
+    """Matvec-form solve whose round is ONE launch of
+    :func:`kernels.round_matvec` (the ev update, the matvec and the
+    division), with the max, the λ snapshot and the stop check left to the
+    host loop (the ``solve_matvec_pallas_fused`` counterpart).  Same loop
+    structure, one stop read per round and epilogue as
+    :func:`solve_matvec_kernel`, and bit-identical results, cap exhaustion
+    included.  One ``matvec`` launch, then one ``round_matvec`` launch per
+    round; absolute stop only."""
+    ones, v0 = _first_row_sums(A)
+    c = _Carry(ones, v0, torch.zeros((), dtype=A.dtype, device=A.device), 0)
+    while c.i < max_itr and not bool(stop_check(c.v, eps)):
+        m = torch.max(c.v)
+        lam = c.v[0]  # λ snapshot of the round being advanced past
+        v_next, ev_new = kernels.round_matvec(A, c.ev, c.v, m)
+        c = _Carry(ev_new, v_next, lam, c.i + 1)
+    return _finish(c, max_itr)
+
+
+def solve_fused_round(A: torch.Tensor, eps: float, max_itr: int) -> SolveResult:
+    """Matvec-form solve where EACH ROUND IS ONE KERNEL LAUNCH
+    (:func:`kernels.round_fused`): the max, the ev update, the wraparound
+    stop, the λ readout and the matvec.  The host reads ``done`` once per
+    round and launches nothing else.  Bit-identical to
+    :func:`solve_matvec_kernel`.
+
+    The trade: ``done`` is known only after the launch, so the converging
+    round's matvec is computed and dropped, one O(n²) pass more per solve
+    (k + 2 passes for k rounds against k + 1).  That call has already
+    applied the converging round's ev update, so there is no epilogue."""
+    ev, v = _first_row_sums(A)
+    lam = torch.zeros((), dtype=A.dtype, device=A.device)
+    i, done = 0, False
+    while not done and i < max_itr:
+        v_next, ev, done_t, lam = kernels.round_fused(A, ev, v, eps=eps)
+        done = bool(done_t)  # the one host read of the round
+        if not done:
+            v, i = v_next, i + 1
+    return SolveResult(
+        lam,
+        ev,
+        torch.tensor(i, dtype=torch.int32, device=A.device),
+        torch.tensor(done, device=A.device),
+    )
 
 
 def solve_multiround(

@@ -5,7 +5,8 @@
 For each arm of a Hilbert n² solve (the stripes multiround kernel, the
 triangle kernel streaming and with the card's auto tile cache, the dense
 tiled kernel with that cache, the matvec kernel loop, the plain
-``torch.mv`` loop, the iterated solve over the ``rowsum`` and
+``torch.mv`` loop, the two fused-round loops over the ``round_matvec`` and
+``round_fused`` kernels, the iterated solve over the ``rowsum`` and
 ``scale_rowsum`` kernels) it times ``--solves`` solves with
 CUDA events, then traces as many more under ``torch.profiler`` and adds up
 the device intervals (kernels, copies, fills) the trace holds.  Prints one
@@ -97,7 +98,13 @@ def main(argv=None) -> int:
     from ..device import sym_auto_cache_tiles
     from ..ops.cuda.kernels import SYM_TILE, sym_tile
     from ..ops.solver_kernel import solve_kernel
-    from ..ops.solver_matvec import solve_matvec, solve_matvec_kernel, solve_multiround
+    from ..ops.solver_matvec import (
+        solve_fused_round,
+        solve_matvec,
+        solve_matvec_kernel,
+        solve_matvec_kernel_fused,
+        solve_multiround,
+    )
 
     H = fixtures.hilbert_matrix(args.n, device="cuda")
     bt = sym_tile(args.n, SYM_TILE)
@@ -114,6 +121,8 @@ def main(argv=None) -> int:
     arms.update({
         "matvec kernel loop": lambda: solve_matvec_kernel(H, EPS, MAX_ITR),
         "torch.mv loop (plain)": lambda: solve_matvec(H, EPS, MAX_ITR),
+        "round_matvec kernel loop": lambda: solve_matvec_kernel_fused(H, EPS, MAX_ITR),
+        "round_fused kernel loop": lambda: solve_fused_round(H, EPS, MAX_ITR),
         "iterated kernel solve": lambda: solve_kernel(H, EPS, MAX_ITR),
     })
     for name, fn in arms.items():

@@ -1,6 +1,8 @@
-"""The port's kernel ladder and marginal timing, as far as the CPU can say:
-the step functions leave the state their plain chain leaves, and every
-path that would report a device time refuses to run without a card.
+"""The port's kernel ladder, vector suite, end-to-end sweep and marginal
+timing, as far as the CPU can say: the step functions leave the state their
+plain chain leaves, the rungs and tables keep the JAX suite's names and
+formats, and every path that would report a device time refuses to run
+without a card.
 """
 
 import json
@@ -10,10 +12,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from eigen_value_tpu.bench import suite as jax_suite  # noqa: E402
+from eigen_value_tpu.bench.__main__ import _fmt_e2e as jax_fmt_e2e  # noqa: E402
 from eigen_value_tpu.bench.__main__ import _fmt_kernels as jax_fmt_kernels  # noqa: E402
 from eigen_value_tpu_torch import bench  # noqa: E402
 from eigen_value_tpu_torch import fixtures as tfx  # noqa: E402
 from eigen_value_tpu_torch.bench import __main__ as cli  # noqa: E402
+from eigen_value_tpu_torch.bench import suite as tsuite  # noqa: E402
 from eigen_value_tpu_torch.ops.cuda import kernels as tk  # noqa: E402
 from eigen_value_tpu_torch.utils import timing  # noqa: E402
 
@@ -85,8 +89,14 @@ def _no_card():
         lambda: bench.bench_kernels([N]),
         lambda: cli.main(["--suite", "kernels", "--dims", str(N), "--json"]),
         lambda: cli.main([]),
+        lambda: bench.bench_vector_kernels([N]),
+        lambda: bench.bench_e2e([N]),
+        lambda: cli.main(["--suite", "vector", "--sizes", str(N), "--json"]),
+        lambda: cli.main(["--suite", "e2e", "--dims", str(N), "--backends", "matvec_pallas",
+                          "--reps", "2"]),
     ],
-    ids=["time_marginal", "bench_kernels", "cli", "cli-default-suite"],
+    ids=["time_marginal", "bench_kernels", "cli", "cli-default-suite", "bench_vector_kernels",
+         "bench_e2e", "cli-vector", "cli-e2e"],
 )
 def test_no_cpu_time_is_reported_as_a_device_time(call):
     _no_card()
@@ -96,8 +106,20 @@ def test_no_cpu_time_is_reported_as_a_device_time(call):
 
 @pytest.mark.parametrize("suite", [s for s in cli.SUITES if s != "kernels"])
 def test_cli_rejects_the_unported_suites_by_name(suite):
+    if suite in cli.PORTED:
+        # a ported suite gets past the name check and stops only for want of a card
+        _no_card()
+        with pytest.raises(RuntimeError, match="CUDA device"):
+            cli.main(["--suite", suite, "--dims", str(N), "--sizes", str(N)])
+        return
     with pytest.raises(SystemExit, match=f"--suite {suite} .*Queue 1 item 13"):
         cli.main(["--suite", suite])
+
+
+def test_cli_runs_the_jax_clis_all_and_names_unknown_backends():
+    assert cli.PORTED == ("e2e", "kernels", "vector", "all")
+    with pytest.raises(SystemExit, match="unknown e2e backends .*'nope'"):
+        cli.main(["--suite", "e2e", "--backends", "nope"])
 
 
 def test_cli_knows_exactly_the_jax_clis_suites():
@@ -139,3 +161,149 @@ def test_roofline_pct_and_the_peak_table():
     assert timing.roofline_pct(1.0, 3_350_000_000, 3350.0) == pytest.approx(100.0)
     assert timing.roofline_pct(0.0, 1, 3350.0) != timing.roofline_pct(0.0, 1, 3350.0)  # NaN
     assert timing._PEAK_GBPS["H100"] == 3350.0
+
+
+# --- the vector suite -------------------------------------------------------------
+
+VECTOR = ["find_max", "eigen_vector", "stop", "stop_pallas"]
+
+
+def test_the_vector_suite_has_the_jax_suites_rows_and_sizes():
+    assert list(bench.vector_steps(N, "cpu")) == VECTOR
+    assert bench.VECTOR_SIZES == jax_suite.VECTOR_SIZES == [1 << 16, 1 << 19, 1 << 22, 1 << 25]
+
+
+@pytest.mark.parametrize("name", VECTOR)
+def test_vector_steps_step_on_the_cpu(name):
+    n = 1000
+    step, state, nbytes = bench.vector_steps(n, "cpu")[name]
+    assert nbytes == (3 if name == "eigen_vector" else 1) * n * 4
+    v = state[0]
+    # the same v on every call: an explicit generator with a fixed seed, + 0.5
+    assert torch.equal(v, bench.vector_steps(n, "cpu")[name][1][0])
+    assert 0.5 <= float(v.min()) and float(v.max()) < 1.5 and v.dtype == torch.float32
+    ev = torch.ones(n)
+    for i in range(K):
+        state = step(i, state)
+        ev = ev * (v / torch.max(v))
+    assert state[0] is v  # v is read, never written
+    want = {
+        "find_max": torch.max(v),
+        "eigen_vector": ev,
+        "stop": torch.tensor(False),  # U[0.5, 1.5) neighbours differ by more than 1e-3
+        "stop_pallas": torch.tensor(False),
+    }[name]
+    assert torch.equal(state[1], want)
+
+
+def test_the_stop_rows_agree_on_a_vector_that_stops():
+    steps = bench.vector_steps(N, "cpu")
+    ok = tfx.stop_success_vector(N)
+    for name in ("stop", "stop_pallas"):
+        assert bool(steps[name][0](0, (ok, None))[1])
+
+
+# --- the end-to-end sweep ---------------------------------------------------------
+
+BF16_RUNGS = ["matvec_bf16", "multiround_sym_bf16"]
+
+
+def test_e2e_backends_keep_the_jax_suites_names_and_order():
+    assert list(bench.E2E_BACKENDS) == list(jax_suite.E2E_BACKENDS)
+    assert [k for k, fn in bench.E2E_BACKENDS.items() if fn is None] == BF16_RUNGS
+    assert set(tsuite.TILED_RUNGS) == set(jax_suite.TILED_RUNGS) - set(BF16_RUNGS)
+    # the tile edge is the port's own, not the TPU's
+    assert {t for t, _ in tsuite.TILED_RUNGS.values()} == {tk.SYM_TILE}
+    assert {k: sym for k, (_, sym) in tsuite.TILED_RUNGS.items()} == {
+        k: sym for k, (_, sym) in jax_suite.TILED_RUNGS.items() if k not in BF16_RUNGS}
+
+
+@pytest.mark.parametrize("name", BF16_RUNGS)
+def test_the_bf16_rungs_give_skip_rows(name):
+    reason = tsuite._e2e_skip(name, 8192, "cpu")
+    assert "Queue 1 item 6" in reason and "not ported" in reason
+
+
+@pytest.mark.parametrize(
+    "name, n, runs",
+    [
+        ("xla", 1000, True),
+        ("multiround", 1000, True),
+        ("multiround_sym", 1024, True),
+        ("multiround_sym", 1000, False),  # no 128-aligned tile divides 1000
+        ("multiround_sym_cached", 1000, False),
+        ("multiround_sym_cached", 128, True),  # degenerates to streaming, as in JAX
+        ("multiround_cached", 1024, False),  # no card here: the auto cache is 0
+    ],
+)
+def test_sym_alignable_keeps_the_explicit_skip_rows(name, n, runs):
+    assert tsuite._sym_alignable(name, n, "cpu") == runs
+    assert tsuite._sym_alignable(name, n, "cpu") == (tsuite._e2e_skip(name, n, "cpu") is None)
+    if name in jax_suite.TILED_RUNGS and name != "multiround_cached":
+        # the divisor rule itself is the JAX suite's, at the port's tile edge
+        assert runs == (jax_suite.kernels.sym_tile(n, tk.SYM_TILE) is not None)
+
+
+@pytest.mark.parametrize(
+    "name", [k for k in tsuite.E2E_BACKENDS if tsuite._e2e_skip(k, 128, "cpu") is None])
+def test_every_e2e_rung_solves_on_the_cpu_and_chains(name):
+    n = 128  # the dense cached rung is a skip row without a card: no auto cache
+    H = tfx.hilbert_matrix(n)
+    res = bench.E2E_BACKENDS[name](H)
+    assert int(res.rounds) == tfx.HILBERT_ROUNDS[n] and bool(res.converged)
+    A, lam = tsuite._e2e_chain_step(bench.E2E_BACKENDS[name])(0, (H, res.eigenvalue))
+    assert A is H and torch.equal(lam, res.eigenvalue)
+
+
+def test_marginal_resolved_escalates_and_gives_up(monkeypatch):
+    asked = []
+
+    def fake(step, init, k, reps):
+        asked.append(k)
+        return 0.05  # ms per step: 1 ms of signal needs k >= 20
+
+    monkeypatch.setattr(tsuite, "time_marginal", fake)
+    assert tsuite._marginal_resolved(None, None, k=4) == (0.05, 64, True)
+    assert asked == [4, 16, 64]
+    assert tsuite._marginal_resolved(None, None, k=4, max_k=16) == (None, 16, False)
+    assert [tsuite._e2e_chain_len(n) for n in (128, 1024, 2048, 8192)] == [8, 8, 4, 4]
+
+
+E2E_ROWS = [
+    {"bench": "e2e", "backend": "matvec_pallas", "dim": 8192, "ms": 4.6, "device_ms": 4.25,
+     "ms_per_round": 0.25, "elems_per_s": 2.7e11, "rounds": 17, "eigenvalue": 2.2,
+     "rounds_ok": True, "chain_k": 4},
+    {"bench": "e2e", "backend": "matvec_pallas", "dim": 128, "ms": 0.9, "device_ms": None,
+     "ms_per_round": None, "elems_per_s": None, "rounds": 8, "eigenvalue": 1.9,
+     "rounds_ok": False, "chain_k": 1024, "below_resolution": True},
+    {"bench": "e2e", "backend": "matvec_bf16", "dim": 8192, "skipped": tsuite._SKIP_NOT_PORTED},
+    {"bench": "e2e", "backend": "multiround_sym", "dim": 1000,
+     "skipped": tsuite._SKIP_NOT_TILEABLE},
+]
+VECTOR_ROWS = [
+    {"bench": "vector_kernel", "kernel": "stop_pallas", "size": 1 << 25, "ms": 0.05,
+     "gbps": 2684.4, "roofline_pct": 80.1},
+    {"bench": "vector_kernel", "kernel": "stop", "size": 1 << 16, "ms": 0.0, "gbps": None,
+     "roofline_pct": None},
+]
+
+
+def test_e2e_and_vector_rows_print_in_the_jax_clis_format_and_as_valid_json():
+    assert cli._fmt_e2e(E2E_ROWS) == jax_fmt_e2e(E2E_ROWS)
+    table = cli._fmt_e2e(E2E_ROWS)
+    assert "[PARITY BREAK]" in table and "below chain resolution" in table
+    assert cli._fmt_kernels(VECTOR_ROWS, size_key="size") == jax_fmt_kernels(
+        VECTOR_ROWS, size_key="size")
+    for r in E2E_ROWS + VECTOR_ROWS:
+        line = json.dumps(r, allow_nan=False)
+        assert "NaN" not in line and json.loads(line) == r
+
+
+def test_cli_prints_canned_rows_as_json_lines_without_nan(monkeypatch, capsys):
+    monkeypatch.setattr(tsuite, "bench_e2e", lambda dims, backends, reps: E2E_ROWS)
+    monkeypatch.setattr(tsuite, "bench_kernels", lambda dims: [])
+    monkeypatch.setattr(tsuite, "bench_vector_kernels", lambda sizes: VECTOR_ROWS)
+    assert cli.main(["--suite", "all", "--json"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert [json.loads(line) for line in lines] == E2E_ROWS + VECTOR_ROWS
+    assert not any("NaN" in line for line in lines)

@@ -17,10 +17,12 @@ from eigen_value_tpu_torch import fixtures as tfx  # noqa: E402
 from eigen_value_tpu_torch.api import resolve_backend  # noqa: E402
 from eigen_value_tpu_torch.device import sym_auto_cache_tiles  # noqa: E402
 from eigen_value_tpu_torch.ops.cuda import kernels as tk  # noqa: E402
-from eigen_value_tpu_torch.ops.solver import solve_xla  # noqa: E402
+from eigen_value_tpu_torch.ops.solver import solve_xla, stop_check  # noqa: E402
 from eigen_value_tpu_torch.ops.solver_kernel import solve_kernel  # noqa: E402
 from eigen_value_tpu_torch.ops.solver_matvec import (  # noqa: E402
+    solve_fused_round,
     solve_matvec_kernel,
+    solve_matvec_kernel_fused,
     solve_multiround,
 )
 
@@ -299,3 +301,177 @@ def test_host_input_goes_to_the_card(cuda):
     assert res.eigenvector.is_cuda
     assert float(res.eigenvalue) == pytest.approx(tfx.ANCHOR_3X3_EIGENVALUE, abs=1e-4)
     assert not evt.max_eigenvalue(tfx.ANCHOR_3X3, device="cpu").eigenvector.is_cuda
+
+
+# --- the stop kernel and the one-launch rounds (csrc/stop.cu, csrc/round.cu) --
+
+
+def _stop_both(v, eps):
+    """The kernel's verdict, held equal to the plain version's."""
+    before = tk.stop.launches
+    got = tk.stop(v, eps)
+    assert tk.stop.launches == before + 1
+    assert got.is_cuda and got.dtype == torch.bool and got.shape == ()
+    assert bool(got) == bool(tk.stop_plain(v, eps))
+    return bool(got)
+
+
+@pytest.mark.parametrize("n", [1, 3, 1000, 1001, 4096, 1 << 16, (1 << 20) + 4])
+def test_stop_matches_plain(cuda, n):
+    eps = torch.tensor(EPS, device=cuda)
+    ok = tfx.stop_success_vector(n, device=cuda)
+    assert _stop_both(ok, eps)
+    fail = _stop_both(tfx.stop_fail_vector(n, device=cuda), eps)
+    assert not fail or n < 1000  # a short ramp's wraparound pair is within eps
+    # one break: first, last, at a block's edge (256 threads of 4 or 1 values), mid-block
+    for idx in sorted({0, n - 1, min(1023, n - 1), min(1024, n - 1), min(256, n - 1), n // 2}):
+        bad = ok.clone()
+        bad[idx] += 1.0
+        assert _stop_both(bad, eps) == (n == 1)  # n = 1 pairs v[0] with itself
+        bad[idx] = float("nan")
+        assert not _stop_both(bad, eps)
+    assert _stop_both(ok, EPS)  # a number is wrapped on the way in
+
+
+@pytest.mark.parametrize("i", range(10))
+def test_stop_fuzz(cuda, i):
+    g = torch.Generator().manual_seed(100 + i)
+    v = (torch.rand(2048 + i, generator=g) * (0.2 if i % 2 else 1.0)).to(cuda)
+    assert _stop_both(v, torch.tensor(0.5, device=cuda)) == bool(i % 2)
+
+
+def test_stop_is_strict_and_reads_eps_on_the_card(cuda):
+    v = torch.tensor([1.0, 1.5, 1.25, 1.0], device=cuda)
+    assert not _stop_both(v, torch.tensor(0.5, device=cuda))
+    assert _stop_both(v, torch.tensor(0.5000001, device=cuda))
+    before = tk.stop.launches
+    with pytest.raises(ValueError, match="must be on"):
+        tk.stop(v, torch.tensor(0.5))  # a host tensor is not read
+    with pytest.raises(ValueError, match="float32"):
+        tk.stop(v.double(), 0.5)
+    with pytest.raises(ValueError, match="float32"):
+        tk.stop(v, torch.tensor(0.5, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.stop(torch.ones(8, device=cuda)[::2], 0.5)
+    assert tk.stop.launches == before
+
+
+def test_stop_on_a_second_stream(cuda):
+    v = tfx.stop_success_vector(1 << 16, device=cuda)
+    eps = torch.tensor(EPS, device=cuda)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        a = [tk.stop(v, eps) for _ in range(50)]
+    b = [tk.stop(v, eps) for _ in range(50)]
+    torch.cuda.synchronize()
+    assert all(bool(x) for x in a + b)
+
+
+def _round_case(n, cuda):
+    A, v = _positive(n, cuda)
+    ev = (torch.rand(n, generator=torch.Generator().manual_seed(7 * n)) + 0.5).to(cuda)
+    return A, ev, v
+
+
+@pytest.mark.parametrize("n", [3, 1000, 1001, 4096])
+def test_round_kernels_identities(cuda, n):
+    A, ev, v = _round_case(n, cuda)
+    keep = (A.clone(), ev.clone(), v.clone())
+    m = torch.max(v)
+    before = (tk.round_matvec.launches, tk.round_fused.launches)
+    v_next, ev_new = tk.round_matvec(A, ev, v, m)
+    fused = tk.round_fused(A, ev, v, eps=EPS)
+    assert (tk.round_matvec.launches, tk.round_fused.launches) == (before[0] + 1, before[1] + 1)
+    assert all(torch.equal(a, b) for a, b in zip((A, ev, v), keep))  # no input is written
+    # bit for bit: two rounded operations, then the matvec kernel's row order
+    assert torch.equal(ev_new, ev * (v / m))
+    assert torch.equal(v_next, tk.matvec(A, ev_new) / ev_new)
+    assert torch.equal(fused[0], v_next) and torch.equal(fused[1], ev_new)
+    assert fused[2].dtype == torch.bool and not bool(fused[2])
+    assert bool(fused[2]) == bool(stop_check(v, EPS)) and torch.equal(fused[3], v[0])
+    # against the plain versions: cuBLAS sums in another order
+    want_v, want_ev = tk.round_matvec_plain(A, ev, v, m)
+    assert torch.equal(ev_new, want_ev)
+    torch.testing.assert_close(v_next, want_v, rtol=2e-5, atol=0)
+    want = tk.round_fused_plain(A, ev, v, eps=EPS)
+    torch.testing.assert_close(fused[0], want[0], rtol=2e-5, atol=0)
+    assert bool(fused[2]) == bool(want[2]) and torch.equal(fused[3], want[3])
+    # ev and v may be one tensor: the inputs are only read
+    twice = tk.round_matvec(A, v, v, m)
+    assert torch.equal(twice[1], v * (v / m))
+
+
+def test_round_fused_reports_done_and_a_nan(cuda):
+    n = 1024
+    A = tfx.hilbert_matrix(n, device=cuda)
+    ev = torch.ones(n, device=cuda)
+    ok = tfx.stop_success_vector(n, device=cuda)
+    v_next, ev_new, done, lam = tk.round_fused(A, ev, ok, eps=EPS)
+    assert bool(done) and torch.equal(lam, ok[0])
+    ref = tk.round_matvec(A, ev, ok, torch.max(ok))  # computed even when done
+    assert torch.equal(v_next, ref[0]) and torch.equal(ev_new, ref[1])
+    bad = ok.clone()
+    bad[n // 2] = float("nan")
+    out = tk.round_fused(A, ev, bad, eps=EPS)
+    assert not bool(out[2]) and bool(torch.isnan(out[1]).all())  # max(v) is NaN, as torch.max
+
+
+def test_round_kernels_reject(cuda):
+    A, ev, v = _round_case(64, cuda)
+    before = (tk.round_matvec.launches, tk.round_fused.launches)
+    with pytest.raises(ValueError, match="float32"):
+        tk.round_matvec(A.double(), ev, v, 1.0)
+    with pytest.raises(ValueError, match="float32"):
+        tk.round_fused(A, ev.double(), v, eps=EPS)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.round_matvec(A.t(), ev, v, 1.0)
+    with pytest.raises(ValueError, match="must be on"):
+        tk.round_matvec(A, ev, v, torch.tensor(1.0))  # a host m is not read
+    with pytest.raises(ValueError, match="different devices"):
+        tk.round_fused(A, ev.cpu(), v, eps=EPS)
+    big = torch.empty(65536, 65536, device=cuda)  # ev' no longer fits a block's shared memory
+    x = torch.ones(65536, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.round_fused(big, x, x, eps=EPS)
+    with pytest.raises(ValueError, match="shared memory"):
+        tk.round_matvec(big, x, x, 1.0)
+    assert (tk.round_matvec.launches, tk.round_fused.launches) == before
+
+
+@pytest.mark.parametrize("n", [3, 96, 128, 1024, 2048])
+def test_fused_solves_bitidentical_with_their_launch_counts(cuda, n):
+    A = (
+        torch.tensor(tfx.ANCHOR_3X3, dtype=torch.float32, device=cuda)
+        if n == 3
+        else tfx.hilbert_matrix(n, device=cuda)
+    )
+    want = solve_matvec_kernel(A, EPS, MAX_ITR)
+    rounds = int(want.rounds)
+    if n in tfx.HILBERT_ROUNDS:
+        assert rounds == tfx.HILBERT_ROUNDS[n]
+
+    def counts():
+        return (tk.matvec.launches, tk.round_matvec.launches, tk.round_fused.launches)
+
+    before = counts()
+    got = solve_matvec_kernel_fused(A, EPS, MAX_ITR)
+    assert counts() == (before[0] + 1, before[1] + rounds, before[2])
+    _same(got, want)
+    assert bool(got.converged)
+    before = counts()
+    got = solve_fused_round(A, EPS, MAX_ITR)
+    # the converging round's launch is the one pass more
+    assert counts() == (before[0] + 1, before[1], before[2] + rounds + 1)
+    _same(got, want)
+    assert bool(got.converged) and got.rounds.dtype == torch.int32
+
+
+@pytest.mark.parametrize("cap", [0, 1, 5])
+def test_fused_solves_at_the_cap(cuda, cap):
+    H = tfx.hilbert_matrix(256, device=cuda)
+    want = solve_matvec_kernel(H, EPS, cap)
+    for solve in (solve_matvec_kernel_fused, solve_fused_round):
+        got = solve(H, EPS, cap)
+        _same(got, want)
+        assert int(got.rounds) == cap and not bool(got.converged)
