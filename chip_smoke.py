@@ -48,6 +48,17 @@ kernel loop; and the ``vector`` and ``e2e`` bench suites
 (``bench_vector_kernels()``, whose ``stop_pallas`` row launches ``stop``,
 and ``bench_e2e(dims=[8192])``).
 
+The two persistent kernels keep part of A on the chip, so they are also
+held and timed where that changes most: at n = 2048, 4096 and 8192 the
+stripes kernel against the matvec kernel loop (chunk 1 / 5 / 18, bit for
+bit) and the tiled kernel across its tile caches (0, the 264 of its first
+version, the card's budget), a one-round chunk and a repeated launch; then
+each size's launch plan (resident rows or tiles, the L2-kept set, the bytes
+a round streams from device memory), its time and its phase split (the
+kernels' own stamps, read by ``kernel_phases.py``), and a third bound,
+``resident_bound_ms``: one read of A plus, for every later pass, the bytes
+that neither the card's shared memory nor its L2 could hold.
+
 Uses torch only (no jax).  Exits non-zero, without the final result line,
 on any failed check or when there is no CUDA device.
 
@@ -105,7 +116,8 @@ def main() -> int:
     from eigen_value_tpu_torch.api import resolve_backend
     from eigen_value_tpu_torch.bench import bench_e2e, bench_kernels, bench_vector_kernels
     from eigen_value_tpu_torch.bench.__main__ import _fmt_e2e, _fmt_kernels
-    from eigen_value_tpu_torch.device import sym_auto_cache_tiles
+    import kernel_phases
+    from eigen_value_tpu_torch.device import cuda_limits, sym_auto_cache_tiles
     from eigen_value_tpu_torch.ops.cuda import build, kernels
     from eigen_value_tpu_torch.ops.solver import solve_xla, stop_check
     from eigen_value_tpu_torch.ops.solver_kernel import solve_kernel
@@ -798,6 +810,69 @@ def main() -> int:
     say(f"multiround_sym_plain init, chunk {evt.MAX_ITR + 1} at {n}²: median "
         f"{t_sym_p.median_ms:.4f} ms")
 
+    # --- 5b. the two persistent kernels where their resident sets matter ---
+    # bit identities, the launch plan, the time and the phase split of the
+    # main path's one launch at 2048², 4096² and 8192²
+    lim = cuda_limits(dev)
+    whole = dict(chunk=evt.MAX_ITR + 1, eps=evt.EPS, init=True)
+    resident_rows = {}
+    for n_ in (2048, 4096, 8192):
+        H_ = mats[n_]
+        x_ = torch.ones(n_, device=dev)
+        loop_ = solve_matvec_kernel(H_, evt.EPS, evt.MAX_ITR)
+        ok = all(same(solve_multiround(H_, evt.EPS, evt.MAX_ITR, chunk=ch), loop_)
+                 for ch in (1, 5, 18))
+        check(ok, f"multiround at {n_}²: a chunking differs from the matvec kernel loop")
+        auto_c = sym_auto_cache_tiles(n_, bt, dev)
+        auto_d = sym_auto_cache_tiles(n_, bt, dev, sym=False)
+        base_ = tri(H_, cache_tiles=0)
+        ok_sym = all(same(tri(H_, cache_tiles=c, chunk=ch), base_)
+                     for c in sorted({min(264, auto_c), auto_c}) for ch in (1, None))
+        dense_ = solve_multiround(H_, evt.EPS, evt.MAX_ITR, cache_tiles=1)
+        ok_dense = all(same(solve_multiround(H_, evt.EPS, evt.MAX_ITR, cache_tiles=c, chunk=ch),
+                            dense_) for c in sorted({min(264, auto_d), auto_d}) for ch in (1, None))
+        runs = [kernels.multiround_sym(H_, x_, x_, z, evt.MAX_ITR, cache_tiles=auto_c, tile=bt,
+                                       **whole) for _ in range(2)]
+        ok_again = all(torch.equal(a, b) for a, b in zip(*runs))
+        say(f"{n_}²: multiround chunk 1/5/18 bit-identical to the matvec kernel loop {ok}; "
+            f"multiround_sym cache 0/{min(264, auto_c)}/{auto_c}, chunk 1, bit-identical {ok_sym}; "
+            f"dense tiled cache 1/{min(264, auto_d)}/{auto_d}, chunk 1, bit-identical {ok_dense}; "
+            f"a repeated launch {ok_again}")
+        check(ok_sym and ok_dense and ok_again, f"multiround_sym at {n_}²: an invariance broke")
+
+        plan = kernels.multiround_launch_plan(dev, n_)
+        kept = min(n_, plan.grid * plan.resident)
+        in_l2 = min(n_ - kept, plan.grid * plan.l2_rows)
+        row = {
+            "kernel": "multiround", "n": n_, "card": card, "grid": plan.grid,
+            "resident_rows": kept, "l2_rows": in_l2, "resident_mb": kept * 4 * n_ / 1e6,
+            "streamed_mb_per_round": (n_ - kept - in_l2) * 4 * n_ / 1e6,
+        }
+        fn = lambda: kernels.multiround(H_, x_, x_, z, evt.MAX_ITR, **whole)  # noqa: E731
+        row["ms"] = time_call(fn, reps=10).median_ms
+        row["phases_us"] = kernel_phases.stamped_split(kernels, fn, "multiround", plan.grid, dev)
+        resident_rows[("multiround", n_)] = row
+        say("  " + json.dumps(row, allow_nan=False))
+        for label, c, sym_ in (("streaming", 0, True), (f"cache {auto_c}", auto_c, True),
+                               (f"dense tiled, cache {auto_d}", auto_d, False)):
+            sp = kernels.multiround_sym_plan(dev, n_, bt, c, sym_)
+            row = {
+                "kernel": "multiround_sym", "arm": label, "n": n_, "card": card, "grid": sp.grid,
+                "slots": sp.slots, "resident_tiles": sp.C, "l2_tiles": sp.l2_tiles,
+                "split": sp.split, "resident_mb": sp.C * tile_mb / 1e6,
+                "streamed_mb_per_round": (sp.T - sp.l2_tiles) * tile_mb / 1e6,
+            }
+            fn = lambda: kernels.multiround_sym(  # noqa: E731
+                H_, x_, x_, z, evt.MAX_ITR, cache_tiles=c, tile=bt, sym=sym_, **whole)
+            row["ms"] = time_call(fn, reps=10).median_ms
+            row["phases_us"] = kernel_phases.stamped_split(kernels, fn, "multiround_sym",
+                                                           sp.grid, dev)
+            resident_rows[("multiround_sym", n_, label)] = row
+            say("  " + json.dumps(row, allow_nan=False))
+    for row in resident_rows.values():
+        check(row["ms"] > 0 and row["phases_us"].get("rounds_read", 0) > 0,
+              f"{row['kernel']} at {row['n']}²: no time or no phase stamps")
+
     # the iterated path's passes at the solve's first round: v = rowsum(H);
     # the updates write a second buffer, so H and v stay what they are
     v1 = kernels.rowsum(H)
@@ -845,7 +920,10 @@ def main() -> int:
     # operations at the published rate outside the tensor cores.  The two
     # multiround kernels run this solve's rounds + 1 passes in one launch
     # over a matrix five times the L2, so `passes_bound_ms` adds what the
-    # passes must stream when A cannot stay on the chip.
+    # passes stream when nothing of A stays on the chip between them, and
+    # `resident_bound_ms` what they must stream when as much of A stays as
+    # the card's shared memory (the kernel's resident set) and its whole L2
+    # could hold: one read of A, then for every later pass the rest.
     def bound(nbytes: float, ops: float) -> dict:
         t_bytes = nbytes / (H100_SXM_GBPS * 1e9) * 1e3
         t_ops = ops / (H100_SXM_F32_TFLOPS * 1e12) * 1e3
@@ -855,6 +933,17 @@ def main() -> int:
     nn, vec, passes = n * n, 4 * n, rounds + 1
     tri_bytes = len(kernels.sym_cache_split(n, bt, 0)[0]) * tile_mb
     tri_streamed = len(kernels.sym_cache_split(n, bt, cache)[0]) * tile_mb
+
+    def resident_bound(total: int, on_chip: int) -> float:
+        rest = max(0, total - on_chip - lim.l2_bytes)
+        return bound(total + (passes - 1) * rest, 0)["bound_ms"]
+
+    mr_row = resident_rows[("multiround", n)]
+    sym_row = resident_rows[("multiround_sym", n, f"cache {cache}")]
+
+    def at_sizes(kernel, arm=None):
+        return {str(k[1]): r["ms"] for k, r in resident_rows.items()
+                if k[0] == kernel and (arm is None or k[2].split(",")[0].startswith(arm))}
 
     def record(name, source, replaces, count, err, ms, plain_ms, library_ms, bnd, **more):
         return {"name": name, "route": "cuda", "source": f"eigen_value_tpu_torch/csrc/{source}",
@@ -868,11 +957,20 @@ def main() -> int:
         record("multiround", "multiround.cu", f"{jk}:483", launches["multiround"], mr_err,
                t_mr.median_ms, t_mr_p.median_ms, None,
                bound(4 * nn + 4 * vec, passes * 2 * nn),
-               passes_bound_ms=bound(passes * 4 * nn, 0)["bound_ms"]),
+               passes_bound_ms=bound(passes * 4 * nn, 0)["bound_ms"],
+               resident_bound_ms=resident_bound(4 * nn, mr_row["resident_rows"] * 4 * n),
+               resident_rows=mr_row["resident_rows"], l2_rows=mr_row["l2_rows"],
+               streamed_mb_per_round=mr_row["streamed_mb_per_round"],
+               phases_us=mr_row["phases_us"], ms_at=at_sizes("multiround")),
         record("multiround_sym", "multiround_sym.cu", f"{jk}:720",
                sym_launches["multiround_sym"], sym_err, t_sym[f"cache {cache}"].median_ms,
                t_sym_p.median_ms, None, bound(tri_bytes + 4 * vec, passes * 2 * nn),
-               passes_bound_ms=bound(passes * tri_streamed + cache * tile_mb, 0)["bound_ms"]),
+               passes_bound_ms=bound(passes * tri_streamed + cache * tile_mb, 0)["bound_ms"],
+               resident_bound_ms=resident_bound(tri_bytes, cache * tile_mb),
+               slots=sym_row["slots"], resident_tiles=sym_row["resident_tiles"],
+               l2_tiles=sym_row["l2_tiles"],
+               streamed_mb_per_round=sym_row["streamed_mb_per_round"],
+               phases_us=sym_row["phases_us"], ms_at=at_sizes("multiround_sym", "cache")),
         record("rowsum", "rowsum.cu", f"{jk}:58", it_launches["rowsum"], it_err["rowsum"],
                *t_it["rowsum"], bound(4 * nn + vec, nn)),
         record("rowsum_bias", "rowsum.cu", "eigen_value_tpu/bench/suite.py:694",

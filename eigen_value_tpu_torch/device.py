@@ -15,14 +15,18 @@ import torch
 #: Static shared memory of the multiround kernels beyond their dynamic
 #: share (two small reduction arrays), rounded up.
 _MULTIROUND_STATIC_SMEM = 1024
-#: Warps of one block of the triangle kernel, each with bt floats of column
-#: sums in shared memory (csrc/multiround_sym.cu, kWarps).
-_SYM_WARPS = 32
+#: Warps of one block of the stripes kernel (csrc/prologue.cuh, kWarps).
+_WARPS = 32
+#: The triangle kernel cuts its tiles into 32-row work items when the card
+#: has fewer than this many tiles a block: a block has sixteen warps, and
+#: with fewer tiles a warp per tile leaves warps without work.
+_SYM_SPLIT_BELOW = 12
 
 
 class CudaLimits(NamedTuple):
     sms: int
     smem_per_block_optin: int
+    l2_bytes: int = 0
 
 
 def tensor_device(*tensors: torch.Tensor) -> torch.device:
@@ -40,21 +44,70 @@ def tensor_device(*tensors: torch.Tensor) -> torch.device:
 @functools.lru_cache(maxsize=None)
 def cuda_limits(device: torch.device) -> CudaLimits:
     p = torch.cuda.get_device_properties(device)
-    return CudaLimits(p.multi_processor_count, p.shared_memory_per_block_optin)
+    return CudaLimits(p.multi_processor_count, p.shared_memory_per_block_optin, p.L2_cache_size)
+
+
+def l2_resident_bytes(device: torch.device, rest_bytes: int) -> int:
+    """How much of A a persistent kernel asks the card's L2 to keep from one
+    round to the next (``evict_last`` loads, everything else ``evict_first``),
+    when ``rest_bytes`` of A lie outside its shared memory.  3/8 of the L2
+    (19.7 MB of an H100's 50 MB) while most of those bytes must stream past
+    the kept set every round: at 8192^2 a kept set of 17-22 MB came back from
+    L2 in the next pass, one of 26 MB less often and one of 35 MB not at all.
+    5/8 of the L2 once the rest is at most 3/4 of it: with little streaming
+    by, 28-32 MB came back at 4096^2 and 37 MB did not."""
+    l2 = cuda_limits(device).l2_bytes
+    return l2 * 5 // 8 if rest_bytes <= l2 * 3 // 4 else l2 * 3 // 8
+
+
+def multiround_smem_bytes(n: int, resident: int = 0) -> int:
+    """Dynamic shared memory of one block of the stripes kernel
+    (csrc/multiround.cu ``smem_bytes``): ev and ``resident`` rows of A, n
+    floats each."""
+    return 4 * n * (1 + resident)
 
 
 def multiround_fits(n: int, device: torch.device) -> bool:
     """Whether the multiround kernel's shared-memory copy of ev (n floats)
     fits one block on this card — its own limit, in place of the TPU's
     VMEM budget.  227 KB on an H100 allows n up to 57856."""
-    return 4 * n + _MULTIROUND_STATIC_SMEM <= cuda_limits(device).smem_per_block_optin
+    need = multiround_smem_bytes(n) + _MULTIROUND_STATIC_SMEM
+    return need <= cuda_limits(device).smem_per_block_optin
+
+
+class StripesPlan(NamedTuple):
+    grid: int  # blocks, at most one per SM
+    resident: int  # rows of A a block keeps in shared memory for the launch
+    l2_rows: int  # streamed rows a block reads with the L2 evict_last policy
+
+
+def multiround_plan(n: int, device: torch.device) -> StripesPlan:
+    """How the stripes kernel spends the card at dimension n.  Block b owns
+    rows b, b + grid, ...; it keeps in shared memory as many of them as fit
+    beside ev (6 at n = 8192 on an H100, every row at n <= 2048, none past
+    n = 28928), and asks the L2 to keep the next ``l2_rows``
+    (:func:`l2_resident_bytes` over the grid).  The grid gives every warp a
+    row and, where rows fit, is large enough that every row is resident, up
+    to one block per SM."""
+    lim = cuda_limits(device)
+    free = lim.smem_per_block_optin - _MULTIROUND_STATIC_SMEM - multiround_smem_bytes(n)
+    fit = max(0, free // (4 * n))
+    want = -(-n // _WARPS)
+    if fit:
+        want = max(want, -(-n // fit))
+    grid = max(1, min(lim.sms, want))
+    per_block = -(-n // grid)
+    resident = min(fit, per_block)
+    keep = l2_resident_bytes(device, (n - min(n, grid * resident)) * 4 * n)
+    l2_rows = min(per_block - resident, keep // (grid * 4 * n))
+    return StripesPlan(grid, resident, l2_rows)
 
 
 def sym_smem_bytes(n: int, bt: int, slots: int = 0) -> int:
     """Dynamic shared memory of one block of the triangle kernel
-    (csrc/multiround_sym.cu ``smem_bytes``): ev (n floats), each warp's
-    column sums (bt floats a warp) and ``slots`` resident bt x bt tiles."""
-    return 4 * (n + _SYM_WARPS * bt + slots * bt * bt)
+    (csrc/multiround_sym.cu ``smem_bytes``): ev (n floats) and ``slots``
+    resident bt x bt tiles.  A tile's column sums stay in registers."""
+    return 4 * (n + slots * bt * bt)
 
 
 def multiround_sym_fits(n: int, bt: int, device: torch.device, slots: int = 0) -> bool:
@@ -67,13 +120,13 @@ def multiround_sym_fits(n: int, bt: int, device: torch.device, slots: int = 0) -
 def sym_auto_cache_tiles(n: int, bt: int, device: torch.device, sym: bool = True) -> int:
     """The largest resident tile cache the triangle kernel can hold at
     (n, bt) on ``device``: as many bt x bt tiles as fit one block's shared
-    memory beside its own state, times the kernel's co-resident grid (one
-    block per SM once the cache fills the block), capped at the cacheable
-    count — g(g-1)/2 off-diagonal tiles for the symmetric kernel, g^2 - 1
-    for the dense tiled one (one tile must stream).  0 when one tile does
-    not fit, and on the CPU, where the plain version keeps nothing
-    resident.  (The JAX package sizes its cache from the v5e's VMEM; the
-    budget here is the card's own.)"""
+    memory beside ev (three 64 KiB tiles at n = 8192 on an H100), times the
+    kernel's co-resident grid (one block per SM once the cache fills the
+    block), capped at the cacheable count — g(g-1)/2 off-diagonal tiles
+    for the symmetric kernel, g^2 - 1 for the dense tiled one (one tile must
+    stream).  0 when one tile does not fit, and on the CPU, where the plain
+    version keeps nothing resident.  (The JAX package sizes its cache from
+    the v5e's VMEM; the budget here is the card's own.)"""
     if device.type != "cuda":
         return 0
     lim = cuda_limits(device)
@@ -82,3 +135,22 @@ def sym_auto_cache_tiles(n: int, bt: int, device: torch.device, sym: bool = True
     g = n // bt
     cap = g * (g - 1) // 2 if sym else g * g - 1
     return max(0, min(slots * lim.sms, cap))
+
+
+def sym_split(n: int, bt: int, device: torch.device, sym: bool = True) -> int:
+    """Work items a tile is cut into (by rows) in the triangle kernel: 1, or
+    bt / 32 when the card has fewer than ``_SYM_SPLIT_BELOW`` tiles a block
+    (n <= 6144 at bt = 128 on an H100's 132 SMs; 8192 keeps whole tiles, one
+    for each of a block's sixteen warps).  The split depends on (n, bt, card)
+    only, never on the cache, so results do not depend on the cache."""
+    g = n // bt
+    tiles = g * (g + 1) // 2 if sym else g * g
+    return bt // 32 if tiles < _SYM_SPLIT_BELOW * cuda_limits(device).sms else 1
+
+
+def sym_l2_tiles(bt: int, device: torch.device, streamed: int) -> int:
+    """Streamed tiles the triangle kernel asks the L2 to keep: what fits
+    :func:`l2_resident_bytes` (300 tiles of 64 KiB on an H100 at 8192^2, 500
+    once at most 600 stream), at most all of them."""
+    tile = 4 * bt * bt
+    return min(streamed, l2_resident_bytes(device, streamed * tile) // tile)

@@ -14,6 +14,13 @@ fallback.
 ``<wrapper>.launches`` counts kernel launches (a plain int; plain-version
 calls do not count).
 
+The two persistent kernels can report where a launch's time went: with
+``STAMPS`` set to an int64 tensor on the card (32 rounds x 6 phases x the
+grid's blocks), every block writes the card's nanosecond timer at the
+boundaries named in ``PHASES`` (csrc/prologue.cuh ``stamp``;
+``kernel_phases.py`` reads them).  ``None``, the default, costs a launch
+one branch.
+
 The plain versions run anywhere.  ``matvec_plain`` is ``torch.mv``: a GEMV
 in full float32 (cuBLAS gemv on the card, which has no TF32 mode; TF32
 would put row-sum noise above the absolute 1e-3 stop once λ ≳ 1).
@@ -22,16 +29,19 @@ would put row-sum noise above the absolute 1e-3 stop once λ ≳ 1).
 from __future__ import annotations
 
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
 from ...device import (
     cuda_limits,
     multiround_fits,
+    multiround_plan,
     multiround_sym_fits,
     sym_auto_cache_tiles,
+    sym_l2_tiles,
     sym_smem_bytes,
+    sym_split,
     tensor_device,
 )
 from ..solver import stop_check
@@ -50,6 +60,19 @@ def _check_aligned(cols: int, *tensors: torch.Tensor) -> None:
     # the float4 path (cols % 4 == 0) reads 16-byte aligned rows
     if cols % 4 == 0 and any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("the float4 kernels need 16-byte aligned tensors")
+
+
+#: Phase stamps of the persistent kernels: None, or the tensor they write.
+STAMPS: Optional[torch.Tensor] = None
+#: The phases between a round's stamps, in order.
+PHASES = {
+    "multiround": ("prologue", "stream", "barrier"),
+    "multiround_sym": ("prologue", "stream", "barrier_1", "reduce", "barrier_2"),
+}
+
+
+def _stamps_ptr() -> Optional[int]:
+    return None if STAMPS is None else STAMPS.data_ptr()
 
 
 def _launch(rc: int, what: str) -> None:
@@ -145,16 +168,29 @@ def multiround_plain(
 
 
 @functools.lru_cache(maxsize=None)
-def multiround_grid(device: torch.device, n: int) -> int:
-    """Blocks of the multiround kernel that are co-resident on ``device``
-    at dimension ``n`` (the cooperative launch's grid), computed once."""
+def multiround_launch_plan(device: torch.device, n: int):
+    """:func:`device.multiround_plan` at dimension ``n``, checked once
+    against what the card will run side by side (a cooperative launch
+    needs every block resident)."""
     from . import build
 
+    plan = multiround_plan(n, device)
     with torch.cuda.device(device):
-        grid = build.load().evt_multiround_grid(n)
-    if grid < 0:
-        raise RuntimeError(f"multiround occupancy query failed with cudaError {-grid}")
-    return grid
+        cap = build.load().evt_multiround_blocks(n, plan.resident)
+    if cap < 0:
+        raise RuntimeError(f"multiround occupancy query failed with cudaError {-cap}")
+    if cap < plan.grid:
+        raise RuntimeError(
+            f"n={n}: the card runs {cap} blocks of the multiround kernel side by side "
+            f"with {plan.resident} resident rows each, the plan needs {plan.grid}"
+        )
+    return plan
+
+
+def multiround_grid(device: torch.device, n: int) -> int:
+    """Blocks of the multiround kernel at dimension ``n`` on ``device``
+    (the cooperative launch's grid)."""
+    return multiround_launch_plan(device, n).grid
 
 
 def multiround(
@@ -191,7 +227,7 @@ def multiround(
         return multiround_plain(
             A, ev, v, lam, budget, chunk=chunk, eps=eps, init=init, eps_mode=eps_mode
         )
-    _check_aligned(n, A)
+    _check_aligned(n, A, v)
     if not multiround_fits(n, dev):
         raise ValueError(
             f"n={n}: the multiround kernel keeps ev ({4 * n} bytes) in one "
@@ -205,6 +241,7 @@ def multiround(
     adv = torch.empty((), dtype=torch.int32, device=dev)
     lam_out = torch.empty((), dtype=torch.float32, device=dev)
     raw = torch.empty(2 * n, dtype=torch.float32, device=dev)
+    plan = multiround_launch_plan(dev, n)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = build.load().evt_multiround(
@@ -212,7 +249,8 @@ def multiround(
             min(budget, 2**31 - 1),
             ev_out.data_ptr(), v_out.data_ptr(), adv.data_ptr(), lam_out.data_ptr(),
             raw.data_ptr(), n, min(chunk, 2**31 - 1), eps, int(init),
-            int(eps_mode == "relative"), multiround_grid(dev, n), stream,
+            int(eps_mode == "relative"), plan.resident, plan.l2_rows, _stamps_ptr(),
+            plan.grid, stream,
         )
         _launch(rc, "multiround")
     multiround.launches += 1
@@ -365,14 +403,23 @@ def multiround_sym_plain(
     )
 
 
+class SymPlan(NamedTuple):
+    table: torch.Tensor  # (T + C, 2) int32 on the card: streamed tiles, then resident
+    T: int  # streamed tiles
+    C: int  # resident tiles; tile s lives in block s % grid
+    grid: int
+    slots: int  # resident tiles per block
+    split: int  # work items per tile (device.sym_split)
+    l2_tiles: int  # streamed tiles read with the L2 evict_last policy
+
+
 @functools.lru_cache(maxsize=None)
 def multiround_sym_plan(device: torch.device, n: int, bt: int, cache_tiles: int, sym: bool):
     """Launch plan of the triangle kernel, built once per (device, n, bt,
-    cache_tiles, sym): the tile table on the card (streamed tiles, then
-    resident ones), their counts, the grid and the resident tiles per
-    block.  Resident tile s lives in block s % grid.  Raises ValueError
-    when the cache does not fit the card (a request is rejected, never
-    shrunk)."""
+    cache_tiles, sym): the tile table on the card, the grid, the resident
+    tiles per block, and what the card's size decides (the split of tiles
+    into work items, the L2-kept tiles).  Raises ValueError when the cache
+    does not fit the card (a request is rejected, never shrunk)."""
     from . import build
 
     streamed, cached = _tile_split(n, bt, cache_tiles, sym)
@@ -395,7 +442,8 @@ def multiround_sym_plan(device: torch.device, n: int, bt: int, cache_tiles: int,
     grid = min(cap, max(T + C, -(-n // 1024), 1))
     slots = -(-C // grid) if C else 0
     tab = torch.tensor(streamed + cached, dtype=torch.int32, device=device).reshape(-1, 2)
-    return tab.contiguous(), T, C, grid, slots
+    return SymPlan(tab.contiguous(), T, C, grid, slots, sym_split(n, bt, device, sym),
+                   sym_l2_tiles(bt, device, T))
 
 
 def multiround_sym(
@@ -435,30 +483,36 @@ def multiround_sym(
             A, ev, v, lam, budget, chunk=chunk, eps=eps, init=init, eps_mode=eps_mode,
             tile=tile, cache_tiles=cache_tiles, sym=sym,
         )
-    _check_aligned(n, A)
+    _check_aligned(n, A, v)
     if not multiround_sym_fits(n, bt, dev):
         raise ValueError(
-            f"n={n}: the triangle kernel keeps ev and its tile terms "
-            f"({sym_smem_bytes(n, bt)} bytes) in one block's shared memory, more "
-            f"than this card allows; use the dense multiround or matvec kernel"
+            f"n={n}: the triangle kernel keeps ev ({sym_smem_bytes(n, bt)} bytes) in "
+            f"one block's shared memory, more than this card allows; use the matvec "
+            f"kernel"
         )
     from . import build
 
-    tab, T, C, grid, slots = multiround_sym_plan(dev, n, bt, int(cache_tiles), bool(sym))
+    plan = multiround_sym_plan(dev, n, bt, int(cache_tiles), bool(sym))
     ev_out = torch.empty(n, dtype=torch.float32, device=dev)
     v_out = torch.empty(n, dtype=torch.float32, device=dev)
     adv = torch.empty((), dtype=torch.int32, device=dev)
     lam_out = torch.empty((), dtype=torch.float32, device=dev)
     raw = torch.empty(n, dtype=torch.float32, device=dev)
+    # one slot of bt floats per (row block, column block): the row terms, and
+    # for a symmetric A the transpose terms of each of a tile's work items
     part = torch.empty((n // bt) * n, dtype=torch.float32, device=dev)
+    part_t = torch.empty((n // bt) * n * plan.split if sym else 1, dtype=torch.float32,
+                         device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = build.load().evt_multiround_sym(
-            A.data_ptr(), tab.data_ptr(), T, C, slots,
+            A.data_ptr(), plan.table.data_ptr(), plan.T, plan.C, plan.slots,
             ev.data_ptr(), v.data_ptr(), lam.data_ptr(), min(budget, 2**31 - 1),
             ev_out.data_ptr(), v_out.data_ptr(), adv.data_ptr(), lam_out.data_ptr(),
-            raw.data_ptr(), part.data_ptr(), n, bt, min(chunk, 2**31 - 1), eps,
-            int(init), int(eps_mode == "relative"), int(sym), grid, stream,
+            raw.data_ptr(), part.data_ptr(), part_t.data_ptr(), n, bt,
+            min(chunk, 2**31 - 1), eps, int(init), int(eps_mode == "relative"), int(sym),
+            plan.split, plan.l2_tiles, _stamps_ptr(), plan.grid,
+            stream,
         )
         _launch(rc, "multiround_sym")
     multiround_sym.launches += 1

@@ -212,6 +212,127 @@ def test_dense_tiled_cached_solve(cuda):
     torch.testing.assert_close(res.eigenvector, want.eigenvector, rtol=1e-4, atol=0)
 
 
+# --- what the persistent kernels keep on the chip (resident rows and tiles) --
+
+
+@pytest.mark.parametrize("n", [128, 384, 2048, 4096, 8192])
+def test_multiround_resident_rows_keep_the_matvec_loops_bits(cuda, n):
+    """Rows read from shared memory, from L2 or from device memory give the
+    bits of the matvec kernel loop: for every chunking, with a chunk that
+    ends before a resident row was read twice (chunk 1), at the caps, and in
+    a second solve on the same tensors."""
+    H = tfx.hilbert_matrix(n, device=cuda)
+    plan = tk.multiround_launch_plan(cuda, n)
+    assert plan.resident > 0  # at these sizes every block keeps rows in shared memory
+    want = solve_matvec_kernel(H, EPS, MAX_ITR)
+    assert int(want.rounds) == tfx.HILBERT_ROUNDS.get(n, int(want.rounds))
+    for chunk in (1, 5, 18, None):
+        _same(solve_multiround(H, EPS, MAX_ITR, chunk=chunk), want)
+    _same(solve_multiround(H, EPS, MAX_ITR), want)  # again, same tensors
+    for cap in (0, 1, 5):
+        got, ref = solve_multiround(H, EPS, cap, chunk=4), solve_matvec_kernel(H, EPS, cap)
+        _same(got, ref)
+        assert bool(got.converged) == bool(ref.converged)
+
+
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("n", [128, 384, 2048, 4096, 8192])
+def test_multiround_sym_bits_do_not_depend_on_where_a_tile_lives(cuda, n, sym):
+    """Cache sizes 0 (1 in dense tiled mode, which a cache selects), the 264
+    of the kernel's first version and the card's budget, whole-budget and
+    one-round chunks, a repeated launch, and for the triangle whatever the
+    lower block triangle holds: one result, bit for bit."""
+    H = tfx.hilbert_matrix(n, device=cuda)
+    auto = sym_auto_cache_tiles(n, 128, cuda, sym=sym)
+    least = 0 if sym else 1
+    base = solve_multiround(H, EPS, MAX_ITR, symmetric=sym, cache_tiles=least)
+    if n in tfx.HILBERT_ROUNDS:
+        assert int(base.rounds) == tfx.HILBERT_ROUNDS[n]
+    caches = sorted({c for c in (least, 3, min(264, auto), auto) if least <= c <= auto})
+    for cache in caches:
+        for chunk in (1, 5, None):
+            _same(solve_multiround(H, EPS, MAX_ITR, chunk=chunk, symmetric=sym,
+                                   cache_tiles=cache), base)
+    _same(solve_multiround(H, EPS, MAX_ITR, symmetric=sym, cache_tiles=auto), base)
+    if sym:
+        bad = torch.where(_below_block_diagonal(n, 128, cuda), torch.full_like(H, 7.25), H)
+        for cache in (0, auto):
+            _same(solve_multiround(bad, EPS, MAX_ITR, symmetric=True, cache_tiles=cache), base)
+    ev = torch.ones(n, device=cuda)
+    kw = dict(chunk=MAX_ITR + 1, eps=EPS, init=True, sym=sym, cache_tiles=auto)
+    first = tk.multiround_sym(H, ev, ev, 0.0, MAX_ITR, **kw)
+    again = tk.multiround_sym(H, ev, ev, 0.0, MAX_ITR, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("n", [16384, 29056])
+def test_the_persistent_kernels_where_few_or_no_rows_fit_beside_ev(cuda, n):
+    """At 16384 two rows and two tiles a block fit beside ev, at 29056 no
+    row and one tile: the stripes kernel streams as before the resident
+    design, and the identities hold."""
+    H = tfx.hilbert_matrix(n, device=cuda)
+    plan = tk.multiround_launch_plan(cuda, n)
+    assert plan.resident == (2 if n == 16384 else 0) and plan.l2_rows >= 1
+    want = solve_matvec_kernel(H, EPS, MAX_ITR)
+    for chunk in (1, None):
+        _same(solve_multiround(H, EPS, MAX_ITR, chunk=chunk), want)
+    auto = sym_auto_cache_tiles(n, 128, cuda)
+    assert auto == (264 if n == 16384 else 132)
+    base = solve_multiround(H, EPS, MAX_ITR, symmetric=True, cache_tiles=0)
+    assert int(base.rounds) == int(want.rounds)
+    for chunk in (1, None):
+        _same(solve_multiround(H, EPS, MAX_ITR, chunk=chunk, symmetric=True, cache_tiles=auto),
+              base)
+
+
+def test_the_plans_on_this_card_match_what_the_kernels_run(cuda):
+    """The pure-Python plans hold on the card itself: the cooperative grid
+    is co-resident with the planned resident set, at the sizes the
+    redesign changes most."""
+    from eigen_value_tpu_torch import device as tdev
+
+    lim = tdev.cuda_limits(cuda)
+    for n in (2048, 4096, 8192, 28928, 57856):
+        plan = tk.multiround_launch_plan(cuda, n)
+        assert plan == tdev.multiround_plan(n, cuda) and plan.grid <= lim.sms
+    for n in (2048, 4096, 8192):
+        for sym in (True, False):
+            auto = sym_auto_cache_tiles(n, 128, cuda, sym=sym)
+            sp = tk.multiround_sym_plan(cuda, n, 128, auto, sym)
+            assert sp.C == auto and sp.grid * sp.slots >= sp.C
+            assert tdev.multiround_sym_fits(n, 128, cuda, sp.slots)
+            assert sp.l2_tiles == tdev.sym_l2_tiles(128, cuda, sp.T)
+            assert sp.split == tdev.sym_split(n, 128, cuda, sym)
+
+
+def test_phase_stamps_cover_every_round(cuda):
+    """With ``kernels.STAMPS`` set both persistent kernels write increasing
+    timer values for every phase of every round, and results stay the same."""
+    n = 2048
+    H = tfx.hilbert_matrix(n, device=cuda)
+    ev = torch.ones(n, device=cuda)
+    kw = dict(chunk=MAX_ITR + 1, eps=EPS, init=True)
+    for name, fn, grid in (
+        ("multiround", lambda: tk.multiround(H, ev, ev, 0.0, MAX_ITR, **kw),
+         tk.multiround_grid(cuda, n)),
+        ("multiround_sym", lambda: tk.multiround_sym(H, ev, ev, 0.0, MAX_ITR, **kw),
+         tk.multiround_sym_plan(cuda, n, 128, 0, True).grid),
+    ):
+        plain = fn()
+        phases = len(tk.PHASES[name]) + 1
+        tk.STAMPS = torch.zeros(32 * 6 * grid, dtype=torch.int64, device=cuda)
+        try:
+            stamped = fn()
+            t = tk.STAMPS.cpu().reshape(32, 6, grid)
+        finally:
+            tk.STAMPS = None
+        assert all(torch.equal(a, b) for a, b in zip(plain, stamped))
+        rounds = int(plain[2])  # round 0 is the init pass; rounds 1..advanced run whole
+        assert rounds == tfx.HILBERT_ROUNDS[n]
+        assert bool((t[1:rounds + 1, :phases] > 0).all())
+        assert bool((t[1:rounds + 1, 1:phases] >= t[1:rounds + 1, :phases - 1]).all())
+
+
 # --- the iterated form's kernels (csrc/rowsum.cu, csrc/scale.cu) ------------
 
 

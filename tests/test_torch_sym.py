@@ -29,7 +29,7 @@ from eigen_value_tpu_torch.ops.cuda import kernels as tk  # noqa: E402
 from eigen_value_tpu_torch.ops.solver_matvec import solve_multiround  # noqa: E402
 
 EPS, MAX_ITR = 1e-3, 1000
-H100 = device.CudaLimits(sms=132, smem_per_block_optin=232448)
+H100 = device.CudaLimits(sms=132, smem_per_block_optin=232448, l2_bytes=52428800)
 
 
 def _sym(n, seed=3, scale=1.0):
@@ -92,15 +92,16 @@ def test_dense_tile_split_covers_every_tile_once():
 
 
 def test_sym_auto_cache_tiles_from_the_cards_limits(fake_h100):
-    # 232448 - 1024 - 4 * (8192 + 32*128) = 182272 bytes: two 64 KiB
+    # 232448 - 1024 - 4 * 8192 = 198656 bytes beside ev: three 64 KiB
     # tiles per block, one block per SM
-    assert device.sym_auto_cache_tiles(8192, 128, fake_h100) == 264
-    assert device.sym_auto_cache_tiles(8192, 128, fake_h100, sym=False) == 264
+    assert device.sym_auto_cache_tiles(8192, 128, fake_h100) == 396
+    assert device.sym_auto_cache_tiles(8192, 128, fake_h100, sym=False) == 396
     assert device.sym_auto_cache_tiles(384, 128, fake_h100) == 3  # g(g-1)/2
     assert device.sym_auto_cache_tiles(384, 128, fake_h100, sym=False) == 8  # g² - 1
     assert device.sym_auto_cache_tiles(8192, 512, fake_h100) == 0  # a 1 MiB tile
     assert device.sym_auto_cache_tiles(32768, 128, fake_h100) == 132  # one a block
-    assert device.sym_auto_cache_tiles(40960, 128, fake_h100) == 0  # none beside ev
+    assert device.sym_auto_cache_tiles(40960, 128, fake_h100) == 132  # 67584 bytes beside ev
+    assert device.sym_auto_cache_tiles(41600, 128, fake_h100) == 0  # none beside ev
     assert device.sym_auto_cache_tiles(8192, 128, torch.device("cpu")) == 0
 
 
@@ -303,7 +304,7 @@ def test_cache_tiles_routing(fake_h100):
     def kw(n=8192, **cfg):
         return api._solve_fn(evt.SolverConfig(**cfg), "multiround", n, fake_h100).keywords
 
-    assert kw(backend="multiround", symmetric=True)["cache_tiles"] == 264  # the card's budget
+    assert kw(backend="multiround", symmetric=True)["cache_tiles"] == 396  # the card's budget
     assert kw(backend="multiround", symmetric=True)["tile"] == tk.SYM_TILE
     assert kw(backend="multiround", symmetric=True, cache_tiles=0)["cache_tiles"] == 0
     assert kw(backend="multiround", symmetric=True, cache_tiles=7)["cache_tiles"] == 7
@@ -335,11 +336,14 @@ def test_auto_routes_a_declared_symmetric_matrix_to_the_triangle_on_a_card(fake_
     with pytest.raises(ValueError, match="128-aligned"):
         api._solve_fn(evt.SolverConfig(symmetric=True, cache_tiles=4), "multiround", 8200,
                       fake_h100)
-    # past the triangle kernel's shared memory (ev and the warps' column
-    # sums) but inside the stripes kernel's (ev only)
-    assert not device.multiround_sym_fits(54272, 128, fake_h100)
-    assert "symmetric" not in api._solve_fn(sym, "multiround", 54272, fake_h100).keywords
+    # both multiround kernels keep ev and nothing else of the O(n) state in
+    # shared memory, so the triangle reaches as far as the stripes (57856);
+    # past that the declaration is consumed by the matvec kernel loop
+    assert device.multiround_sym_fits(54272, 128, fake_h100)
+    assert api._solve_fn(sym, "multiround", 54272, fake_h100).keywords["symmetric"] is True
     assert api.resolve_backend(sym, 54272, fake_h100) == "multiround"
+    assert not device.multiround_sym_fits(58368, 128, fake_h100)
+    assert api.resolve_backend(sym, 58368, fake_h100) == "matvec_pallas"
     # dense auto stays on the stripes kernel
     assert "tile" not in api._solve_fn(evt.SolverConfig(), "multiround", 8192, fake_h100).keywords
     assert api.resolve_backend(sym, 8192, torch.device("cpu")) == "matvec"
