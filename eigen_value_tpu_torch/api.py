@@ -11,6 +11,16 @@ that is not a tensor) has no device of its own and goes to the CUDA card;
 with no card that raises, it never runs on the CPU unasked.
 ``device="cpu"`` (an argument of ``max_eigenvalue`` and of ``EigenValue``)
 is how a caller asks for the CPU; a ``device`` also moves a tensor.
+
+Reduced-precision storage (``SolverConfig(storage_dtype=torch.bfloat16)``
+or ``torch.float16``) is honored by "matvec", "matvec_pallas", "multiround"
+and "auto": a matrix already in the storage dtype is solved as it is (no f32
+copy), any other is cast to ``config.dtype`` and then once to the storage
+dtype.  The kernels read A in 2 bytes and multiply it with the f32 ev; all
+O(n) state is f32 (``ops/solver_matvec.py``).  Where the JAX package routes
+"matvec" / "matvec_pallas" storage to ``solve_matvec_storage`` (which
+divides by a quantized ev), the port runs its own loops with the kernels'
+contract.
 """
 
 from __future__ import annotations
@@ -51,11 +61,13 @@ def resolve_backend(config: SolverConfig, n: int, device: torch.device) -> str:
     sym-tileable n, else the stripes kernel, whose ev copy must fit shared
     memory (the JAX package's 6144 boundary is a TPU VMEM-residency cliff
     with no counterpart here); the matvec kernel loop beyond.  On the CPU
-    it takes the ``torch.mv`` loop, as JAX does off-TPU.
+    it takes the ``torch.mv`` loop, as JAX does off-TPU.  A ``dtype`` other
+    than float32 takes the ``torch.mv`` loop everywhere: the kernels take
+    float32 (or a 2-byte ``storage_dtype``) only.
     """
     if config.backend != "auto":
         return config.backend
-    if device.type == "cuda":
+    if device.type == "cuda" and config.dtype == torch.float32:
         if config.symmetric and _takes_triangle(config, n, device):
             return "multiround"
         return "multiround" if multiround_fits(n, device) else "matvec_pallas"
@@ -82,11 +94,34 @@ def _cache_unservable(cache_tiles: int, n: int, tile: int, consequence: str) -> 
     )
 
 
+#: The backends that run hand-written kernels (plain versions on the CPU).
+_KERNEL_BACKENDS = ("matvec_pallas", "multiround", "pallas")
+#: The storage dtypes the kernels read (float32 is no reduction, but a
+#: valid storage as in JAX).
+_STORAGE = (torch.bfloat16, torch.float16, torch.float32)
+
+
+def _itemsize(config: SolverConfig) -> int:
+    """Bytes an element of A takes in the kernels under this config."""
+    return config.storage_dtype.itemsize if config.storage_dtype is not None else 4
+
+
 def _solve_fn(config: SolverConfig, backend: str, n: int, device: torch.device):
     """The solve callable for ``backend`` at dim ``n`` on ``device``.  Every
     knob is honored or rejected with a ValueError (the JAX package's
     contract); the knobs this port has not implemented name their ROADMAP
     item."""
+    if config.dtype != torch.float32 and backend in _KERNEL_BACKENDS:
+        raise ValueError(
+            f"dtype={config.dtype} with backend={backend!r}: the kernels take float32 "
+            f"matrices (or a 2-byte storage_dtype); backend='matvec' or 'auto' solves "
+            f"in {config.dtype}"
+        )
+    if config.storage_dtype is not None and config.storage_dtype not in _STORAGE:
+        raise ValueError(
+            f"storage_dtype={config.storage_dtype!r}: the kernels read A as "
+            f"torch.bfloat16, torch.float16 or torch.float32"
+        )
     if config.storage_dtype is not None and backend in ("xla", "pallas"):
         raise ValueError(
             f"storage_dtype={config.storage_dtype} requires a matvec-family "
@@ -98,10 +133,6 @@ def _solve_fn(config: SolverConfig, backend: str, n: int, device: torch.device):
             "eps_mode='relative' is not supported by the iterated kernel "
             "backend ('pallas' keeps the absolute stop, as in the JAX package); "
             "use the matvec family or 'xla'"
-        )
-    if config.storage_dtype is not None:
-        raise _not_ported(
-            f"storage_dtype={config.storage_dtype}", "Queue 1 item 6"
         )
     if config.symmetric and backend != "multiround" and config.backend != "auto":
         raise ValueError(
@@ -130,6 +161,7 @@ def _solve_fn(config: SolverConfig, backend: str, n: int, device: torch.device):
     from .ops import solver_matvec as sm
 
     kw = dict(eps=config.eps, max_itr=config.max_itr, eps_mode=config.eps_mode)
+    stored = dict(storage_dtype=config.storage_dtype)
     tiled = {}
     if backend == "multiround":
         tile = _tile(config)
@@ -139,7 +171,10 @@ def _solve_fn(config: SolverConfig, backend: str, n: int, device: torch.device):
             # cache_tiles takes the card's auto budget (0 streams)
             tiled = dict(symmetric=True, tile=tile, cache_tiles=config.cache_tiles)
             if tiled["cache_tiles"] is None:
-                tiled["cache_tiles"] = sym_auto_cache_tiles(n, bt, device) if bt else 0
+                # the auto cache is counted in tiles of the storage type
+                tiled["cache_tiles"] = (
+                    sym_auto_cache_tiles(n, bt, device, itemsize=_itemsize(config)) if bt else 0
+                )
         elif config.symmetric:
             # auto consumed the declaration, but the triangle kernel cannot
             # take this dim: the stripes kernel keeps the job, and has no cache
@@ -164,9 +199,9 @@ def _solve_fn(config: SolverConfig, backend: str, n: int, device: torch.device):
             f"tile shape, so it would be silently dropped"
         )
     if backend == "multiround":
-        return partial(sm.solve_multiround, chunk=config.chunk, **tiled, **kw)
+        return partial(sm.solve_multiround, chunk=config.chunk, **tiled, **stored, **kw)
     if backend == "matvec_pallas":
-        return partial(sm.solve_matvec_kernel, **kw)
+        return partial(sm.solve_matvec_kernel, **stored, **kw)
     if backend == "pallas":
         from .ops.solver_kernel import solve_kernel
 
@@ -175,7 +210,7 @@ def _solve_fn(config: SolverConfig, backend: str, n: int, device: torch.device):
         from .ops.solver import solve_xla
 
         return partial(solve_xla, **kw)
-    return partial(sm.solve_matvec, **kw)
+    return partial(sm.solve_matvec, **stored, **kw)
 
 
 def _promotion(config: SolverConfig, n: int, device: torch.device) -> Optional[SolverConfig]:
@@ -199,10 +234,14 @@ def _validate_on_device(mat: torch.Tensor, check_sym: bool) -> Tuple[bool, bool]
     return flags[0], check_sym and flags[-1]
 
 
-def _as_matrix(mat, dtype, device=None) -> torch.Tensor:
-    """``mat`` as a contiguous square ``dtype`` tensor on the solve's device:
-    ``device`` when given; else a tensor's own, and the CUDA card for host
-    input (which raises when there is none)."""
+def _as_matrix(mat, config: SolverConfig, device=None) -> torch.Tensor:
+    """``mat`` as a contiguous square tensor on the solve's device
+    (``device`` when given; else a tensor's own, and the CUDA card for host
+    input, which raises when there is none), in ``config.dtype`` or, when
+    it is already in ``config.storage_dtype``, as it is (a pre-quantized
+    matrix gets no f32 copy; JAX ``api.py:533-539``).  A tensor whose
+    address is not 16-byte aligned (a view such as ``buf[1:].view(n, n)``)
+    is cloned: the kernels read rows in aligned chunks."""
     if not isinstance(mat, torch.Tensor):
         if device is None:
             if not torch.cuda.is_available():
@@ -214,7 +253,9 @@ def _as_matrix(mat, dtype, device=None) -> torch.Tensor:
         mat = torch.tensor(np.asarray(mat))  # a copy: host arrays may be read-only
     if mat.dim() != 2 or mat.shape[0] != mat.shape[1]:
         raise ValueError(f"must be a square matrix, got shape {tuple(mat.shape)}")
-    return mat.to(device=device, dtype=dtype).contiguous()
+    prequantized = config.storage_dtype is not None and mat.dtype == config.storage_dtype
+    mat = mat.to(device=device, dtype=mat.dtype if prequantized else config.dtype).contiguous()
+    return mat.clone() if mat.data_ptr() % 16 else mat
 
 
 def max_eigenvalue(
@@ -226,7 +267,8 @@ def max_eigenvalue(
 ) -> SolveResult:
     """Maximum eigenvalue and eigenvector of a positive square matrix.
 
-    ``mat`` is cast to ``config.dtype`` and never written.  A tensor is
+    ``mat`` is cast to ``config.dtype`` (or, with ``storage_dtype``, solved
+    as it is when already in that dtype) and never written.  A tensor is
     solved on its own device, host input (a numpy array, a list) on the
     CUDA card; ``device`` overrides both (``"cpu"`` asks for the CPU).
     ``validate=True`` checks positivity on the device, and bitwise symmetry
@@ -239,7 +281,7 @@ def max_eigenvalue(
     """
     if mesh is not None:
         raise _not_ported("mesh= (the sharded solves)", "Queue 1 item 10")
-    mat = _as_matrix(mat, config.dtype, device)
+    mat = _as_matrix(mat, config, device)
     n = mat.shape[0]
     backend = resolve_backend(config, n, mat.device)
     solve = _solve_fn(config, backend, n, mat.device)
@@ -274,7 +316,8 @@ class EigenValue:
     card for host input; ``"cpu"`` asks for the CPU).  On a CUDA device
     ``ts_ms`` is the solve's time between two CUDA events on the current
     stream, read after a synchronise; on the CPU it is the wall time of the
-    solve.
+    solve.  ``last_wall_ms`` is the host's wall time of the last solve
+    (on a card up to the synchronise), None before the first.
     """
 
     def __init__(
@@ -282,9 +325,45 @@ class EigenValue:
     ) -> None:
         self.config = config
         self.device = torch.device(device) if device is not None else None
+        self.last_wall_ms: Optional[float] = None
+
+    def warmup(self, dims, dtype=None) -> None:
+        """Prepare the solves of these dims so that the first timed call
+        does not pay for it (the JAX class compiles them here): on a card,
+        build the kernel library (``ops/cuda/build.load``: nvcc, seconds)
+        and the launch plans of the route ``resolve_backend`` takes at each
+        dim, in the config's storage type.  Everywhere, resolve the
+        backends and raise now on a config that a solve would reject.
+        ``dtype`` is the matrices' dtype (JAX's argument; default
+        ``config.dtype``): a matrix is cast by the config, or kept when it
+        is already in ``storage_dtype``, so the routes and plans are the
+        same for every floating dtype."""
+        dtype = self.config.dtype if dtype is None else dtype
+        if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+            raise ValueError(f"dtype must be a torch floating dtype, got {dtype!r}")
+        dev = self.device
+        if dev is None:  # where host input would go
+            dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        if dev.type == "cuda" and dev.index is None:  # the plans are kept per card
+            dev = torch.device("cuda", torch.cuda.current_device())
+        for n in dims:
+            backend = resolve_backend(self.config, n, dev)
+            solve = _solve_fn(self.config, backend, n, dev)
+            if dev.type != "cuda" or backend not in _KERNEL_BACKENDS:
+                continue
+            from .ops.cuda import kernels
+
+            kw = solve.keywords
+            storage = kw.get("storage_dtype") or torch.float32
+            if backend == "multiround" and "tile" in kw:
+                kernels.prepare(dev, n, storage, tile=kw["tile"], cache_tiles=kw["cache_tiles"],
+                                sym=kw.get("symmetric", False))
+            else:
+                kernels.prepare(dev, n, storage, stripes=backend == "multiround")
 
     def similarity_transform(self, mat) -> Tuple[np.float32, np.ndarray, float, int]:
-        mat = _as_matrix(mat, self.config.dtype, self.device)
+        mat = _as_matrix(mat, self.config, self.device)
+        t0 = time.perf_counter()
         if mat.is_cuda:
             with torch.cuda.device(mat.device):
                 start = torch.cuda.Event(enable_timing=True)
@@ -294,10 +373,10 @@ class EigenValue:
                 end.record()
                 end.synchronize()
                 ms = float(start.elapsed_time(end))
+            self.last_wall_ms = (time.perf_counter() - t0) * 1e3
         else:
-            t0 = time.perf_counter()
             res = max_eigenvalue(mat, self.config)
-            ms = (time.perf_counter() - t0) * 1e3
+            ms = self.last_wall_ms = (time.perf_counter() - t0) * 1e3
         return (
             res.eigenvalue.cpu().numpy()[()],
             res.eigenvector.cpu().numpy(),

@@ -13,7 +13,9 @@ kernels; ``"xla"`` means plain PyTorch.
 CONSISTENCY CONTRACT (as in the JAX package): every entry point either
 honors a knob or rejects it with a ValueError; nothing is silently dropped.
 The knobs this port does not implement yet are rejected at solve time by
-``api._solve_fn``, each naming its ROADMAP item.
+``api._solve_fn``, each naming its ROADMAP item.  Construction checks the
+same fields as the JAX config, so a config is valid in both packages or in
+neither (float64 aside: JAX needs x64 mode for it, the port does not).
 """
 
 from __future__ import annotations
@@ -41,8 +43,10 @@ class SolverConfig:
       max_itr: iteration cap.
       eps_mode: "absolute" (reference-exact, tol = eps) or "relative"
         (tol = eps * max|v|).
-      dtype: matrix and state dtype (torch.float32; the kernels take f32
-        only).
+      dtype: matrix and state dtype.  The kernels take float32: under
+        "auto" any other dtype (float64, say) takes the plain "matvec" loop
+        on every device, and the kernel backends ("matvec_pallas",
+        "multiround", "pallas") reject it.
       backend: "auto" | "xla" | "pallas" | "matvec" | "matvec_pallas" |
         "multiround".
           * "xla": the iterated (mutate-A) form in plain PyTorch: row sums
@@ -73,7 +77,19 @@ class SolverConfig:
       block_cols / interpret: TPU tile and interpret knobs.  The port
         decides between kernel and plain version by the tensor's device,
         so any non-None value is rejected.
-      storage_dtype: reduced-precision storage; rejected until ported.
+      storage_dtype: reduced-precision storage of A (``torch.bfloat16`` or
+        ``torch.float16``) for "matvec", "matvec_pallas" and "multiround"
+        (and "auto"); "xla" and "pallas" reject it.  A is cast once (a
+        matrix already in this dtype is solved as it is, with no f32 copy);
+        the kernels read it in 2 bytes, convert each element to f32 exactly
+        and multiply it with the f32 ev, summing in the f32 order; all O(n)
+        state is f32.  The result is the f32 solve of the quantized matrix,
+        bit for bit on the kernels, so it agrees with the f32 solve of A
+        within the quantization (±1 round; hold it against ``A_q``).  The
+        JAX package's one-chip ``solve_matvec_storage`` divides by a
+        quantized ev instead; the port keeps its kernels' contract on every
+        path.  Halves the bytes a round reads, and the triangle kernel's
+        auto cache holds twice the tiles.
       chunk: rounds per launch for "multiround" (None = the whole budget
         in one launch; the kernel leaves its loop once frozen).
       symmetric: declares A bitwise symmetric.  With "multiround", or under
@@ -119,6 +135,16 @@ class SolverConfig:
             )
         if not isinstance(self.dtype, torch.dtype) or not self.dtype.is_floating_point:
             raise ValueError(f"dtype must be a torch floating dtype, got {self.dtype!r}")
+        # the JAX config's tile checks (its Mosaic tiling), so one config is
+        # valid in both packages or in neither
+        if self.block_cols is not None and (self.block_cols < 128 or self.block_cols % 128):
+            raise ValueError(
+                f"block_cols must be a positive multiple of 128, got {self.block_cols}"
+            )
+        if self.block_rows is not None and (self.block_rows < 8 or self.block_rows % 8):
+            raise ValueError(
+                f"block_rows must be a positive multiple of 8, got {self.block_rows}"
+            )
 
 
 DEFAULT_CONFIG = SolverConfig()

@@ -37,8 +37,16 @@ def torch_dtype(dtype: Any) -> torch.dtype:
 
 
 def matrix_from_numpy(a, device="cpu", dtype=torch.float32) -> torch.Tensor:
-    """A contiguous ``dtype`` copy of an array-like on ``device``."""
-    return torch.tensor(np.asarray(a), dtype=torch_dtype(dtype), device=device)
+    """A contiguous ``dtype`` copy of an array-like on ``device``.  A
+    bfloat16 array (``np.asarray`` of a JAX bf16 array has ml_dtypes'
+    bfloat16, which torch cannot take) is carried by its bits, so
+    ``dtype=torch.bfloat16`` gives the same bits; float16 goes through
+    numpy's own type."""
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16).copy())
+        return bits.view(torch.bfloat16).to(device=device, dtype=torch_dtype(dtype))
+    return torch.tensor(arr, dtype=torch_dtype(dtype), device=device)
 
 
 def state_from_numpy(ev, v, lam, rounds: int, device="cpu", dtype=torch.float32) -> _Carry:

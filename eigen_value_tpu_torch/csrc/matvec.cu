@@ -15,6 +15,15 @@
 // result is bitwise reproducible from launch to launch.  There are no
 // column blocks: a whole row belongs to one warp, which removes the
 // cross-block accumulation the TPU grid carried in VMEM.
+//
+// A may be stored in bf16 or f16 (reduced-precision storage, the only
+// single-card route past the multiround kernels' n <= 57856: 65536^2 is
+// 8 GiB in bf16).  Then a chunk is four 2-byte elements in one 8-byte load
+// (eight in flight per lane, the f32 kernel's bytes in flight), converted
+// to f32 exactly and multiplied with the f32 x in the f32 order above, so
+// matvec(A_q, x) is bit for bit matvec(A_q.float(), x), and the bound is
+// half the bytes: n*m*2 (on an H100 at 65536^2, chip_smoke.py: 2.87 ms a
+// call against 2.56 ms for the bytes; four loads in flight were slower).
 #include <cuda_runtime.h>
 
 #include "rowdot.cuh"
@@ -24,8 +33,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kRowsPerBlock = kThreads / 32;
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-    matvec_kernel(const float* __restrict__ A, const float* __restrict__ x,
+    matvec_kernel(const T* __restrict__ A, const float* __restrict__ x,
                   float* __restrict__ y, int n, int m) {
   const int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -36,14 +46,18 @@ __global__ void __launch_bounds__(kThreads)
 
 }  // namespace
 
-// A (n, m) row-major, x (m,), y (n,), all float32 on the current device.
-// Launches on `stream` and does not synchronise.  Returns the launch's
-// cudaError_t (0 on success).
-extern "C" int evt_matvec(const float* A, const float* x, float* y, int n,
-                          int m, void* stream) {
+// A (n, m) row-major in the element type `elem` names (0 float32, 1
+// bfloat16, 2 float16); x (m,) and y (n,) float32; all on the current
+// device.  Launches on `stream` and does not synchronise.  Returns the
+// launch's cudaError_t (0 on success).
+extern "C" int evt_matvec(const void* A, const float* x, float* y, int n,
+                          int m, int elem, void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + kRowsPerBlock - 1) / kRowsPerBlock;
-  matvec_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      A, x, y, n, m);
-  return static_cast<int>(cudaGetLastError());
+  return evt::with_elem(elem, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    matvec_kernel<T><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(A), x, y, n, m);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

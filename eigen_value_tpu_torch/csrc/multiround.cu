@@ -37,6 +37,12 @@
 //     v-sequence is bit-identical to a loop of matvec launches;
 //   * raw row sums are double-buffered in global memory: round r writes
 //     buffer r & 1 while blocks may still read buffer (r - 1) & 1.
+// A may be stored in bf16 or f16 (reduced-precision storage, as the TPU
+// kernel's row stripe cast up to f32 at kernels.py:556-561): the resident
+// rows are copied in 2 bytes, so twice as many fit beside the f32 ev (12 a
+// block at n = 8192), the L2 band is counted in 2-byte rows, and row_dot
+// converts each chunk to f32 exactly before the f32 sums, so a launch on
+// A_q gives the bits of a launch on A_q.float().  All O(n) state stays f32.
 // Asking the L2 for the next round's first rows before the barrier
 // (cp.async.bulk.prefetch.L2) was measured and is not here: it cost 3% at
 // 8192^2, where it pushes kept rows out of L2.
@@ -56,14 +62,16 @@ using evt::kWarps;
 
 constexpr int kBatch = 2;  // float4 chunks of v a thread holds in the prologue
 
-// Dynamic shared memory: ev (n) | resident rows (resident * n).
-// device.multiround_smem_bytes mirrors this.
+// Dynamic shared memory: ev (n floats) | resident rows (resident * n
+// elements of T).  device.multiround_smem_bytes mirrors this.
+template <class T>
 size_t smem_bytes(int n, int resident) {
-  return static_cast<size_t>(n) * (1 + static_cast<size_t>(resident)) * sizeof(float);
+  return static_cast<size_t>(n) * (sizeof(float) + static_cast<size_t>(resident) * sizeof(T));
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads) multiround_kernel(
-    const float* __restrict__ A, const float* __restrict__ ev_in,
+    const T* __restrict__ A, const float* __restrict__ ev_in,
     const float* __restrict__ v_in, const float* __restrict__ lam_in,
     int budget, float* __restrict__ ev_out, float* __restrict__ v_out,
     int* __restrict__ adv_out, float* __restrict__ lam_out,
@@ -71,8 +79,10 @@ __global__ void __launch_bounds__(kThreads) multiround_kernel(
     int resident, int l2_rows, unsigned long long* stamps) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float4 smem4[];
+  using Chunk = typename evt::Elem<T>::Chunk;
+  using Bits = typename evt::Elem<T>::Bits;
   float* ev_s = reinterpret_cast<float*>(smem4);
-  float* rows_s = ev_s + n;
+  T* rows_s = reinterpret_cast<T*>(ev_s + n);  // chunk-aligned: 4n bytes, n % 4 == 0
   __shared__ float red[3][kWarps];
   __shared__ float stats[3];
 
@@ -90,17 +100,19 @@ __global__ void __launch_bounds__(kThreads) multiround_kernel(
   // fill the resident rows, once per launch
   if ((n & 3) == 0) {
     const int n4 = n >> 2;
-    float4* dst = reinterpret_cast<float4*>(rows_s);
+    Chunk* dst = reinterpret_cast<Chunk*>(rows_s);
 #pragma unroll 4
     for (int e = tid; e < nres * n4; e += kThreads) {
       const int k = e / n4;
-      dst[e] = pass(reinterpret_cast<const float4*>(
+      dst[e] = pass(reinterpret_cast<const Chunk*>(
                         A + static_cast<size_t>(b + k * G) * n) + (e - k * n4));
     }
   } else {
+    Bits* dst = reinterpret_cast<Bits*>(rows_s);
     for (int e = tid; e < nres * n; e += kThreads) {
       const int k = e / n;
-      rows_s[e] = pass(A + static_cast<size_t>(b + k * G) * n + (e - k * n));
+      dst[e] = pass(reinterpret_cast<const Bits*>(A + static_cast<size_t>(b + k * G) * n) +
+                    (e - k * n));
     }
   }
   __syncthreads();
@@ -154,37 +166,47 @@ __global__ void __launch_bounds__(kThreads) multiround_kernel(
   }
 }
 
-}  // namespace
-
-// Co-resident blocks of the kernel at dimension n with `resident` rows a
-// block on the current device, 0 if one block does not fit, or a negated
-// cudaError_t.  Also raises the kernel's dynamic shared-memory limit to the
-// most the card allows.
-extern "C" int evt_multiround_blocks(int n, int resident) {
+template <class T>
+int blocks(int n, int resident) {
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
   cudaFuncAttributes attr;
-  const size_t smem = smem_bytes(n, resident);
+  const size_t smem = smem_bytes<T>(n, resident);
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, multiround_kernel);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, multiround_kernel<T>);
   if (e != cudaSuccess) return -static_cast<int>(e);
   const size_t limit = static_cast<size_t>(optin) - attr.sharedSizeBytes;
   if (smem > limit) return 0;
-  e = cudaFuncSetAttribute(multiround_kernel,
+  e = cudaFuncSetAttribute(multiround_kernel<T>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(limit));
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, multiround_kernel,
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, multiround_kernel<T>,
                                                       kThreads, smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
   return per_sm * sms;
 }
 
-// A (n, n) row-major; ev_in, v_in, ev_out, v_out (n,); lam_in, lam_out (1,);
+}  // namespace
+
+// Co-resident blocks of the kernel at dimension n with `resident` rows of
+// element type `elem` (0 float32, 1 bfloat16, 2 float16) a block on the
+// current device, 0 if one block does not fit, or a negated cudaError_t.
+// Also raises the kernel's dynamic shared-memory limit to the most the card
+// allows.
+extern "C" int evt_multiround_blocks(int n, int resident, int elem) {
+  if (elem < 0 || elem > 2) return -static_cast<int>(cudaErrorInvalidValue);
+  return evt::with_elem(elem, [&](auto tag) {
+    return blocks<typename decltype(tag)::type>(n, resident);
+  });
+}
+
+// A (n, n) row-major in the element type `elem` names (0 float32, 1
+// bfloat16, 2 float16); ev_in, v_in, ev_out, v_out (n,); lam_in, lam_out (1,);
 // adv_out (1,) int32; raw (2n,) scratch; all on the current device.  `grid`
 // blocks with `resident` rows each must be co-resident
 // (evt_multiround_blocks); the first `l2_rows` streamed rows of a block are
@@ -192,20 +214,23 @@ extern "C" int evt_multiround_blocks(int n, int resident) {
 // words for the phase stamps.  Launches on `stream` and does not
 // synchronise.  Returns the launch's cudaError_t (0 on success; a card
 // without cooperative launch fails here).
-extern "C" int evt_multiround(const float* A, const float* ev_in,
+extern "C" int evt_multiround(const void* A, const float* ev_in,
                               const float* v_in, const float* lam_in,
                               int budget, float* ev_out, float* v_out,
                               int* adv_out, float* lam_out, float* raw, int n,
                               int chunk, float eps, int init, int rel,
                               int resident, int l2_rows, void* stamps,
-                              int grid, void* stream) {
-  const size_t smem = smem_bytes(n, resident);
-  void* args[] = {&A,      &ev_in,   &v_in,    &lam_in,   &budget,  &ev_out,
-                  &v_out,  &adv_out, &lam_out, &raw,      &n,       &chunk,
-                  &eps,    &init,    &rel,     &resident, &l2_rows, &stamps};
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)multiround_kernel, dim3(grid),
-      dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+                              int elem, int grid, void* stream) {
+  return evt::with_elem(elem, [&](auto tag) {
+    using T = typename decltype(tag)::type;
+    const size_t smem = smem_bytes<T>(n, resident);
+    void* args[] = {&A,      &ev_in,   &v_in,    &lam_in,   &budget,  &ev_out,
+                    &v_out,  &adv_out, &lam_out, &raw,      &n,       &chunk,
+                    &eps,    &init,    &rel,     &resident, &l2_rows, &stamps};
+    const cudaError_t e = cudaLaunchCooperativeKernel(
+        (const void*)multiround_kernel<T>, dim3(grid),
+        dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

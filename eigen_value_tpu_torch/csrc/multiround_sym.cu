@@ -63,6 +63,15 @@
 // The sum depends neither on which block or warp did a tile or a group nor
 // on where the tile lay, so results are bit-identical for every cache size,
 // every chunking and whatever the lower block triangle holds.
+// A may be stored in bf16 or f16 (reduced-precision storage, as the TPU
+// kernel's tiles cast up to f32 at kernels.py:889, :947, :999): tiles stream
+// and stay resident in 2 bytes, so a block holds twice the tiles beside ev
+// (six 32 KiB tiles at n = 8192: 792), a lane reads its four columns of a
+// row as one 8-byte load, and each chunk is converted to f32 exactly before
+// the f32 row and transpose terms.  The work items, slots and sums are
+// those of the f32 kernel (the split depends on n, bt and the card only),
+// so a launch on A_q gives the bits of a launch on A_q.float(), for every
+// cache size.  All O(n) state stays f32.
 // Measured and not here: asking the L2 for the next round's first rows
 // before the barriers (no gain); loading a warp's first eight row segments
 // of the next round into registers before the barriers (32 more live
@@ -88,16 +97,18 @@ constexpr int kBatch = 4;  // float4 chunks of v a thread holds in the prologue
 constexpr int kChunk = 128;  // columns per pass over a tile: a float4 a lane
 constexpr int kGroup = 32;   // rows whose sums one butterfly round leaves on the lanes
 // rows of a tile whose loads a warp issues together (measured at 8192^2: 4
-// cost 10% more, 16 spill and cost 3% more)
+// cost 10% more, 16 spill and cost 3% more; with 2-byte tiles, whose eight
+// rows put half the bytes in flight, 16 were slower too)
 constexpr int kAhead = 8;
 constexpr int kClasses = 8;  // lanes that share a row's sum over the column blocks
 constexpr int kRowsPerWarp = 32 / kClasses;
 
-// Dynamic shared memory: ev (n) | resident tiles (slots * bt^2).
-// device.sym_smem_bytes mirrors this.
+// Dynamic shared memory: ev (n floats) | resident tiles (slots * bt^2
+// elements of S, A's storage type).  device.sym_smem_bytes mirrors this.
+template <class S>
 size_t smem_bytes(int n, int bt, int slots) {
-  return (static_cast<size_t>(n) + static_cast<size_t>(slots) * bt * bt) *
-         sizeof(float);
+  return static_cast<size_t>(n) * sizeof(float) +
+         static_cast<size_t>(slots) * bt * bt * sizeof(S);
 }
 
 __device__ __forceinline__ float warp_sum(float a) {
@@ -109,39 +120,43 @@ __device__ __forceinline__ float warp_sum(float a) {
 
 // One warp's pass over rows [r_lo, r_hi) (whole groups) of tile (i, j), row
 // r at src + r * stride (A in device memory, or a resident copy in shared
-// memory), read through `load`.  Writes the row term T . ev[j_blk] of these
-// rows to `row_out` (the tile's slot) and, when `trans`, the transpose term
-// T^T . ev[i_blk] of these rows to `col_out` (bt floats).
-template <class Load>
-__device__ __forceinline__ void tile_terms(const float* src, size_t stride, int bt,
+// memory; element type S), read through `load`.  Writes the row term
+// T . ev[j_blk] of these rows to `row_out` (the tile's slot) and, when
+// `trans`, the transpose term T^T . ev[i_blk] of these rows to `col_out`
+// (bt floats).
+template <class S, class Load>
+__device__ __forceinline__ void tile_terms(const S* src, size_t stride, int bt,
                                            int r_lo, int r_hi, bool trans,
                                            const float* evi, const float* evj,
                                            float* row_out, float* col_out, int lane,
                                            Load load) {
-  const size_t stride4 = stride >> 2;
+  using E = evt::Elem<S>;
+  using Chunk = typename E::Chunk;
+  const size_t stride4 = stride >> 2;  // chunks of four elements a row
   for (int q = 0; q < bt; q += kChunk) {
     const float4 x = reinterpret_cast<const float4*>(evj + q)[lane];
-    const float4* p = reinterpret_cast<const float4*>(src + q) + lane + r_lo * stride4;
+    const Chunk* p = reinterpret_cast<const Chunk*>(src + q) + lane + r_lo * stride4;
     float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // the groups so far
     for (int g0 = r_lo; g0 < r_hi; g0 += kGroup) {
       float4 col = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // this group's rows
       float mine = 0.0f;  // row g0 + lane of this chunk
 #pragma unroll 1
       for (int r8 = 0; r8 < kGroup; r8 += kAhead) {
-        float4 a[kAhead];  // kAhead row segments in flight per lane
+        Chunk c[kAhead];  // kAhead row segments in flight per lane
 #pragma unroll
-        for (int u = 0; u < kAhead; ++u) a[u] = load(p + u * stride4);
+        for (int u = 0; u < kAhead; ++u) c[u] = load(p + u * stride4);
         p += kAhead * stride4;
 #pragma unroll
         for (int u = 0; u < kAhead; ++u) {
-          const float d = warp_sum(evt::dot4(a[u], x));
+          const float4 a = E::up(c[u]);
+          const float d = warp_sum(evt::dot4(a, x));
           if (lane == r8 + u) mine = d;
           if (trans) {
             const float e = evi[g0 + r8 + u];
-            col.x = fmaf(a[u].x, e, col.x);
-            col.y = fmaf(a[u].y, e, col.y);
-            col.z = fmaf(a[u].z, e, col.z);
-            col.w = fmaf(a[u].w, e, col.w);
+            col.x = fmaf(a.x, e, col.x);
+            col.y = fmaf(a.y, e, col.y);
+            col.z = fmaf(a.z, e, col.z);
+            col.w = fmaf(a.w, e, col.w);
           }
         }
       }
@@ -188,8 +203,9 @@ __device__ __forceinline__ float slot_sum(const float* p, const float* pt, int k
 // tiles: T streamed (i, j) pairs, then C resident ones.  part: g * n floats;
 // part_t: g * n * split floats (sym only).  split: 1 (an item is a tile) or
 // bt / 32 (an item is a 32-row group).
+template <class S>
 __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
-    const float* __restrict__ A, const int2* __restrict__ tiles, int T, int C,
+    const S* __restrict__ A, const int2* __restrict__ tiles, int T, int C,
     int slots, const float* __restrict__ ev_in, const float* __restrict__ v_in,
     const float* __restrict__ lam_in, int budget, float* __restrict__ ev_out,
     float* __restrict__ v_out, int* __restrict__ adv_out,
@@ -200,12 +216,13 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
   extern __shared__ float4 smem4[];
   float* ev_s = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* cache = ev_s + n;
+  using Chunk = typename evt::Elem<S>::Chunk;
+  S* cache = reinterpret_cast<S*>(ev_s + n);  // 16-byte aligned: n % 128 == 0
   __shared__ float red[3][evt::kWarps];
   __shared__ float stats[3];
 
   const int g = n / bt;
-  const size_t tile_floats = static_cast<size_t>(bt) * bt;
+  const size_t tile_elems = static_cast<size_t>(bt) * bt;
   // this block's tiles: streamed t = blockIdx.x + m * gridDim.x, then its
   // resident tiles s = blockIdx.x + k * gridDim.x (slot k); an item is one
   // of `split` row spans of a tile
@@ -220,14 +237,14 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
   // fill this block's resident tiles, once per launch
   for (int k = 0; k < ncached; ++k) {
     const int2 ij = tiles[T + b + k * nb];
-    const float* src = A + static_cast<size_t>(ij.x) * bt * n +
-                       static_cast<size_t>(ij.y) * bt;
-    float4* dst = reinterpret_cast<float4*>(cache + k * tile_floats);
+    const S* src = A + static_cast<size_t>(ij.x) * bt * n +
+                   static_cast<size_t>(ij.y) * bt;
+    Chunk* dst = reinterpret_cast<Chunk*>(cache + k * tile_elems);
     const int q4 = bt / 4;
 #pragma unroll 4
     for (int e = tid; e < bt * q4; e += kThreads) {
       const int r = e / q4;
-      dst[e] = pass(reinterpret_cast<const float4*>(src + static_cast<size_t>(r) * n) +
+      dst[e] = pass(reinterpret_cast<const Chunk*>(src + static_cast<size_t>(r) * n) +
                     (e - r * q4));
     }
   }
@@ -256,12 +273,12 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
       float* col_out =
           part_t + ((static_cast<size_t>(ij.y) * g + ij.x) * split + lo / span) * bt;
       if (streamed) {
-        const float* src = A + static_cast<size_t>(ij.x) * bt * n +
-                           static_cast<size_t>(ij.y) * bt;
+        const S* src = A + static_cast<size_t>(ij.x) * bt * n +
+                       static_cast<size_t>(ij.y) * bt;
         tile_terms(src, n, bt, lo, lo + span, trans, evi, evj, row_out, col_out,
                    lane, t < l2_tiles ? keep : pass);
       } else {
-        tile_terms(cache + (m - nstream) * tile_floats, bt, bt, lo, lo + span,
+        tile_terms(cache + (m - nstream) * tile_elems, bt, bt, lo, lo + span,
                    trans, evi, evj, row_out, col_out, lane, evt::FromShared());
       }
     }
@@ -311,37 +328,47 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
   }
 }
 
-}  // namespace
-
-// Co-resident blocks of the kernel at (n, bt, slots resident tiles per
-// block) on the current device, 0 if one block does not fit, or a negated
-// cudaError_t.  Also raises the kernel's dynamic shared-memory limit to the
-// most the card allows.
-extern "C" int evt_multiround_sym_grid(int n, int bt, int slots) {
+template <class S>
+int grid_of(int n, int bt, int slots) {
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
   cudaFuncAttributes attr;
-  const size_t smem = smem_bytes(n, bt, slots);
+  const size_t smem = smem_bytes<S>(n, bt, slots);
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, multiround_sym_kernel);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, multiround_sym_kernel<S>);
   if (e != cudaSuccess) return -static_cast<int>(e);
   const size_t limit = static_cast<size_t>(optin) - attr.sharedSizeBytes;
   if (smem > limit) return 0;
-  e = cudaFuncSetAttribute(multiround_sym_kernel,
+  e = cudaFuncSetAttribute(multiround_sym_kernel<S>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(limit));
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, multiround_sym_kernel, kThreads, smem);
+        &per_sm, multiround_sym_kernel<S>, kThreads, smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
   return per_sm * sms;
 }
 
-// A (n, n) row-major; tiles (T + C) int32 pairs; ev_in, v_in, ev_out, v_out
+}  // namespace
+
+// Co-resident blocks of the kernel at (n, bt, slots resident tiles per
+// block, element type `elem`: 0 float32, 1 bfloat16, 2 float16) on the
+// current device, 0 if one block does not fit, or a negated cudaError_t.
+// Also raises the kernel's dynamic shared-memory limit to the most the card
+// allows.
+extern "C" int evt_multiround_sym_grid(int n, int bt, int slots, int elem) {
+  if (elem < 0 || elem > 2) return -static_cast<int>(cudaErrorInvalidValue);
+  return evt::with_elem(elem, [&](auto tag) {
+    return grid_of<typename decltype(tag)::type>(n, bt, slots);
+  });
+}
+
+// A (n, n) row-major in the element type `elem` names (0 float32, 1
+// bfloat16, 2 float16); tiles (T + C) int32 pairs; ev_in, v_in, ev_out, v_out
 // (n,); lam_in, lam_out (1,); adv_out (1,) int32; raw (n,), part (g * n,)
 // and part_t (g * n * split,; one float when not sym) scratch; all on the
 // current device.  `grid` blocks must be co-resident with `slots` resident
@@ -350,7 +377,7 @@ extern "C" int evt_multiround_sym_grid(int n, int bt, int slots) {
 // is null, or kStampRounds * kStampPhases * grid words for the phase
 // stamps.  Launches on `stream` and does not synchronise.  Returns the
 // launch's cudaError_t (0 on success).
-extern "C" int evt_multiround_sym(const float* A, const int* tiles, int T,
+extern "C" int evt_multiround_sym(const void* A, const int* tiles, int T,
                                   int C, int slots, const float* ev_in,
                                   const float* v_in, const float* lam_in,
                                   int budget, float* ev_out, float* v_out,
@@ -358,17 +385,19 @@ extern "C" int evt_multiround_sym(const float* A, const int* tiles, int T,
                                   float* part, float* part_t, int n, int bt,
                                   int chunk, float eps, int init, int rel,
                                   int sym, int split, int l2_tiles,
-                                  void* stamps, int grid, void* stream) {
-  const size_t smem = smem_bytes(n, bt, slots);
+                                  void* stamps, int elem, int grid, void* stream) {
   const int2* tiles2 = reinterpret_cast<const int2*>(tiles);
   void* args[] = {&A,       &tiles2,   &T,        &C,      &slots,  &ev_in,
                   &v_in,    &lam_in,   &budget,   &ev_out, &v_out,  &adv_out,
                   &lam_out, &raw,      &part,     &part_t, &n,      &bt,
                   &chunk,   &eps,      &init,     &rel,    &sym,    &split,
                   &l2_tiles, &stamps};
-  const cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)multiround_sym_kernel, dim3(grid), dim3(kThreads), args,
-      smem, static_cast<cudaStream_t>(stream));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return evt::with_elem(elem, [&](auto tag) {
+    using E = typename decltype(tag)::type;
+    const cudaError_t e = cudaLaunchCooperativeKernel(
+        (const void*)multiround_sym_kernel<E>, dim3(grid), dim3(kThreads), args,
+        smem_bytes<E>(n, bt, slots), static_cast<cudaStream_t>(stream));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    return static_cast<int>(cudaGetLastError());
+  });
 }

@@ -60,11 +60,12 @@ def l2_resident_bytes(device: torch.device, rest_bytes: int) -> int:
     return l2 * 5 // 8 if rest_bytes <= l2 * 3 // 4 else l2 * 3 // 8
 
 
-def multiround_smem_bytes(n: int, resident: int = 0) -> int:
+def multiround_smem_bytes(n: int, resident: int = 0, itemsize: int = 4) -> int:
     """Dynamic shared memory of one block of the stripes kernel
-    (csrc/multiround.cu ``smem_bytes``): ev and ``resident`` rows of A, n
-    floats each."""
-    return 4 * n * (1 + resident)
+    (csrc/multiround.cu ``smem_bytes``): ev (n floats) and ``resident`` rows
+    of A, n elements of ``itemsize`` bytes each (4, or 2 for bf16 / f16
+    storage)."""
+    return n * (4 + resident * itemsize)
 
 
 def multiround_fits(n: int, device: torch.device) -> bool:
@@ -81,57 +82,66 @@ class StripesPlan(NamedTuple):
     l2_rows: int  # streamed rows a block reads with the L2 evict_last policy
 
 
-def multiround_plan(n: int, device: torch.device) -> StripesPlan:
-    """How the stripes kernel spends the card at dimension n.  Block b owns
-    rows b, b + grid, ...; it keeps in shared memory as many of them as fit
-    beside ev (6 at n = 8192 on an H100, every row at n <= 2048, none past
-    n = 28928), and asks the L2 to keep the next ``l2_rows``
+def multiround_plan(n: int, device: torch.device, itemsize: int = 4) -> StripesPlan:
+    """How the stripes kernel spends the card at dimension n, for A stored
+    in ``itemsize`` bytes an element.  Block b owns rows b, b + grid, ...;
+    it keeps in shared memory as many of them as fit beside ev (6 f32 or 12
+    bf16 rows at n = 8192 on an H100, every f32 row at n <= 2048, none past
+    n = 28928 in f32), and asks the L2 to keep the next ``l2_rows``
     (:func:`l2_resident_bytes` over the grid).  The grid gives every warp a
     row and, where rows fit, is large enough that every row is resident, up
     to one block per SM."""
     lim = cuda_limits(device)
+    row = itemsize * n
     free = lim.smem_per_block_optin - _MULTIROUND_STATIC_SMEM - multiround_smem_bytes(n)
-    fit = max(0, free // (4 * n))
+    fit = max(0, free // row)
     want = -(-n // _WARPS)
     if fit:
         want = max(want, -(-n // fit))
     grid = max(1, min(lim.sms, want))
     per_block = -(-n // grid)
     resident = min(fit, per_block)
-    keep = l2_resident_bytes(device, (n - min(n, grid * resident)) * 4 * n)
-    l2_rows = min(per_block - resident, keep // (grid * 4 * n))
+    keep = l2_resident_bytes(device, (n - min(n, grid * resident)) * row)
+    l2_rows = min(per_block - resident, keep // (grid * row))
     return StripesPlan(grid, resident, l2_rows)
 
 
-def sym_smem_bytes(n: int, bt: int, slots: int = 0) -> int:
+def sym_smem_bytes(n: int, bt: int, slots: int = 0, itemsize: int = 4) -> int:
     """Dynamic shared memory of one block of the triangle kernel
     (csrc/multiround_sym.cu ``smem_bytes``): ev (n floats) and ``slots``
-    resident bt x bt tiles.  A tile's column sums stay in registers."""
-    return 4 * (n + slots * bt * bt)
+    resident bt x bt tiles of ``itemsize``-byte elements.  A tile's column
+    sums stay in registers."""
+    return 4 * n + slots * bt * bt * itemsize
 
 
-def multiround_sym_fits(n: int, bt: int, device: torch.device, slots: int = 0) -> bool:
+def multiround_sym_fits(
+    n: int, bt: int, device: torch.device, slots: int = 0, itemsize: int = 4
+) -> bool:
     """Whether one block of the triangle kernel, with ``slots`` resident
     tiles, fits the card's shared memory."""
-    need = sym_smem_bytes(n, bt, slots) + _MULTIROUND_STATIC_SMEM
+    need = sym_smem_bytes(n, bt, slots, itemsize) + _MULTIROUND_STATIC_SMEM
     return need <= cuda_limits(device).smem_per_block_optin
 
 
-def sym_auto_cache_tiles(n: int, bt: int, device: torch.device, sym: bool = True) -> int:
+def sym_auto_cache_tiles(
+    n: int, bt: int, device: torch.device, sym: bool = True, itemsize: int = 4
+) -> int:
     """The largest resident tile cache the triangle kernel can hold at
-    (n, bt) on ``device``: as many bt x bt tiles as fit one block's shared
-    memory beside ev (three 64 KiB tiles at n = 8192 on an H100), times the
-    kernel's co-resident grid (one block per SM once the cache fills the
-    block), capped at the cacheable count — g(g-1)/2 off-diagonal tiles
-    for the symmetric kernel, g^2 - 1 for the dense tiled one (one tile must
-    stream).  0 when one tile does not fit, and on the CPU, where the plain
-    version keeps nothing resident.  (The JAX package sizes its cache from
-    the v5e's VMEM; the budget here is the card's own.)"""
+    (n, bt) on ``device`` for A stored in ``itemsize`` bytes an element: as
+    many bt x bt tiles as fit one block's shared memory beside ev (three
+    64 KiB f32 tiles, or six 32 KiB bf16 ones, at n = 8192 on an H100),
+    times the kernel's co-resident grid (one block per SM once the cache
+    fills the block), capped at the cacheable count — g(g-1)/2 off-diagonal
+    tiles for the symmetric kernel, g^2 - 1 for the dense tiled one (one
+    tile must stream).  0 when one tile does not fit, and on the CPU, where
+    the plain version keeps nothing resident.  (The JAX package sizes its
+    cache from the v5e's VMEM, by the tile's itemsize as here; the budget
+    here is the card's own.)"""
     if device.type != "cuda":
         return 0
     lim = cuda_limits(device)
     free = lim.smem_per_block_optin - _MULTIROUND_STATIC_SMEM - sym_smem_bytes(n, bt)
-    slots = max(0, free // (4 * bt * bt))
+    slots = max(0, free // (itemsize * bt * bt))
     g = n // bt
     cap = g * (g - 1) // 2 if sym else g * g - 1
     return max(0, min(slots * lim.sms, cap))
@@ -142,15 +152,17 @@ def sym_split(n: int, bt: int, device: torch.device, sym: bool = True) -> int:
     bt / 32 when the card has fewer than ``_SYM_SPLIT_BELOW`` tiles a block
     (n <= 6144 at bt = 128 on an H100's 132 SMs; 8192 keeps whole tiles, one
     for each of a block's sixteen warps).  The split depends on (n, bt, card)
-    only, never on the cache, so results do not depend on the cache."""
+    only, never on the cache or on A's storage type, so results depend on
+    neither."""
     g = n // bt
     tiles = g * (g + 1) // 2 if sym else g * g
     return bt // 32 if tiles < _SYM_SPLIT_BELOW * cuda_limits(device).sms else 1
 
 
-def sym_l2_tiles(bt: int, device: torch.device, streamed: int) -> int:
+def sym_l2_tiles(bt: int, device: torch.device, streamed: int, itemsize: int = 4) -> int:
     """Streamed tiles the triangle kernel asks the L2 to keep: what fits
-    :func:`l2_resident_bytes` (300 tiles of 64 KiB on an H100 at 8192^2, 500
-    once at most 600 stream), at most all of them."""
-    tile = 4 * bt * bt
+    :func:`l2_resident_bytes` (300 f32 tiles of 64 KiB on an H100 at 8192^2,
+    500 once at most 600 stream; 600 bf16 tiles of 32 KiB), at most all of
+    them."""
+    tile = itemsize * bt * bt
     return min(streamed, l2_resident_bytes(device, streamed * tile) // tile)

@@ -7,10 +7,17 @@ the bench's ``_rowsum_bias_pallas``: same arguments and returns, except that
 ``scale`` and ``scale_rowsum`` take an ``out=`` (JAX arrays are immutable,
 tensors are not: the caller says where A' goes, and its own matrix is never
 written unless it names it), and that no kernel takes a tile shape or an
-``interpret`` flag.  A wrapper checks device, dtype (float32), shape and
-contiguity and raises on anything else.  For CPU tensors it runs the plain
-version; for CUDA tensors it launches the kernel or raises — there is no
-fallback.
+``interpret`` flag.  A wrapper checks device, dtype, shape and contiguity
+and raises on anything else.  For CPU tensors it runs the plain version; for
+CUDA tensors it launches the kernel or raises — there is no fallback.
+
+Every tensor is float32, except the A of ``matvec``, ``multiround`` and
+``multiround_sym``, which may also be bfloat16 or float16 (reduced-precision
+storage).  Those three kernels read a 2-byte A as it is, convert each
+element to f32 (exact) and multiply it with the f32 vector in the order of
+the f32 kernel, so ``kernel(A_q)`` equals ``kernel(A_q.float())`` bit for
+bit; ev, v, λ and every sum stay f32.  (JAX's ``solve_matvec_storage``
+divides by a quantized vector instead; the port follows its kernels.)
 ``<wrapper>.launches`` counts kernel launches (a plain int; plain-version
 calls do not count).
 
@@ -23,7 +30,9 @@ one branch.
 
 The plain versions run anywhere.  ``matvec_plain`` is ``torch.mv``: a GEMV
 in full float32 (cuBLAS gemv on the card, which has no TF32 mode; TF32
-would put row-sum noise above the absolute 1e-3 stop once λ ≳ 1).
+would put row-sum noise above the absolute 1e-3 stop once λ ≳ 1).  A
+2-byte A is cast up to f32 in blocks of rows (or tiles) of at most
+``PLAIN_BLOCK_BYTES``, so the plain versions never hold an f32 copy of it.
 """
 
 from __future__ import annotations
@@ -47,19 +56,42 @@ from ...device import (
 from ..solver import stop_check
 
 
-def _check_f32(name: str, t: torch.Tensor, shape: tuple) -> None:
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
+#: The element types a kernel's A may have, and their codes in the C
+#: entries (csrc/rowdot.cuh ``with_elem``).
+_ELEM = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: Bytes of the f32 copy of a 2-byte A that a plain version makes at once.
+PLAIN_BLOCK_BYTES = 64 << 20
+
+
+def _check_f32(name: str, t: torch.Tensor, shape: tuple, dtypes=(torch.float32,)) -> None:
+    if t.dtype not in dtypes:
+        want = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise ValueError(f"{name} must be {want}, got {t.dtype}")
     if tuple(t.shape) != shape:
         raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_stored(name: str, A: torch.Tensor, shape: tuple) -> None:
+    """The checks of a kernel's A: float32, or bfloat16 / float16 storage."""
+    _check_f32(name, A, shape, tuple(_ELEM))
+
+
 def _check_aligned(cols: int, *tensors: torch.Tensor) -> None:
-    # the float4 path (cols % 4 == 0) reads 16-byte aligned rows
-    if cols % 4 == 0 and any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError("the float4 kernels need 16-byte aligned tensors")
+    # with cols % 4 == 0 a row is read in chunks of four elements: 16 bytes
+    # of f32, 8 of bf16 / f16, each aligned to its size
+    if cols % 4 == 0 and any(t.data_ptr() % (4 * t.element_size()) for t in tensors):
+        raise ValueError("the chunked kernels need tensors aligned to 4 elements")
+
+
+def _sized(dtype: torch.dtype, name: str = "dtype") -> dict:
+    """The keyword that names A's storage in a plan call: none for float32,
+    whose plans keep their two-argument form (kernel_phases.py patches
+    them with it)."""
+    if dtype == torch.float32:
+        return {}
+    return {name: dtype if name == "dtype" else dtype.itemsize}
 
 
 #: Phase stamps of the persistent kernels: None, or the tensor they write.
@@ -80,19 +112,30 @@ def _launch(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed with cudaError {rc}")
 
 
+def _up(A: torch.Tensor) -> torch.Tensor:
+    """A 2-byte A's values in float32 (exact); any other A as it is."""
+    return A.float() if A.element_size() < 4 else A
+
+
 def matvec_plain(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` in float32 with PyTorch's GEMV.  Its sums run in cuBLAS's
     order, not the kernel's: on an H100 the Hilbert 65536² row sums come
-    out ~3e-5 relative off a float64 product, the kernel's ~2e-7."""
-    return torch.mv(A, x)
+    out ~3e-5 relative off a float64 product, the kernel's ~2e-7.  A 2-byte
+    A is cast up ``PLAIN_BLOCK_BYTES`` of f32 rows at a time (one block, the
+    call on ``A.float()``, when it fits)."""
+    rows = max(1, PLAIN_BLOCK_BYTES // (4 * max(1, A.shape[1])))
+    if A.element_size() >= 4 or A.shape[0] <= rows:
+        return torch.mv(_up(A), x)
+    return torch.cat([torch.mv(_up(A[r:r + rows]), x) for r in range(0, A.shape[0], rows)])
 
 
 def matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x`` for A (n, m) and x (m,), float32."""
+    """``A @ x`` for A (n, m) float32, bfloat16 or float16 and x (m,)
+    float32; the result is float32."""
     if A.dim() != 2:
         raise ValueError(f"A must be 2-D, got shape {tuple(A.shape)}")
     n, m = A.shape
-    _check_f32("A", A, (n, m))
+    _check_stored("A", A, (n, m))
     _check_f32("x", x, (m,))
     dev = tensor_device(A, x)
     if dev.type == "cpu":
@@ -104,7 +147,8 @@ def matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _launch(
-            build.load().evt_matvec(A.data_ptr(), x.data_ptr(), y.data_ptr(), n, m, stream),
+            build.load().evt_matvec(A.data_ptr(), x.data_ptr(), y.data_ptr(), n, m,
+                                    _ELEM[A.dtype], stream),
             "matvec",
         )
     matvec.launches += 1
@@ -168,15 +212,15 @@ def multiround_plain(
 
 
 @functools.lru_cache(maxsize=None)
-def multiround_launch_plan(device: torch.device, n: int):
-    """:func:`device.multiround_plan` at dimension ``n``, checked once
-    against what the card will run side by side (a cooperative launch
-    needs every block resident)."""
+def multiround_launch_plan(device: torch.device, n: int, dtype: torch.dtype = torch.float32):
+    """:func:`device.multiround_plan` at dimension ``n`` for A stored in
+    ``dtype``, checked once against what the card will run side by side (a
+    cooperative launch needs every block resident)."""
     from . import build
 
-    plan = multiround_plan(n, device)
+    plan = multiround_plan(n, device, dtype.itemsize)
     with torch.cuda.device(device):
-        cap = build.load().evt_multiround_blocks(n, plan.resident)
+        cap = build.load().evt_multiround_blocks(n, plan.resident, _ELEM[dtype])
     if cap < 0:
         raise RuntimeError(f"multiround occupancy query failed with cudaError {-cap}")
     if cap < plan.grid:
@@ -206,8 +250,10 @@ def multiround(
     eps_mode: str = "absolute",
 ):
     """Up to ``chunk`` matvec-form rounds in one launch of the persistent
-    kernel; semantics of :func:`multiround_plain`.  Returns
-    ``(ev, v, advanced, λ)`` with ``advanced`` an int32 tensor."""
+    kernel; semantics of :func:`multiround_plain`.  A is float32, bfloat16
+    or float16 (read as stored, every product and sum in f32); ev and v
+    are float32.  Returns ``(ev, v, advanced, λ)`` with ``advanced`` an
+    int32 tensor."""
     if A.dim() != 2 or A.shape[0] != A.shape[1]:
         raise ValueError(f"A must be square, got shape {tuple(A.shape)}")
     n = A.shape[0]
@@ -217,7 +263,7 @@ def multiround(
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if eps_mode not in ("absolute", "relative"):
         raise ValueError(f"unknown eps_mode {eps_mode!r}")
-    _check_f32("A", A, (n, n))
+    _check_stored("A", A, (n, n))
     _check_f32("ev", ev, (n,))
     _check_f32("v", v, (n,))
     dev = tensor_device(A, ev, v)
@@ -241,7 +287,7 @@ def multiround(
     adv = torch.empty((), dtype=torch.int32, device=dev)
     lam_out = torch.empty((), dtype=torch.float32, device=dev)
     raw = torch.empty(2 * n, dtype=torch.float32, device=dev)
-    plan = multiround_launch_plan(dev, n)
+    plan = multiround_launch_plan(dev, n, **_sized(A.dtype))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = build.load().evt_multiround(
@@ -250,7 +296,7 @@ def multiround(
             ev_out.data_ptr(), v_out.data_ptr(), adv.data_ptr(), lam_out.data_ptr(),
             raw.data_ptr(), n, min(chunk, 2**31 - 1), eps, int(init),
             int(eps_mode == "relative"), plan.resident, plan.l2_rows, _stamps_ptr(),
-            plan.grid, stream,
+            _ELEM[A.dtype], plan.grid, stream,
         )
         _launch(rc, "multiround")
     multiround.launches += 1
@@ -321,16 +367,22 @@ def tiled_matvec_plain(A: torch.Tensor, ev: torch.Tensor, bt: int, sym: bool) ->
     triangle when ``sym``: each tile's row term ``T @ ev[j_blk]`` and, off
     the diagonal, its transpose term ``ev[i_blk] @ T`` land in the slot of
     their (row block, column block), and the slots are summed over column
-    blocks.  Batched f32 products (no TF32)."""
+    blocks.  Batched f32 products (no TF32), over at most
+    ``PLAIN_BLOCK_BYTES`` of f32 tiles at a time (a 2-byte A is cast up
+    there)."""
     n = A.shape[0]
     g = n // bt
     ti, tj, off = _tile_index(A.device, n, bt, sym)
-    tiles = A.view(g, bt, g, bt)[ti, :, tj, :]  # (tiles, bt, bt): only these are read
+    blocks = A.view(g, bt, g, bt)
     evb = ev.view(g, bt)
-    part = A.new_zeros(g, g, bt)
-    part[ti, tj] = torch.bmm(tiles, evb[tj].unsqueeze(-1)).squeeze(-1)
-    if sym:
-        part[tj[off], ti[off]] = torch.bmm(evb[ti[off]].unsqueeze(1), tiles[off]).squeeze(1)
+    part = ev.new_zeros(g, g, bt)
+    step = max(1, PLAIN_BLOCK_BYTES // (4 * bt * bt))
+    for s in range(0, len(ti), step):
+        i, j, o = ti[s:s + step], tj[s:s + step], off[s:s + step]
+        tiles = _up(blocks[i, :, j, :])  # (tiles, bt, bt): only these are read
+        part[i, j] = torch.bmm(tiles, evb[j].unsqueeze(-1)).squeeze(-1)
+        if sym:
+            part[j[o], i[o]] = torch.bmm(evb[i[o]].unsqueeze(1), tiles[o]).squeeze(1)
     return part.sum(dim=1).reshape(n)
 
 
@@ -364,7 +416,7 @@ def _check_tiled(A, ev, v, chunk, eps_mode, tile) -> int:
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if eps_mode not in ("absolute", "relative"):
         raise ValueError(f"unknown eps_mode {eps_mode!r}")
-    _check_f32("A", A, (n, n))
+    _check_stored("A", A, (n, n))
     _check_f32("ev", ev, (n,))
     _check_f32("v", v, (n,))
     bt = sym_tile(n, tile)
@@ -414,27 +466,31 @@ class SymPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def multiround_sym_plan(device: torch.device, n: int, bt: int, cache_tiles: int, sym: bool):
+def multiround_sym_plan(
+    device: torch.device, n: int, bt: int, cache_tiles: int, sym: bool,
+    dtype: torch.dtype = torch.float32,
+):
     """Launch plan of the triangle kernel, built once per (device, n, bt,
-    cache_tiles, sym): the tile table on the card, the grid, the resident
-    tiles per block, and what the card's size decides (the split of tiles
-    into work items, the L2-kept tiles).  Raises ValueError when the cache
-    does not fit the card (a request is rejected, never shrunk)."""
+    cache_tiles, sym, A's dtype): the tile table on the card, the grid, the
+    resident tiles per block, and what the card's size decides (the split
+    of tiles into work items, the L2-kept tiles).  Raises ValueError when
+    the cache does not fit the card (a request is rejected, never shrunk)."""
     from . import build
 
+    size = dtype.itemsize
     streamed, cached = _tile_split(n, bt, cache_tiles, sym)
     T, C = len(streamed), len(cached)
     sms = cuda_limits(device).sms
     slots0 = -(-C // sms)  # the grid holds at least one block per SM
-    if not multiround_sym_fits(n, bt, device, slots0):
-        most = sym_auto_cache_tiles(n, bt, device, sym)
+    if not multiround_sym_fits(n, bt, device, slots0, size):
+        most = sym_auto_cache_tiles(n, bt, device, sym, size)
         raise ValueError(
             f"cache_tiles={cache_tiles} does not fit the card: {slots0} resident "
-            f"{bt}x{bt} tiles per block need {sym_smem_bytes(n, bt, slots0)} bytes "
-            f"of shared memory; at most {most} tiles fit at n={n}"
+            f"{bt}x{bt} {dtype} tiles per block need {sym_smem_bytes(n, bt, slots0, size)} "
+            f"bytes of shared memory; at most {most} tiles fit at n={n}"
         )
     with torch.cuda.device(device):
-        cap = build.load().evt_multiround_sym_grid(n, bt, slots0)
+        cap = build.load().evt_multiround_sym_grid(n, bt, slots0, _ELEM[dtype])
     if cap < 0:
         raise RuntimeError(f"multiround_sym occupancy query failed with cudaError {-cap}")
     if cap == 0:
@@ -443,7 +499,7 @@ def multiround_sym_plan(device: torch.device, n: int, bt: int, cache_tiles: int,
     slots = -(-C // grid) if C else 0
     tab = torch.tensor(streamed + cached, dtype=torch.int32, device=device).reshape(-1, 2)
     return SymPlan(tab.contiguous(), T, C, grid, slots, sym_split(n, bt, device, sym),
-                   sym_l2_tiles(bt, device, T))
+                   sym_l2_tiles(bt, device, T, **_sized(dtype, "itemsize")))
 
 
 def multiround_sym(
@@ -471,7 +527,10 @@ def multiround_sym(
     ones when ``sym``; clamped to the cacheable count, as in JAX) stay in
     shared memory across the launch's rounds.  Returns
     ``(ev, v, advanced, λ)``; results are bit-identical for every
-    ``cache_tiles`` and every chunking."""
+    ``cache_tiles`` and every chunking.  A is float32, bfloat16 or float16
+    (tiles stream and stay resident as stored, every product and sum in
+    f32, the same work items and slots: a 2-byte A gives the bits of its f32
+    values); ev and v are float32."""
     _check_tiled_knobs(formulation, mxu_tiles, fill_mode)
     bt = _check_tiled(A, ev, v, chunk, eps_mode, tile)
     n = A.shape[0]
@@ -492,7 +551,7 @@ def multiround_sym(
         )
     from . import build
 
-    plan = multiround_sym_plan(dev, n, bt, int(cache_tiles), bool(sym))
+    plan = multiround_sym_plan(dev, n, bt, int(cache_tiles), bool(sym), **_sized(A.dtype))
     ev_out = torch.empty(n, dtype=torch.float32, device=dev)
     v_out = torch.empty(n, dtype=torch.float32, device=dev)
     adv = torch.empty((), dtype=torch.int32, device=dev)
@@ -511,7 +570,7 @@ def multiround_sym(
             ev_out.data_ptr(), v_out.data_ptr(), adv.data_ptr(), lam_out.data_ptr(),
             raw.data_ptr(), part.data_ptr(), part_t.data_ptr(), n, bt,
             min(chunk, 2**31 - 1), eps, int(init), int(eps_mode == "relative"), int(sym),
-            plan.split, plan.l2_tiles, _stamps_ptr(), plan.grid,
+            plan.split, plan.l2_tiles, _stamps_ptr(), _ELEM[A.dtype], plan.grid,
             stream,
         )
         _launch(rc, "multiround_sym")
@@ -520,6 +579,26 @@ def multiround_sym(
 
 
 multiround_sym.launches = 0
+
+
+def prepare(
+    device: torch.device, n: int, dtype: torch.dtype = torch.float32, *,
+    stripes: bool = False, tile: Optional[int] = None, cache_tiles: int = 0, sym: bool = False,
+) -> None:
+    """What a first launch at dim ``n`` on A of ``dtype`` would otherwise
+    pay for, done now: the kernel library, and the launch plan of the
+    stripes kernel (``stripes``) or of the tiled kernel (``tile``, with the
+    cache and mode of the solve), cached as the wrappers look them up.  A
+    plan the card cannot hold is left to the launch, which raises."""
+    from . import build
+
+    build.load()
+    if tile is not None:
+        bt = sym_tile(n, tile)
+        if bt is not None and multiround_sym_fits(n, bt, device):
+            multiround_sym_plan(device, n, bt, int(cache_tiles), bool(sym), **_sized(dtype))
+    elif stripes and multiround_fits(n, device):
+        multiround_launch_plan(device, n, **_sized(dtype))
 
 
 # --- the iterated (mutate-A) form's O(n²) passes and the ladder's rungs ------

@@ -17,6 +17,17 @@ to ``chunk`` rounds into one kernel launch (the stripes kernel, or the
 tiled triangle kernel for a declared-symmetric matrix) and reads one count
 per launch.  :func:`solve_matvec_kernel_fused` and :func:`solve_fused_round`
 keep the host loop and fuse a round's O(n) glue into its one O(n²) launch.
+
+Reduced-precision storage (``storage_dtype`` = ``torch.bfloat16`` /
+``torch.float16``, on :func:`solve_matvec`, :func:`solve_matvec_kernel` and
+:func:`solve_multiround`): A is cast once to the storage type (a matrix
+already in it is used as it is, with no f32 copy), every round reads it in
+2 bytes, converts each element to f32 exactly and multiplies it with the
+f32 ev, summing in f32 in the order of the f32 path; all O(n) state (ev, v,
+λ, the stop) stays f32.  That is the contract of the JAX package's Pallas
+kernels (``kernels.py:556-561``), used here on every path.  JAX's one-chip
+``solve_matvec_storage`` divides by a quantized ev instead; the port does
+not follow it.  The fused-round solves keep float32 A only, as in JAX.
 """
 
 from __future__ import annotations
@@ -54,6 +65,15 @@ def _make_cond_body(matvec, eps: float, max_itr: int, eps_mode: str = "absolute"
     return cond, body
 
 
+def _stored(A: torch.Tensor, storage_dtype) -> tuple:
+    """``(A_q, state dtype)``: A cast once to ``storage_dtype`` (None keeps
+    it), and the dtype of the O(n) state, float32 for a 2-byte A (bf16
+    cannot hold the 1e-3 stop at λ-scale values)."""
+    if storage_dtype is not None:
+        A = A.to(storage_dtype)
+    return A, (torch.float32 if A.element_size() < 4 else A.dtype)
+
+
 def _init_carry(n: int, matvec, dtype, device, ev0=None) -> _Carry:
     if ev0 is None:
         ev0 = torch.ones(n, dtype=dtype, device=device)
@@ -72,19 +92,26 @@ def solve_matvec_loop(
     eps_mode: str = "absolute",
 ) -> SolveResult:
     """Convergence loop over a pluggable ``matvec(ev) -> (A @ ev) / ev``.
-    The O(n) state has A's dtype."""
+    The O(n) state has A's dtype, float32 for a 2-byte A."""
     cond, body = _make_cond_body(matvec, eps, max_itr, eps_mode)
-    c = _init_carry(A.shape[0], matvec, A.dtype, A.device, ev0)
+    c = _init_carry(A.shape[0], matvec, _stored(A, None)[1], A.device, ev0)
     while cond(c):
         c = body(c)
     return _finish(c, max_itr)
 
 
 def solve_matvec(
-    A: torch.Tensor, eps: float, max_itr: int, ev0=None, eps_mode: str = "absolute"
+    A: torch.Tensor,
+    eps: float,
+    max_itr: int,
+    ev0=None,
+    eps_mode: str = "absolute",
+    storage_dtype=None,
 ) -> SolveResult:
     """Matvec-form solve with ``torch.mv`` in full float32 (any n, any
-    device; the JAX ``dot_f32`` loop)."""
+    device; the JAX ``dot_f32`` loop).  With ``storage_dtype`` A is kept in
+    2 bytes and cast up a block of rows at a time (``kernels.matvec_plain``)."""
+    A, _ = _stored(A, storage_dtype)
 
     def matvec(ev):
         return kernels.matvec_plain(A, ev) / ev
@@ -93,10 +120,19 @@ def solve_matvec(
 
 
 def solve_matvec_kernel(
-    A: torch.Tensor, eps: float, max_itr: int, ev0=None, eps_mode: str = "absolute"
+    A: torch.Tensor,
+    eps: float,
+    max_itr: int,
+    ev0=None,
+    eps_mode: str = "absolute",
+    storage_dtype=None,
 ) -> SolveResult:
     """Matvec-form solve over the hand-written matvec kernel, one launch per
-    round (the ``solve_matvec_pallas`` counterpart)."""
+    round (the ``solve_matvec_pallas`` counterpart).  With ``storage_dtype``
+    the kernel reads A in 2 bytes: the storage route of ``matvec_pallas``
+    and ``matvec``, and the only single-card route past n = 57856 (65536² is
+    8 GiB in bf16)."""
+    A, _ = _stored(A, storage_dtype)
 
     def matvec(ev):
         return kernels.matvec(A, ev) / ev
@@ -170,6 +206,7 @@ def solve_multiround(
     cache_tiles: int = 0,
     mxu_tiles: Optional[int] = None,
     fill_mode: str = "prologue",
+    storage_dtype=None,
 ) -> SolveResult:
     """Matvec-form solve with up to ``chunk`` rounds per launch of a
     multiround kernel.
@@ -197,7 +234,13 @@ def solve_multiround(
     ``formulation``, ``mxu_tiles`` and ``fill_mode`` keep the JAX names:
     only "vpu" and the prologue fill exist here; the rest raise (ROADMAP,
     Queue 2 items 2 and 3).
+
+    ``storage_dtype`` (as JAX ``solve_multiround``): A is cast once and the
+    kernels read it in 2 bytes; the O(n) state is f32, as it is for a
+    matrix that is already 2-byte.  The result equals the f32 solve of
+    ``A_q.float()`` bit for bit.
     """
+    A, dtype = _stored(A, storage_dtype)
     if symmetric or cache_tiles > 0:
         kernel = partial(
             kernels.multiround_sym,
@@ -229,13 +272,13 @@ def solve_multiround(
         kernel = kernels.multiround
     n = A.shape[0]
     if ev0 is None:
-        ev0 = torch.ones(n, dtype=A.dtype, device=A.device)
+        ev0 = torch.ones(n, dtype=dtype, device=A.device)
     else:
-        ev0 = torch.as_tensor(ev0, dtype=A.dtype, device=A.device).contiguous()
+        ev0 = torch.as_tensor(ev0, dtype=dtype, device=A.device).contiguous()
     if chunk is None:
         chunk = max_itr + 1
     kw = dict(chunk=chunk, eps=eps, eps_mode=eps_mode)
-    zero = torch.zeros((), dtype=A.dtype, device=A.device)
+    zero = torch.zeros((), dtype=dtype, device=A.device)
     ev, v, adv, lam = kernel(A, ev0, ev0, zero, max_itr, init=True, **kw)
     adv = int(adv)
     c = _Carry(ev, v, lam, adv)

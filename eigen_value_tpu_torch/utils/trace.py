@@ -7,7 +7,9 @@ triangle kernel streaming and with the card's auto tile cache, the dense
 tiled kernel with that cache, the matvec kernel loop, the plain
 ``torch.mv`` loop, the two fused-round loops over the ``round_matvec`` and
 ``round_fused`` kernels, the iterated solve over the ``rowsum`` and
-``scale_rowsum`` kernels) it times ``--solves`` solves with
+``scale_rowsum`` kernels, and the reduced-precision storage solves of the
+matrix kept in bf16: the stripes kernel, the triangle kernel with the
+card's 2-byte auto cache, the matvec kernel loop) it times ``--solves`` solves with
 CUDA events, then traces as many more under ``torch.profiler`` and adds up
 the device intervals (kernels, copies, fills) the trace holds.  Prints one
 JSON object per arm:
@@ -125,6 +127,14 @@ def main(argv=None) -> int:
         "round_fused kernel loop": lambda: solve_fused_round(H, EPS, MAX_ITR),
         "iterated kernel solve": lambda: solve_kernel(H, EPS, MAX_ITR),
     })
+    Hq = H.to(torch.bfloat16)
+    multi_q = partial(solve_multiround, Hq, EPS, MAX_ITR)
+    arms["multiround kernel, bf16 A"] = multi_q
+    if bt is not None:
+        cache_q = sym_auto_cache_tiles(args.n, bt, H.device, itemsize=2)
+        arms[f"triangle kernel, bf16 A, cache {cache_q}"] = partial(
+            multi_q, symmetric=True, cache_tiles=cache_q)
+    arms["matvec kernel loop, bf16 A"] = lambda: solve_matvec_kernel(Hq, EPS, MAX_ITR)
     for name, fn in arms.items():
         print(json.dumps({"arm": name, "n": args.n, **trace_arm(fn, args.solves)}), flush=True)
     return 0

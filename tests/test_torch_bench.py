@@ -210,18 +210,27 @@ BF16_RUNGS = ["matvec_bf16", "multiround_sym_bf16"]
 
 def test_e2e_backends_keep_the_jax_suites_names_and_order():
     assert list(bench.E2E_BACKENDS) == list(jax_suite.E2E_BACKENDS)
-    assert [k for k, fn in bench.E2E_BACKENDS.items() if fn is None] == BF16_RUNGS
-    assert set(tsuite.TILED_RUNGS) == set(jax_suite.TILED_RUNGS) - set(BF16_RUNGS)
+    assert all(callable(fn) for fn in bench.E2E_BACKENDS.values())
+    assert sorted(tsuite.STORAGE_RUNGS) == BF16_RUNGS
+    assert set(tsuite.TILED_RUNGS) == set(jax_suite.TILED_RUNGS)
     # the tile edge is the port's own, not the TPU's
     assert {t for t, _ in tsuite.TILED_RUNGS.values()} == {tk.SYM_TILE}
     assert {k: sym for k, (_, sym) in tsuite.TILED_RUNGS.items()} == {
-        k: sym for k, (_, sym) in jax_suite.TILED_RUNGS.items() if k not in BF16_RUNGS}
+        k: sym for k, (_, sym) in jax_suite.TILED_RUNGS.items()}
 
 
 @pytest.mark.parametrize("name", BF16_RUNGS)
 def test_the_bf16_rungs_give_skip_rows(name):
-    reason = tsuite._e2e_skip(name, 8192, "cpu")
-    assert "Queue 1 item 6" in reason and "not ported" in reason
+    """The reduced-precision rungs are ported: they give a solved row (no
+    skip) at 8192², over A stored in bf16, with the JAX suite's ±1 rounds."""
+    assert tsuite._e2e_skip(name, 8192, "cpu") is None
+    assert tsuite.STORAGE_RUNGS[name] is torch.bfloat16
+    H = tfx.hilbert_matrix(256)
+    got = bench.E2E_BACKENDS[name](H.to(torch.bfloat16))
+    # the rung is the f32 solve of the quantized matrix, as stored or not
+    want = bench.E2E_BACKENDS[name.replace("_bf16", "")](H.to(torch.bfloat16).float())
+    assert int(got.rounds) == int(want.rounds) == tfx.HILBERT_ROUNDS[256]
+    assert torch.equal(got.eigenvector, want.eigenvector)
 
 
 @pytest.mark.parametrize(
@@ -231,6 +240,9 @@ def test_the_bf16_rungs_give_skip_rows(name):
         ("multiround", 1000, True),
         ("multiround_sym", 1024, True),
         ("multiround_sym", 1000, False),  # no 128-aligned tile divides 1000
+        ("multiround_sym_bf16", 1024, True),
+        ("multiround_sym_bf16", 1000, False),
+        ("matvec_bf16", 1000, True),
         ("multiround_sym_cached", 1000, False),
         ("multiround_sym_cached", 128, True),  # degenerates to streaming, as in JAX
         ("multiround_cached", 1024, False),  # no card here: the auto cache is 0
@@ -276,7 +288,9 @@ E2E_ROWS = [
     {"bench": "e2e", "backend": "matvec_pallas", "dim": 128, "ms": 0.9, "device_ms": None,
      "ms_per_round": None, "elems_per_s": None, "rounds": 8, "eigenvalue": 1.9,
      "rounds_ok": False, "chain_k": 1024, "below_resolution": True},
-    {"bench": "e2e", "backend": "matvec_bf16", "dim": 8192, "skipped": tsuite._SKIP_NOT_PORTED},
+    {"bench": "e2e", "backend": "matvec_bf16", "dim": 8192, "ms": 2.6, "device_ms": 2.3,
+     "ms_per_round": 0.128, "elems_per_s": 5.3e11, "rounds": 18, "eigenvalue": 2.2,
+     "rounds_ok": True, "chain_k": 4},
     {"bench": "e2e", "backend": "multiround_sym", "dim": 1000,
      "skipped": tsuite._SKIP_NOT_TILEABLE},
 ]

@@ -19,6 +19,7 @@ from eigen_value_tpu.ops.solver_matvec import solve_matvec as jax_solve_matvec  
 from eigen_value_tpu.ops.solver_matvec import solve_matvec_pallas  # noqa: E402
 import eigen_value_tpu_torch as evt  # noqa: E402
 from eigen_value_tpu_torch import fixtures as tfx  # noqa: E402
+from eigen_value_tpu_torch import api  # noqa: E402
 from eigen_value_tpu_torch.api import resolve_backend  # noqa: E402
 from eigen_value_tpu_torch.ops.cuda import kernels as tk  # noqa: E402
 from eigen_value_tpu_torch.ops.solver_matvec import (  # noqa: E402
@@ -143,7 +144,7 @@ def _reject_cases():
         "cache_tiles+matvec": lambda: evt.max_eigenvalue(
             H, evt.SolverConfig(backend="matvec", cache_tiles=0)),
         "storage_dtype": lambda: evt.max_eigenvalue(
-            H, evt.SolverConfig(storage_dtype=torch.bfloat16)),
+            H, evt.SolverConfig(backend="pallas", storage_dtype=torch.bfloat16)),
         "xla": lambda: evt.max_eigenvalue(
             H, evt.SolverConfig(backend="xla", storage_dtype=torch.bfloat16)),
         "pallas": lambda: evt.max_eigenvalue(
@@ -159,7 +160,15 @@ def _reject_cases():
         "validate-symmetric": lambda: evt.max_eigenvalue(
             torch.triu(H) + 1.0, evt.SolverConfig(symmetric=True), validate=True),
         "EigenValue-storage": lambda: evt.EigenValue(
-            evt.SolverConfig(storage_dtype=torch.float16)).similarity_transform(H),
+            evt.SolverConfig(backend="xla", storage_dtype=torch.float16)).similarity_transform(H),
+        "storage_dtype-f64": lambda: evt.max_eigenvalue(
+            H, evt.SolverConfig(storage_dtype=torch.float64)),
+        "float64+multiround": lambda: evt.max_eigenvalue(
+            H, evt.SolverConfig(backend="multiround", dtype=torch.float64)),
+        "float64+matvec_pallas": lambda: evt.max_eigenvalue(
+            H, evt.SolverConfig(backend="matvec_pallas", dtype=torch.float64)),
+        "float64+pallas": lambda: evt.max_eigenvalue(
+            H, evt.SolverConfig(backend="pallas", dtype=torch.float64)),
     }
 
 
@@ -172,7 +181,9 @@ def test_rejected_knobs_raise(case):
 @pytest.mark.parametrize(
     "kw",
     [dict(chunk=0), dict(max_itr=-1), dict(eps=0.0), dict(backend="bogus"),
-     dict(eps_mode="bogus"), dict(cache_tiles=-1)],
+     dict(eps_mode="bogus"), dict(cache_tiles=-1), dict(block_rows=7), dict(block_rows=0),
+     dict(block_rows=-8), dict(block_rows=100), dict(block_cols=100), dict(block_cols=0),
+     dict(block_cols=64), dict(block_cols=200)],
 )
 def test_config_validation_mirrors_jax(kw):
     with pytest.raises(ValueError):
@@ -183,7 +194,7 @@ def test_config_validation_mirrors_jax(kw):
 
 def test_not_ported_errors_name_the_roadmap():
     with pytest.raises(ValueError, match="ROADMAP"):
-        _reject_cases()["storage_dtype"]()
+        _reject_cases()["mesh"]()
     H = tfx.hilbert_matrix(128)
     with pytest.raises(ValueError, match="ROADMAP"):
         solve_multiround(H, EPS, MAX_ITR, symmetric=True, formulation="dot")
@@ -222,3 +233,62 @@ def test_kernel_backends_on_cpu_launch_nothing():
         evt.max_eigenvalue(tfx.hilbert_matrix(64), evt.SolverConfig(backend=b))
     assert (tk.matvec.launches, tk.multiround.launches) == before
 
+
+
+@pytest.mark.parametrize("kw", [dict(block_rows=8), dict(block_rows=128), dict(block_cols=128),
+                                dict(block_cols=512)])
+def test_config_accepts_what_jax_accepts(kw):
+    JaxConfig(**kw)
+    evt.SolverConfig(**kw)
+
+
+@pytest.mark.parametrize("backend", ["multiround", "matvec_pallas", "pallas"])
+def test_kernel_backends_reject_a_non_f32_dtype_by_name(backend):
+    with pytest.raises(ValueError, match="dtype=torch.float64"):
+        evt.max_eigenvalue(tfx.hilbert_matrix(16),
+                           evt.SolverConfig(backend=backend, dtype=torch.float64))
+
+
+def test_float64_under_auto_takes_the_plain_loop_and_matches_the_oracle():
+    from eigen_value_tpu.reference_impl import parallel_oracle
+
+    cfg = evt.SolverConfig(dtype=torch.float64)
+    for dev in (torch.device("cpu"), torch.device("cuda", 0)):
+        assert resolve_backend(cfg, 8192, dev) == "matvec"  # on a card too
+    H = tfx.hilbert_matrix(256, dtype=torch.float64)
+    got = evt.max_eigenvalue(H, cfg)
+    want = parallel_oracle(H.numpy(), dtype=np.float64)
+    assert got.eigenvalue.dtype == got.eigenvector.dtype == torch.float64
+    assert bool(got.converged) and int(got.rounds) == want.rounds == tfx.HILBERT_ROUNDS[256]
+    assert float(got.eigenvalue) == pytest.approx(want.eigenvalue, rel=1e-9)
+    assert float(evt.eigen_residual(H, got)) < 1e-3
+
+
+def test_a_misaligned_contiguous_view_is_cloned_to_an_aligned_buffer():
+    n = 128
+    H = tfx.hilbert_matrix(n)
+    buf = torch.empty(n * n + 1)
+    view = buf[1:].view(n, n)
+    view.copy_(H)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    mat = api._as_matrix(view, evt.DEFAULT_CONFIG)
+    assert mat.data_ptr() % 16 == 0 and torch.equal(mat, H)
+    aligned = api._as_matrix(H, evt.DEFAULT_CONFIG)
+    assert aligned is H  # an aligned f32 matrix is not copied
+    _same(evt.max_eigenvalue(view), evt.max_eigenvalue(H))
+
+
+def test_warmup_resolves_and_rejects_on_the_cpu():
+    ev = evt.EigenValue(evt.SolverConfig(backend="multiround"), device="cpu")
+    assert ev.last_wall_ms is None
+    ev.warmup([128, 256])
+    ev.warmup([128], dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="chunk"):
+        evt.EigenValue(evt.SolverConfig(backend="matvec", chunk=4), device="cpu").warmup([128])
+    with pytest.raises(ValueError, match="dtype"):
+        evt.EigenValue(evt.SolverConfig(backend="pallas", dtype=torch.float64),
+                       device="cpu").warmup([64])
+    with pytest.raises(ValueError, match="dtype"):
+        ev.warmup([64], dtype=torch.int32)
+    lam, _, ms, rounds = ev.similarity_transform(tfx.hilbert_matrix(128))
+    assert rounds == 9 and ev.last_wall_ms == ms > 0.0

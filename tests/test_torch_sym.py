@@ -354,7 +354,7 @@ def test_validate_promotes_only_where_the_triangle_would_run(fake_h100):
     cand = api._promotion(auto, 8192, fake_h100)
     assert cand is not None and cand.symmetric and cand.backend == "auto"
     assert api._promotion(auto, 8200, fake_h100) is None  # unalignable
-    assert api._promotion(evt.SolverConfig(block_rows=100), 8192, fake_h100) is None
+    assert api._promotion(evt.SolverConfig(block_rows=96), 8192, fake_h100) is None
     assert api._promotion(evt.SolverConfig(backend="multiround"), 8192, fake_h100) is None
     assert api._promotion(evt.SolverConfig(symmetric=True), 8192, fake_h100) is None
     assert api._promotion(auto, 8192, torch.device("cpu")) is None  # off the card, as JAX
