@@ -74,6 +74,19 @@ package's pins.  The 2-byte kernels are timed interleaved with the f32
 ones and join the kernels' record as ``matvec[bf16]``, ``multiround[bf16]``
 and ``multiround_sym[bf16]``.
 
+The matrix-free path (``matrix_free_phase``): each structured matvec of
+``ops/structured.py`` (Hankel, Toeplitz, circulant, low-rank, Kronecker,
+sparse COO and CSR, ELL, sum, scaling) at n = 8192 against the float64
+product of its dense matrix, and the Kronecker operator's true-f32 pin
+under the caller's ``"high"`` precision; ``max_eigenvalue_operator`` over a
+dense matvec kernel call, bit for bit the matvec kernel loop with its 18
+launches counted; the FFT Hilbert operator through ``max_eigenvalue_operator``
+from 128 to 2²² (the 2²² solve's rounds, time and memory printed beside a
+float64 loop's); the operator suite's Kronecker and ELL rungs and the
+PageRank operator; the traced solves bit for bit the untraced ones, the
+convergence report, ``subdominant_eigenpair`` and ``top_k_eigenpairs`` of
+Hilbert 1024² against ``numpy.linalg.eigh``; and ``bench_operator(dims=[8192])``.
+
 Uses torch only (no jax).  Exits non-zero, without the final result line,
 on any failed check or when there is no CUDA device.
 
@@ -114,6 +127,260 @@ def f64_matvec(A, x, cols: int = 8192):
     for j in range(0, A.shape[1], cols):
         y = y + A[:, j:j + cols].double() @ x[j:j + cols].double()
     return y
+
+
+def matrix_free_phase(dev, mats, dense, same, reset_counts, read_counts, card) -> dict:
+    """The matrix-free path on the card: each structured matvec against the
+    float64 product of its dense matrix, the dense-backed operator bit for
+    bit against the matvec kernel loop, ``max_eigenvalue_operator`` on the
+    FFT Hilbert operator from 128 to 2²², the bench's Kronecker and ELL
+    rungs and the PageRank operator, the traced solves and the spectral
+    helpers, then ``bench_operator(dims=[8192])``.  ``mats`` are the dense
+    Hilbert matrices of the table and ``dense`` their solves through the API.
+    Returns the launch counts read around the dense-backed operator."""
+    import numpy as np
+    import torch
+
+    import eigen_value_tpu_torch as evt
+    from eigen_value_tpu_torch import fixtures
+    from eigen_value_tpu_torch.bench import bench_operator, operator_rungs
+    from eigen_value_tpu_torch.bench.__main__ import _fmt_operator
+    from eigen_value_tpu_torch.convert import sparse_from_coo
+    from eigen_value_tpu_torch.ops import spectral
+    from eigen_value_tpu_torch.ops import structured as st
+    from eigen_value_tpu_torch.ops.cuda import kernels
+    from eigen_value_tpu_torch.ops.solver_matvec import (
+        solve_matvec,
+        solve_matvec_kernel,
+        solve_matvec_traced,
+        solve_operator,
+        solve_operator_traced,
+    )
+    from eigen_value_tpu_torch.utils.timing import time_call
+
+    # --- 6a. each structured matvec against its dense product in float64 ---
+    # n = 8192 (kron 64 x 128), inputs from numpy with a seed; the JAX tests'
+    # tolerances: rtol 2e-5 / atol 1e-5 for FFT and matmul, 1e-5 / 1e-6 sparse
+    n = 8192
+    rng = np.random.default_rng(SEED)
+
+    def f32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    h = rng.random(2 * n - 1, dtype=np.float32) + 0.1
+    c = rng.random(n, dtype=np.float32) + 0.1
+    r = rng.random(n, dtype=np.float32) + 0.1
+    r[0] = c[0]
+    U = rng.random((n, 4), dtype=np.float32) + 0.1
+    V = rng.random((n, 4), dtype=np.float32) + 0.1
+    d = rng.random(n, dtype=np.float32)
+    B = rng.random((64, 64), dtype=np.float32) + 0.1
+    C = rng.random((128, 128), dtype=np.float32) + 0.1
+    rows = np.repeat(np.arange(n), 8)
+    cols = (rows + 1 + rng.integers(0, n - 1, size=rows.shape)) % n
+    vals = rng.random(rows.shape[0], dtype=np.float32) + 0.1
+    rows, cols = np.concatenate([rows, np.arange(n)]), np.concatenate([cols, np.arange(n)])
+    vals = np.concatenate([vals, np.ones(n, np.float32)])
+    x = f32(rng.random(n, dtype=np.float32))
+    i = torch.arange(n, device=dev)
+    diff = i[:, None] - i[None, :]
+
+    def want_of(A):
+        return f64_matvec(A, x)
+
+    sparse_dense = torch.zeros(n, n, device=dev)
+    sparse_dense.index_put_((torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev)),
+                            f32(vals), accumulate=True)
+    want = {
+        "hankel": want_of(f32(h)[i[:, None] + i[None, :]]),
+        "toeplitz": want_of(torch.where(diff >= 0, f32(c)[diff.abs()], f32(r)[diff.abs()])),
+        "circulant": want_of(f32(c)[diff % n]),
+        "low_rank": (f32(U).double() @ (f32(V).double().T @ x.double())
+                     + f32(d).double() * x.double()),
+        "kron": want_of(torch.kron(f32(B), f32(C))),
+        "sparse": want_of(sparse_dense),
+    }
+    want["ell"] = want["sparse"]
+    want["sparse_csr"] = want["sparse"]
+    want["add"] = 0.25 * want["low_rank"] + want["ell"]
+    want["scale"] = 4.0 * want["hankel"]
+    del sparse_dense, diff
+    torch.cuda.empty_cache()
+    coo = sparse_from_coo(np.stack([rows, cols], 1), vals, (n, n), device=dev)
+    low_rank = st.low_rank_matvec(f32(U), f32(V), f32(d))
+    ell = st.ell_matvec(*st.ell_from_coo(rows, cols, vals, n))  # host input: to the card
+    hankel = st.hankel_matvec(f32(h), n)
+    ops = {
+        "hankel": (hankel, 2e-5, 1e-5),
+        "toeplitz": (st.toeplitz_matvec(f32(c), f32(r), n), 2e-5, 1e-5),
+        "circulant": (st.circulant_matvec(f32(c), n), 2e-5, 1e-5),
+        "low_rank": (low_rank, 2e-5, 1e-5),
+        "kron": (st.kron_matvec(f32(B), f32(C)), 2e-5, 1e-5),
+        "sparse": (st.sparse_matvec(coo), 1e-5, 1e-6),
+        "sparse_csr": (st.sparse_matvec(coo.to_sparse_csr()), 1e-5, 1e-6),
+        "ell": (ell, 1e-5, 1e-6),
+        "add": (st.add_matvec(st.scale_matvec(low_rank, 0.25), ell), 2e-5, 1e-5),
+        "scale": (st.scale_matvec(hankel, 4.0), 2e-5, 1e-5),
+    }
+    reset_counts()
+    errs = {}
+    for name, (mv, rtol, atol) in ops.items():
+        y = mv(x)
+        check(y.is_cuda and y.dtype == torch.float32 and y.shape == (n,), f"{name}: result")
+        err = (y.double() - want[name]).abs()
+        errs[name] = float((err / want[name].abs()).max())
+        check(bool((err <= atol + rtol * want[name].abs()).all()),
+              f"{name} matvec off its float64 product: max rel {errs[name]:.3e}")
+    say(f"structured matvecs at n = {n} (kron 64 x 128) against float64 products: max rel err "
+        + json.dumps({k: float(f"{v:.3e}") for k, v in errs.items()}))
+
+    # the Kronecker pin: true f32 under the caller's "high" (TF32) setting,
+    # and the setting given back; a bare matmul under "high" beside it
+    kron = ops["kron"][0]
+    prev = torch.get_float32_matmul_precision()
+    y_highest = kron(x)
+    torch.set_float32_matmul_precision("high")
+    try:
+        y_high, during = kron(x), torch.get_float32_matmul_precision()
+        Bt, Ct = f32(B), f32(C)
+        bare = (Bt @ x.reshape(64, 128) @ Ct.T).reshape(-1)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    bare_err = float(((bare.double() - want["kron"]).abs() / want["kron"].abs()).max())
+    say(f"kron under set_float32_matmul_precision('high'): bit-identical to 'highest' "
+        f"{torch.equal(y_high, y_highest)}, the caller's setting kept {during!r}; a bare "
+        f"matmul under 'high' is {bare_err:.3e} off float64 (pinned: {errs['kron']:.3e})")
+    check(torch.equal(y_high, y_highest) and during == "high", "the kron precision pin")
+
+    # --- 6b. the dense-backed operator: bit for bit the matvec kernel loop ---
+    H = mats[8192]
+    ref = solve_matvec_kernel(H, evt.EPS, evt.MAX_ITR)
+    reset_counts()
+    got = evt.max_eigenvalue_operator(lambda v: kernels.matvec(H, v), 8192)
+    op_launches = read_counts()
+    say(f"dense-backed operator at 8192²: bit-identical to solve_matvec_kernel {same(got, ref)}, "
+        f"rounds {int(got.rounds)}; launches {op_launches}")
+    check(same(got, ref), "the dense-backed operator is not the matvec kernel loop")
+    check(op_launches["matvec"] == int(ref.rounds) + 1 == 18
+          and sum(op_launches.values()) == op_launches["matvec"],
+          "the dense-backed operator's launches")
+
+    # --- 6c. max_eigenvalue_operator on the FFT Hilbert operator ---
+    reset_counts()
+    for n_, H_ in mats.items():
+        res = evt.max_eigenvalue_operator(st.hilbert_matvec(n_), n_)
+        lam, lam_d = float(res.eigenvalue), float(dense[n_].eigenvalue)
+        rel = abs(lam - lam_d) / lam_d
+        resid = float(evt.eigen_residual(H_, res))
+        say(f"hilbert operator {n_}: rounds {int(res.rounds)} "
+            f"(table {fixtures.HILBERT_ROUNDS[n_]}), "
+            f"λ {lam!r} (dense {lam_d!r}, rel {rel:.2e}), residual {resid:.3e}")
+        check(bool(res.converged) and abs(int(res.rounds) - fixtures.HILBERT_ROUNDS[n_]) <= 1,
+              f"hilbert operator {n_}: rounds")
+        check(rel <= 1e-4 and resid <= 1e-3, f"hilbert operator {n_}: λ rel {rel}, residual")
+    # the float64 FFT loop's answers (rounds, λ); past 2^18 the absolute stop
+    # fires on FFT noise in ev's small tail, so there the rounds are printed only
+    f64_loop = {1 << 16: (21, 2.70899626), 1 << 18: (24, 2.76461595), 1 << 22: (31, 2.84824755)}
+    for n_, (r64, lam64) in f64_loop.items():
+        mv = st.hilbert_matvec(n_)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        res = evt.max_eigenvalue_operator(mv, n_)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        lam = float(res.eigenvalue)
+        rel = abs(lam - lam64) / lam64
+        resid = float(spectral.operator_residual(mv, res))
+        line = (f"hilbert operator {n_}: rounds {int(res.rounds)} (float64 FFT loop {r64}"
+                f"{', JAX on the CPU 37' if n_ == 1 << 22 else ''}), λ {lam!r} (float64 loop "
+                f"{lam64}, rel {rel:.2e}), residual through the operator {resid:.3e}")
+        if n_ == 1 << 22:
+            t = time_call(lambda: evt.max_eigenvalue_operator(mv, n_), reps=3)
+            rounds = int(res.rounds)
+            line += (f"; {t.median_ms:.3f} ms a solve (median of 3, card {card}), "
+                     f"{t.median_ms / (rounds + 1):.4f} ms a matvec, peak memory "
+                     f"{peak / 2**20:.1f} MiB above the operator's spectrum")
+            check(bool(res.converged) and rel <= 2e-4 and resid <= 1e-3,
+                  f"hilbert operator {n_}: converged, λ rel {rel}, residual {resid}")
+        else:
+            check(bool(res.converged) and abs(int(res.rounds) - r64) <= 1 and rel <= 1e-5,
+                  f"hilbert operator {n_}: rounds {int(res.rounds)}, λ rel {rel}")
+        say(line)
+        del mv, res
+
+    # --- 6d. the bench's Kronecker and ELL rungs, and the PageRank operator ---
+    for name, (solve, ok, extra) in operator_rungs(8192, dev).items():
+        res = solve(torch.ones(8192, device=dev))
+        say(f"operator rung {name} at 8192: rounds {int(res.rounds)}, λ {float(res.eigenvalue)!r}, "
+            f"{extra or ''} check {ok(res)}")
+        check(ok(res), f"operator rung {name}")
+    # examples/pagerank.py's graph (its defaults: 2000 nodes, out-degree 5, seed 3)
+    pn, pd, alpha = 2000, 5, 0.85
+    prng = np.random.default_rng(3)
+    src = np.repeat(np.arange(pn), pd)
+    dst = np.concatenate([prng.choice(pn - 1, size=pd, replace=False) for _ in range(pn)])
+    dst = np.where(dst >= src, dst + 1, dst)
+    link = st.ell_matvec(*st.ell_from_coo(dst, src, np.full(len(src), alpha / pd), pn))
+    ones = torch.ones(pn, 1, device=dev)
+    google = st.add_matvec(link, st.low_rank_matvec(ones * ((1 - alpha) / pn), ones))
+    pr = evt.max_eigenvalue_operator(google, pn)
+    pr_tight = evt.max_eigenvalue_operator(google, pn, evt.SolverConfig(eps=1e-5))
+    err, err_t = abs(float(pr.eigenvalue) - 1), abs(float(pr_tight.eigenvalue) - 1)
+    say(f"pagerank operator ({pn} nodes): λ - 1 = {err:.3e} in {int(pr.rounds)} rounds at eps "
+        f"1e-3 (examples/pagerank.py holds 2e-3); {err_t:.3e} in {int(pr_tight.rounds)} rounds "
+        f"at eps 1e-5")
+    check(bool(pr.converged) and err <= 2e-3 and bool(pr_tight.converged) and err_t <= 1e-4,
+          "the pagerank operator's λ = 1")
+    fft_launches = read_counts()
+    say(f"matrix-free solves' launches (cuFFT, cuBLAS, cuSPARSE and gathers only): {fft_launches}")
+    check(sum(fft_launches.values()) == 0, "a matrix-free solve launched a kernel of the port")
+
+    # --- 6e. the traced solves and the spectral helpers ---
+    mv = st.hilbert_matvec(8192)
+    plain = solve_operator(mv, 8192, evt.EPS, evt.MAX_ITR)
+    traced, hist = solve_operator_traced(mv, 8192, evt.EPS, evt.MAX_ITR)
+    traced_d, hist_d = solve_matvec_traced(H, evt.EPS, evt.MAX_ITR)
+    plain_d = solve_matvec(H, evt.EPS, evt.MAX_ITR)
+    k = int(traced.rounds)
+    rep = spectral.convergence_report(hist, k)
+    pad = bool((hist[k:] == traced.eigenvalue).all() and (hist_d[int(traced_d.rounds):]
+                                                           == traced_d.eigenvalue).all())
+    say(f"traced solves at 8192: operator bit-identical {same(traced, plain)}, dense "
+        f"{same(traced_d, plain_d)}, tails padded {pad}; rate {rep.rate:.4f} over "
+        f"{rep.deltas_used} deltas, λ error estimate {rep.lam_error_estimate:.2e}")
+    check(same(traced, plain) and same(traced_d, plain_d) and pad, "the traced solves")
+    check(0 < rep.rate < 1, f"convergence rate {rep.rate}")
+    H1 = mats[1024]
+    w = np.sort(np.linalg.eigvalsh(H1.double().cpu().numpy()))[::-1]
+    sub = spectral.subdominant_eigenpair(H1, dense[1024])
+    top = spectral.top_k_eigenpairs(H1, dense[1024], k=3)
+    G = top.eigenvectors.astype(np.float64)
+    say(f"hilbert 1024 spectrum: λ₂ {sub.eigenvalue!r} (eigh {w[1]!r}, rel "
+        f"{abs(sub.eigenvalue - w[1]) / w[1]:.2e}) in {sub.rounds} rounds, ratio {sub.ratio:.6f}; "
+        f"top 3 {top.eigenvalues.tolist()} (eigh {w[:3].tolist()}), rounds {top.rounds.tolist()}, "
+        f"residuals {top.residuals.tolist()}")
+    check(sub.converged and abs(sub.eigenvalue - w[1]) <= 1e-3 * w[1]
+          and abs(sub.ratio - w[1] / w[0]) <= 1e-3 * w[1] / w[0] and sub.residual <= 1e-3 * w[0],
+          "subdominant_eigenpair of hilbert 1024")
+    check(bool(np.all(top.converged)) and np.allclose(top.eigenvalues, w[:3], rtol=1e-3, atol=0)
+          and np.allclose(top.ratios, w[:3] / w[0], rtol=1e-3, atol=0)
+          and np.allclose(G.T @ G, np.eye(3), atol=2e-3)
+          and bool(np.all(top.residuals <= 1e-3 * w[0])),
+          "top_k_eigenpairs of hilbert 1024")
+
+    # --- 6f. the operator suite at 8192 ---
+    rows = bench_operator(dims=[8192])
+    say(f"operator suite at 8192, card {card}:")
+    say(_fmt_operator(rows))
+    for row in rows:
+        say("  " + json.dumps(row, allow_nan=False))
+    check([r["backend"] for r in rows]
+          == ["hankel_fft", "kron_64x128", "sparse_ell_deg9", "matvec"],
+          "the operator suite's rungs")
+    check(all(r["rounds_ok"] and r["device_ms"] for r in rows), "an operator row failed")
+    torch.cuda.empty_cache()
+    return op_launches
 
 
 def main() -> int:
@@ -1156,6 +1423,9 @@ def main() -> int:
         say(f"{name} at {at}: kernel median {t_it[name][0]:.4f} ms, plain {t_it[name][1]:.4f} ms "
             f"(no one PyTorch call computes it; matvec beside it: {t_mv.median_ms:.4f} ms)")
     del big_v
+
+    # --- 6. the matrix-free path ---
+    matrix_free_phase(dev, mats, auto, same, reset_counts, read_counts, card)
 
     # The least time the card could take: each input read once and each
     # output written once at the published memory rate, against the float32

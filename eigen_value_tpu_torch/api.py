@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .config import DEFAULT_CONFIG, SolverConfig
-from .device import multiround_fits, multiround_sym_fits, sym_auto_cache_tiles
+from .device import multiround_fits, multiround_sym_fits, solve_device, sym_auto_cache_tiles
 from .ops.cuda.kernels import SYM_TILE, sym_tile
 from .ops.solver import SolveResult
 
@@ -242,14 +242,8 @@ def _as_matrix(mat, config: SolverConfig, device=None) -> torch.Tensor:
     matrix gets no f32 copy; JAX ``api.py:533-539``).  A tensor whose
     address is not 16-byte aligned (a view such as ``buf[1:].view(n, n)``)
     is cloned: the kernels read rows in aligned chunks."""
+    device = solve_device(device, mat)
     if not isinstance(mat, torch.Tensor):
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "host input (not a torch.Tensor) is solved on the CUDA device "
-                    "and none is available; pass device='cpu' to solve on the CPU"
-                )
-            device = torch.device("cuda")
         mat = torch.tensor(np.asarray(mat))  # a copy: host arrays may be read-only
     if mat.dim() != 2 or mat.shape[0] != mat.shape[1]:
         raise ValueError(f"must be a square matrix, got shape {tuple(mat.shape)}")
@@ -297,6 +291,79 @@ def max_eigenvalue(
         if cand is not None and sym_ok:
             solve = _solve_fn(cand, "multiround", n, mat.device)
     return solve(mat)
+
+
+def _reject_unsupported(config: SolverConfig, entry: str, checks) -> None:
+    """Raise on config knobs ``entry`` cannot honor (the honored-or-rejected
+    contract).  ``checks`` is an iterable of ``(knob, is_default, why)``."""
+    for knob, is_default, why in checks:
+        if not is_default:
+            raise ValueError(
+                f"{knob}={getattr(config, knob)!r} is not supported by "
+                f"{entry} — {why}; it would be silently dropped"
+            )
+
+
+def max_eigenvalue_operator(
+    matvec, n: int, config: SolverConfig = DEFAULT_CONFIG, device=None
+) -> SolveResult:
+    """Matrix-free solve: ``matvec(x) -> A @ x`` for an implicit positive
+    operator that is never materialized (structured matrices with fast
+    matvecs, operator sums, matrices too large to store).  See
+    :func:`eigen_value_tpu_torch.ops.solver_matvec.solve_operator` for the
+    semantics and the round-count caveat.  The solve's O(n) state lives on
+    ``device``: the CUDA card unless ``"cpu"`` (or another device) is
+    passed; ``matvec`` takes and returns vectors there.
+
+    λ-scale limit of the default stop: the reference-exact ``eps_mode=
+    "absolute"`` compares adjacent row sums against a raw eps = 1e-3 while
+    the row sums converge to λ; f32 rounding noise scales with λ, so for
+    operators with λ ≳ 10³ (Kronecker products of unnormalized factors:
+    λ = λ_B·λ_C) the check may never fire and the solve exhausts
+    ``max_itr``.  For those pass ``SolverConfig(eps_mode="relative")`` or
+    pre-scale with :func:`~eigen_value_tpu_torch.ops.structured.scale_matvec`
+    (λ scales by exactly α).
+
+    Honors eps / max_itr / dtype / eps_mode; a matrix-free solve observes A
+    only through ``matvec``, so the dense-backend knobs are rejected rather
+    than silently dropped, with the JAX package's words.
+    """
+    from .ops.solver_matvec import solve_operator
+
+    _reject_unsupported(
+        config,
+        "max_eigenvalue_operator",
+        (
+            ("backend", config.backend in ("auto", "matvec"),
+             "a matrix-free solve IS the matvec-form loop; dense backends "
+             "don't apply"),
+            ("storage_dtype", config.storage_dtype is None,
+             "the operator is never materialized — reduced-precision "
+             "storage belongs inside the caller's matvec"),
+            ("block_rows", config.block_rows is None,
+             "no Pallas kernel runs on the operator path"),
+            ("block_cols", config.block_cols is None,
+             "no Pallas kernel runs on the operator path"),
+            ("chunk", config.chunk is None,
+             "the multiround kernel needs a materialized matrix"),
+            ("cache_tiles", config.cache_tiles is None,
+             "the VMEM tile cache needs a materialized matrix"),
+            ("interpret", config.interpret is None,
+             "no Pallas kernel runs on the operator path"),
+            ("symmetric", not config.symmetric,
+             "a matrix-free solve observes A only through matvec — "
+             "exploiting symmetry belongs inside the caller's matvec"),
+        ),
+    )
+    return solve_operator(
+        matvec,
+        n,
+        config.eps,
+        config.max_itr,
+        dtype=config.dtype,
+        eps_mode=config.eps_mode,
+        device=device,
+    )
 
 
 def eigen_residual(mat, result: SolveResult) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Benchmark suites of the port (counterpart of ``eigen_value_tpu.bench``):
-``python -m eigen_value_tpu_torch.bench --suite {e2e,kernels,vector}``."""
+``python -m eigen_value_tpu_torch.bench --suite {e2e,kernels,vector,operator}``."""
 
 from .suite import (
     E2E_BACKENDS,
@@ -7,8 +7,10 @@ from .suite import (
     VECTOR_SIZES,
     bench_e2e,
     bench_kernels,
+    bench_operator,
     bench_vector_kernels,
     kernel_steps,
+    operator_rungs,
     vector_steps,
 )
 
@@ -18,7 +20,9 @@ __all__ = [
     "VECTOR_SIZES",
     "bench_e2e",
     "bench_kernels",
+    "bench_operator",
     "bench_vector_kernels",
     "kernel_steps",
+    "operator_rungs",
     "vector_steps",
 ]

@@ -1,13 +1,15 @@
 """Benchmark CLI: ``python -m eigen_value_tpu_torch.bench --suite
-{e2e,kernels,vector,all} [--dims 8192 ...] [--sizes 65536 ...]
+{e2e,kernels,vector,operator,all} [--dims 8192 ...] [--sizes 65536 ...]
 [--backends matvec_pallas ...] [--reps 5] [--json]``.
 
 Prints the JAX CLI's tables: for ``e2e`` one block per backend of
 ``dim x dim   ms   rounds   (device ms, chained)`` rows; for ``kernels`` and
 ``vector`` one block per kernel of ``dim   us   GB/s   % roofline`` rows;
-or one JSON object per row with ``--json`` (RFC-valid: nulls, never NaN).
-``all`` runs the three.  The other suite names of the JAX CLI are accepted
-and raise, naming the ROADMAP item that holds them.
+for ``operator`` one ``[rung] dim x dim   device ms (chained)   rounds``
+line per row; or one JSON object per row with ``--json`` (RFC-valid: nulls,
+never NaN).  ``all`` runs the first three, as in the JAX CLI.  The other
+suite names of the JAX CLI are accepted and raise, naming the ROADMAP item
+that holds them.
 """
 
 from __future__ import annotations
@@ -20,8 +22,8 @@ SUITES = [
     "e2e", "kernels", "vector", "sharded", "multihost", "native", "model",
     "calibrate", "drift", "operator", "batched", "large", "all",
 ]
-#: The suites that run here; ``all`` is these three, as in the JAX CLI.
-PORTED = ("e2e", "kernels", "vector", "all")
+#: The suites that run here; ``all`` is the first three, as in the JAX CLI.
+PORTED = ("e2e", "kernels", "vector", "operator", "all")
 
 
 def _fmt_e2e(rows) -> str:
@@ -63,6 +65,22 @@ def _fmt_kernels(rows, size_key="dim") -> str:
     return "\n".join(out)
 
 
+def _fmt_operator(rows) -> str:
+    out = []
+    for r in rows:
+        parity = "" if r.get("rounds_ok", True) else "   [PARITY BREAK]"
+        dev = (
+            f"{r['device_ms']:>10.4f} ms dev (chained)"
+            if r["device_ms"] is not None
+            else "  below chain resolution  "
+        )
+        out.append(
+            f"[{r['backend']}] {r['dim']:<5} x {r['dim']:>5}\t{dev}"
+            f"\t{r['rounds']:>4} round(s){parity}"
+        )
+    return "\n".join(out)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="eigen_value_tpu_torch.bench")
     p.add_argument("--suite", choices=SUITES, default="kernels")
@@ -95,6 +113,9 @@ def main(argv=None) -> int:
     if args.suite in ("vector", "all"):
         rows = suite.bench_vector_kernels(args.sizes or suite.VECTOR_SIZES)
         tables.append((rows, _fmt_kernels(rows, size_key="size")))
+    if args.suite == "operator":
+        rows = suite.bench_operator(dims, reps=args.reps)
+        tables.append((rows, _fmt_operator(rows)))
     if args.json:
         for rows, _ in tables:
             for r in rows:

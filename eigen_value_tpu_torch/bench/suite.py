@@ -1,7 +1,8 @@
 """Benchmark suite (counterpart of ``eigen_value_tpu.bench.suite``): the
 end-to-end sweep over the solve forms (``bench_e2e``), the per-kernel ladder
-of the O(n²) passes (``bench_kernels``) and the O(n) vector kernels
-(``bench_vector_kernels``).
+of the O(n²) passes (``bench_kernels``), the O(n) vector kernels
+(``bench_vector_kernels``) and the matrix-free operators beside the dense
+solve (``bench_operator``).
 
 Each kernel rung is timed marginally, (T(k+1 chained) − T(1)) / k with CUDA
 events (``utils.timing.time_marginal``), and reported with its achieved
@@ -16,6 +17,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .. import fixtures
@@ -313,6 +315,137 @@ def bench_e2e(
                 row["below_resolution"] = True
             rows.append(row)
     return rows
+
+
+# --- the matrix-free operators -------------------------------------------------
+
+#: Off-diagonal entries per row of the sparse ELL rung (its diagonal is one more).
+ELL_DEG = 8
+#: Past this λ_B·λ_C the Kronecker rung takes the relative stop: f32 noise
+#: (~λ·(p+q)·2⁻²⁴) crowds the absolute eps = 1e-3 (the JAX suite's rule).
+KRON_RELATIVE_ABOVE = 500.0
+
+#: ``(solve(ev0) -> SolveResult, ok(result) -> bool, extra row keys)``
+OperatorRung = Tuple[Callable, Callable, dict]
+
+
+def operator_rungs(n: int, device) -> Dict[str, OperatorRung]:
+    """The operator suite's rungs at dim ``n`` on ``device``, in the JAX
+    suite's order and names:
+
+      hankel_fft (Hilbert as an FFT Hankel operator; rounds within ±1 of
+      the table) -> kron_{p}x{q} (B ⊗ C with p·q = n, random positive
+      factors; λ within 2e-3 of λ_B·λ_C) -> sparse_ell_deg9 (a random
+      nonnegative matrix with a positive diagonal and eight off-diagonal
+      entries a row, through the ELL gather; residual through the operator
+      within 1e-2·max(λ, 1)).
+
+    The Hilbert and ELL inputs are the JAX suite's (the ELL triplets come
+    from ``numpy.random.default_rng(n)``); the Kronecker factors are
+    U[0.1, 1) from a ``torch.Generator`` seeded n, not JAX's ``jax.random``
+    draw.  On a CPU device every rung runs its plain form (what the tests
+    step through)."""
+    from ..ops.solver_matvec import solve_operator
+    from ..ops.structured import ell_from_coo, ell_matvec, hilbert_matvec, kron_matvec
+
+    def rung(mv, eps_mode="absolute"):
+        return lambda ev0: solve_operator(mv, n, EPS, MAX_ITR, ev0=ev0, eps_mode=eps_mode,
+                                          device=device)
+
+    rungs = {}
+    want = fixtures.HILBERT_ROUNDS.get(n)
+    rungs["hankel_fft"] = (
+        rung(hilbert_matvec(n, device=device)),
+        lambda r: abs(int(r.rounds) - (int(r.rounds) if want is None else want)) <= 1,
+        {},
+    )
+    p = 1 << ((n - 1).bit_length() // 2)  # p·q = n, p ≤ q, powers of two
+    q = n // p
+    if p * q == n:
+        g = torch.Generator().manual_seed(n)
+        B = (torch.rand(p, p, generator=g) * 0.9 + 0.1).to(device)
+        C = (torch.rand(q, q, generator=g) * 0.9 + 0.1).to(device)
+        lam_prod = float(solve_matvec(B, EPS, MAX_ITR).eigenvalue) * float(
+            solve_matvec(C, EPS, MAX_ITR).eigenvalue)
+        eps_mode = "relative" if lam_prod > KRON_RELATIVE_ABOVE else "absolute"
+        rungs[f"kron_{p}x{q}"] = (
+            rung(kron_matvec(B, C), eps_mode),
+            lambda r: bool(r.converged)
+            and abs(float(r.eigenvalue) - lam_prod) <= 2e-3 * lam_prod,
+            {"eps_mode": eps_mode},
+        )
+    rng = np.random.default_rng(n)
+    src = np.repeat(np.arange(n), ELL_DEG)
+    dst = (src + 1 + rng.integers(0, n - 1, size=src.shape)) % n
+    vals = (rng.random(src.shape[0]) + 0.1).astype(np.float32)
+    ell = ell_matvec(*ell_from_coo(np.concatenate([src, np.arange(n)]),
+                                   np.concatenate([dst, np.arange(n)]),
+                                   np.concatenate([vals, np.ones(n, np.float32)]), n,
+                                   device=device))
+
+    def ell_ok(r):
+        lam = float(r.eigenvalue)
+        resid = float(torch.max(torch.abs(ell(r.eigenvector) - r.eigenvalue * r.eigenvector)))
+        return bool(r.converged) and resid <= 1e-2 * max(lam, 1.0)
+
+    rungs[f"sparse_ell_deg{ELL_DEG + 1}"] = (rung(ell), ell_ok, {})
+    return rungs
+
+
+def _operator_chain_step(fn: Callable, n: int, device) -> Step:
+    """Chain step for marginal matrix-free timing (the JAX suite's): the
+    start vector carries the previous solve's λ and ``eigenvector[0]``,
+    scaled to nothing, so each solve depends on the one before.  The state
+    is that sum (a number before the first step)."""
+
+    def step(i, acc):
+        sc = 1.0 + acc * _BIAS_SCALE
+        r = fn(torch.ones(n, dtype=torch.float32, device=device) * sc)
+        return r.eigenvalue + r.eigenvector[0] * _BIAS_SCALE
+
+    return step
+
+
+def bench_operator(dims: List[int] = MATRIX_DIMS, reps: int = 5) -> List[dict]:
+    """Matrix-free operators against the dense solve on the CUDA card: one
+    row per rung of :func:`operator_rungs` and dim (all dims of a rung
+    together, as in the JAX suite), then the dense ``matvec`` rows of
+    :func:`bench_e2e` for the same dims.
+
+    ``device_ms`` is the marginal time of one solve in a chain of solves
+    (with :func:`_marginal_resolved`'s escalation): like the e2e rows, it
+    includes the card's idle gaps while the host reads each round's stop.
+    ``rounds_ok`` is the rung's check; the Kronecker rows record their stop
+    in ``eps_mode``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_operator measures the CUDA device; none is available")
+    device = torch.device("cuda")
+    rows = []
+    for n in dims:
+        for name, (solve, ok, extra) in operator_rungs(n, device).items():
+            res = solve(None)  # the all-ones start; builds and warms up
+            rounds = int(res.rounds)
+            dev_ms, chain_k, resolved = _marginal_resolved(
+                _operator_chain_step(solve, n, device), 0.0, k=4, reps=reps)
+            row = {
+                "bench": "operator",
+                "backend": name,
+                "dim": n,
+                "device_ms": dev_ms,
+                "ms_per_round": dev_ms / max(rounds, 1) if resolved else None,
+                "rounds": rounds,
+                "eigenvalue": float(res.eigenvalue),
+                **extra,
+                "rounds_ok": ok(res),
+                "chain_k": chain_k,
+            }
+            if not resolved:
+                row["below_resolution"] = True
+            rows.append(row)
+    # a rung's dims together, in the rungs' order (sorted is stable: dims stay in order)
+    rows.sort(key=lambda r: ("hankel", "kron", "sparse").index(r["backend"].split("_")[0]))
+    return rows + [dict(r, bench="operator")
+                   for r in bench_e2e(dims, backends=["matvec"], reps=reps)]
 
 
 # --- the O(n) vector kernels ---------------------------------------------------

@@ -60,6 +60,23 @@ def state_from_numpy(ev, v, lam, rounds: int, device="cpu", dtype=torch.float32)
     return _Carry(vec(ev), vec(v), vec(lam).reshape(()), int(rounds))
 
 
+def sparse_from_coo(indices, data, shape, device="cpu") -> torch.Tensor:
+    """A coalesced torch sparse COO tensor from the numpy parts of a JAX
+    BCOO matrix (``A_sp.indices``, (nse, 2), and ``A_sp.data``, (nse,)), so
+    one matrix feeds both packages' ``sparse_matvec``.  Entries whose index
+    lies outside ``shape`` (BCOO's padding) are dropped; duplicates sum."""
+    idx = np.asarray(indices).reshape(-1, len(shape))
+    vals = np.asarray(data)
+    keep = np.all(idx < np.asarray(shape), axis=1)
+    return torch.sparse_coo_tensor(
+        torch.from_numpy(idx[keep].T.astype(np.int64)),
+        torch.from_numpy(np.ascontiguousarray(vals[keep])),
+        tuple(shape),
+        device=device,
+        check_invariants=True,
+    ).coalesce()
+
+
 def config_from_fields(fields: Mapping[str, Any]) -> SolverConfig:
     """A :class:`SolverConfig` from another package's config fields (e.g.
     ``dataclasses.asdict`` of the JAX config), with dtypes mapped by name."""

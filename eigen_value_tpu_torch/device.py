@@ -41,6 +41,24 @@ def tensor_device(*tensors: torch.Tensor) -> torch.device:
     return dev
 
 
+def solve_device(device=None, *inputs) -> torch.device:
+    """Where work on ``inputs`` runs: ``device`` when given, else the device
+    of the first tensor among ``inputs``, else the CUDA card.  Host input
+    (numpy, lists, or nothing) has no device of its own and never runs on
+    the CPU unasked: without a card this raises."""
+    if device is not None:
+        return torch.device(device)
+    for t in inputs:
+        if isinstance(t, torch.Tensor):
+            return t.device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "host input (not a torch.Tensor) is solved on the CUDA device and none is "
+            "available; pass device='cpu' to solve on the CPU"
+        )
+    return torch.device("cuda")
+
+
 @functools.lru_cache(maxsize=None)
 def cuda_limits(device: torch.device) -> CudaLimits:
     p = torch.cuda.get_device_properties(device)

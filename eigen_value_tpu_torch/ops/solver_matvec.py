@@ -17,6 +17,8 @@ to ``chunk`` rounds into one kernel launch (the stripes kernel, or the
 tiled triangle kernel for a declared-symmetric matrix) and reads one count
 per launch.  :func:`solve_matvec_kernel_fused` and :func:`solve_fused_round`
 keep the host loop and fuse a round's O(n) glue into its one O(n²) launch.
+:func:`solve_operator` runs the same loop over any ``matvec`` (the
+matrix-free solve), and the ``*_traced`` solves record λ each round.
 
 Reduced-precision storage (``storage_dtype`` = ``torch.bfloat16`` /
 ``torch.float16``, on :func:`solve_matvec`, :func:`solve_matvec_kernel` and
@@ -37,6 +39,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..device import solve_device
 from .cuda import kernels
 from .solver import SolveResult, _finish, stop_check
 
@@ -138,6 +141,99 @@ def solve_matvec_kernel(
         return kernels.matvec(A, ev) / ev
 
     return solve_matvec_loop(A, matvec, eps, max_itr, ev0=ev0, eps_mode=eps_mode)
+
+
+def solve_operator(
+    matvec,
+    n: int,
+    eps: float,
+    max_itr: int,
+    dtype=torch.float32,
+    ev0=None,
+    eps_mode: str = "absolute",
+    device=None,
+) -> SolveResult:
+    """Matrix-free solve: ``matvec(x) -> A @ x`` for an implicit positive
+    matrix that is never materialized (JAX ``solve_operator``).
+
+    The power-form loop observes A only through one matvec per round, so any
+    positive linear operator works: structured matrices with fast matvecs
+    (Hankel / Toeplitz by FFT: the Hilbert matrix is Hankel, O(n log n) a
+    round instead of O(n²); ``ops/structured.py``), sums and scalings of
+    operators, matrices too large to store.  Semantics are the dense
+    solve's: the wraparound stop checked before the update, λ = v[0],
+    0-based rounds, the cap reporting the last checked round.  Round counts
+    may differ by one from the dense solve where the operator's rounding
+    differs from the dense row sums (FFT).  The O(n) state has ``dtype`` and
+    lives on ``device`` (None: the CUDA card), which is where ``matvec``
+    must take and return its vectors.
+    """
+    dev = solve_device(device)
+
+    def next_v(ev):
+        return matvec(ev) / ev
+
+    cond, body = _make_cond_body(next_v, eps, max_itr, eps_mode)
+    c = _init_carry(n, next_v, dtype, dev, ev0)
+    while cond(c):
+        c = body(c)
+    return _finish(c, max_itr)
+
+
+def solve_matvec_traced(A: torch.Tensor, eps: float, max_itr: int):
+    """:func:`solve_matvec` that also records the λ estimate (v[0] at each
+    round's stop check).  Returns ``(SolveResult, lam_history)`` with
+    ``lam_history`` of shape ``(max_itr,)`` on A's device; the entries past
+    the converging round repeat the final λ.  Its matvec is the one
+    :func:`solve_matvec` uses, so the two are bit-identical."""
+    A, dtype = _stored(A, None)
+
+    def next_v(ev):
+        return kernels.matvec_plain(A, ev) / ev
+
+    return _solve_traced(next_v, A.shape[0], dtype, eps, max_itr, device=A.device)
+
+
+def solve_operator_traced(
+    matvec,
+    n: int,
+    eps: float,
+    max_itr: int,
+    dtype=torch.float32,
+    eps_mode: str = "absolute",
+    device=None,
+):
+    """:func:`solve_operator` with the λ history of
+    :func:`solve_matvec_traced` (feed it to ``ops.spectral.
+    convergence_report`` to estimate |λ₂/λ₁|; for a stochastic operator such
+    as the PageRank matrix that ratio is the chain's mixing rate)."""
+
+    def next_v(ev):
+        return matvec(ev) / ev
+
+    return _solve_traced(next_v, n, dtype, eps, max_itr, eps_mode, solve_device(device))
+
+
+def _solve_traced(next_v, n: int, dtype, eps: float, max_itr: int,
+                  eps_mode: str = "absolute", device=None):
+    """The loop of :func:`solve_operator` writing each round's λ into a
+    ``(max_itr,)`` history on the device at the host's round index (no read
+    back), then the JAX epilogue: the converging round's λ at
+    ``min(rounds, max_itr - 1)`` and the final λ past ``rounds``."""
+    cond, body = _make_cond_body(next_v, eps, max_itr, eps_mode)
+    c = _init_carry(n, next_v, dtype, device)
+    hist = torch.zeros(max_itr, dtype=dtype, device=device)
+    while cond(c):
+        i = c.i
+        c = body(c)
+        hist[i] = c.lam  # the body just advanced past round i
+    res = _finish(c, max_itr)
+    if max_itr > 0:
+        # the converging round ran no body: write its λ (on cap exhaustion
+        # this rewrites hist[max - 1] with the value it holds), then pad
+        hist[min(c.i, max_itr - 1)] = res.eigenvalue
+        hist[c.i + 1:] = res.eigenvalue
+    return res, hist
 
 
 def _first_row_sums(A: torch.Tensor):

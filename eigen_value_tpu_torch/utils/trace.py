@@ -9,10 +9,13 @@ tiled kernel with that cache, the matvec kernel loop, the plain
 ``round_fused`` kernels, the iterated solve over the ``rowsum`` and
 ``scale_rowsum`` kernels, and the reduced-precision storage solves of the
 matrix kept in bf16: the stripes kernel, the triangle kernel with the
-card's 2-byte auto cache, the matvec kernel loop) it times ``--solves`` solves with
-CUDA events, then traces as many more under ``torch.profiler`` and adds up
-the device intervals (kernels, copies, fills) the trace holds.  Prints one
-JSON object per arm:
+card's 2-byte auto cache, the matvec kernel loop), and for the three
+matrix-free rungs of the operator suite at the same n (the FFT Hilbert
+operator, the Kronecker operator, the sparse ELL operator:
+``bench.operator_rungs``), it times ``--solves`` solves with CUDA events,
+then traces as many more under ``torch.profiler`` and adds up the device
+intervals (kernels, copies, fills) the trace holds.  Prints one JSON object
+per arm:
 
 * ``ms_per_solve``: median of the untraced solves (CUDA events);
 * ``device_busy_ms``: traced device time per solve, the union of the
@@ -97,6 +100,7 @@ def main(argv=None) -> int:
         raise SystemExit("FAILED: no CUDA device")
 
     from .. import EPS, MAX_ITR, fixtures
+    from ..bench.suite import operator_rungs
     from ..device import sym_auto_cache_tiles
     from ..ops.cuda.kernels import SYM_TILE, sym_tile
     from ..ops.solver_kernel import solve_kernel
@@ -135,6 +139,9 @@ def main(argv=None) -> int:
         arms[f"triangle kernel, bf16 A, cache {cache_q}"] = partial(
             multi_q, symmetric=True, cache_tiles=cache_q)
     arms["matvec kernel loop, bf16 A"] = lambda: solve_matvec_kernel(Hq, EPS, MAX_ITR)
+    ones = torch.ones(args.n, device=H.device)
+    for name, (solve, _, _) in operator_rungs(args.n, H.device).items():
+        arms[f"operator {name}"] = partial(solve, ones)
     for name, fn in arms.items():
         print(json.dumps({"arm": name, "n": args.n, **trace_arm(fn, args.solves)}), flush=True)
     return 0

@@ -1,8 +1,8 @@
-"""The port's kernel ladder, vector suite, end-to-end sweep and marginal
-timing, as far as the CPU can say: the step functions leave the state their
-plain chain leaves, the rungs and tables keep the JAX suite's names and
-formats, and every path that would report a device time refuses to run
-without a card.
+"""The port's kernel ladder, vector suite, end-to-end sweep, operator suite
+and marginal timing, as far as the CPU can say: the step functions leave the
+state their plain chain leaves, the rungs solve on the CPU, the rungs and
+tables keep the JAX suite's names, keys and formats, and every path that
+would report a device time refuses to run without a card.
 """
 
 import json
@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from eigen_value_tpu.bench import suite as jax_suite  # noqa: E402
 from eigen_value_tpu.bench.__main__ import _fmt_e2e as jax_fmt_e2e  # noqa: E402
 from eigen_value_tpu.bench.__main__ import _fmt_kernels as jax_fmt_kernels  # noqa: E402
+from eigen_value_tpu.bench.__main__ import main as jax_cli_main  # noqa: E402
 from eigen_value_tpu_torch import bench  # noqa: E402
 from eigen_value_tpu_torch import fixtures as tfx  # noqa: E402
 from eigen_value_tpu_torch.bench import __main__ as cli  # noqa: E402
@@ -94,9 +95,11 @@ def _no_card():
         lambda: cli.main(["--suite", "vector", "--sizes", str(N), "--json"]),
         lambda: cli.main(["--suite", "e2e", "--dims", str(N), "--backends", "matvec_pallas",
                           "--reps", "2"]),
+        lambda: bench.bench_operator([N]),
+        lambda: cli.main(["--suite", "operator", "--dims", str(N)]),
     ],
     ids=["time_marginal", "bench_kernels", "cli", "cli-default-suite", "bench_vector_kernels",
-         "bench_e2e", "cli-vector", "cli-e2e"],
+         "bench_e2e", "cli-vector", "cli-e2e", "bench_operator", "cli-operator"],
 )
 def test_no_cpu_time_is_reported_as_a_device_time(call):
     _no_card()
@@ -117,7 +120,7 @@ def test_cli_rejects_the_unported_suites_by_name(suite):
 
 
 def test_cli_runs_the_jax_clis_all_and_names_unknown_backends():
-    assert cli.PORTED == ("e2e", "kernels", "vector", "all")
+    assert cli.PORTED == ("e2e", "kernels", "vector", "operator", "all")
     with pytest.raises(SystemExit, match="unknown e2e backends .*'nope'"):
         cli.main(["--suite", "e2e", "--backends", "nope"])
 
@@ -321,3 +324,112 @@ def test_cli_prints_canned_rows_as_json_lines_without_nan(monkeypatch, capsys):
     lines = capsys.readouterr().out.splitlines()
     assert [json.loads(line) for line in lines] == E2E_ROWS + VECTOR_ROWS
     assert not any("NaN" in line for line in lines)
+
+
+# --- the operator suite -----------------------------------------------------------
+
+
+def _jax_operator_names(n):
+    """The JAX suite's rung names at dim n (eigen_value_tpu/bench/suite.py,
+    bench_operator: p = 1 << ((n - 1).bit_length() // 2), kron only where
+    p·q == n, DEG = 8)."""
+    p = 1 << ((n - 1).bit_length() // 2)
+    kron = [f"kron_{p}x{n // p}"] if p * (n // p) == n else []
+    return ["hankel_fft", *kron, "sparse_ell_deg9"]
+
+
+@pytest.mark.parametrize("n", [128, 1000, 8192])
+def test_operator_rungs_keep_the_jax_suites_names(n):
+    assert list(bench.operator_rungs(n, "cpu")) == _jax_operator_names(n)
+
+
+@pytest.mark.parametrize("n", [128, 1024])
+def test_every_operator_rung_solves_on_the_cpu_and_chains(n):
+    for name, (solve, ok, extra) in bench.operator_rungs(n, "cpu").items():
+        res = solve(None)
+        assert res.eigenvector.device.type == "cpu" and bool(res.converged)
+        assert ok(res), name
+        if name == "hankel_fft":
+            assert int(res.rounds) == tfx.HILBERT_ROUNDS[n]
+        if name.startswith("kron"):
+            assert extra["eps_mode"] in ("absolute", "relative")
+        again = solve(torch.ones(n))
+        assert torch.equal(again.eigenvector, res.eigenvector)
+        acc = tsuite._operator_chain_step(solve, n, "cpu")(0, 0.0)
+        assert acc.shape == () and float(acc) == pytest.approx(float(res.eigenvalue))
+
+
+def test_the_operator_rungs_solve_the_jax_suites_inputs():
+    """The Hilbert and ELL rungs take the JAX suite's inputs (the ELL triplets
+    from numpy's generator seeded n): JAX's solves of them give the rounds
+    within ±1 and λ within 1e-5."""
+    import numpy as np
+    from eigen_value_tpu.ops.solver_matvec import solve_operator as jax_solve_operator
+    from eigen_value_tpu.ops.structured import ell_from_coo, ell_matvec, hilbert_matvec
+
+    n = 1024
+    rng = np.random.default_rng(n)
+    src = np.repeat(np.arange(n), 8)
+    dst = (src + 1 + rng.integers(0, n - 1, size=src.shape)) % n
+    vals = (rng.random(src.shape[0]) + 0.1).astype(np.float32)
+    jell = ell_matvec(*ell_from_coo(np.concatenate([src, np.arange(n)]),
+                                    np.concatenate([dst, np.arange(n)]),
+                                    np.concatenate([vals, np.ones(n, np.float32)]), n))
+    jax_mvs = {"hankel_fft": hilbert_matvec(n), "sparse_ell_deg9": jell}
+    rungs = bench.operator_rungs(n, "cpu")
+    for name, mv in jax_mvs.items():
+        got, want = rungs[name][0](None), jax_solve_operator(mv, n, 1e-3, 1000)
+        assert abs(int(got.rounds) - int(want.rounds)) <= 1
+        assert float(got.eigenvalue) == pytest.approx(float(want.eigenvalue), rel=1e-5)
+
+
+#: The JAX suite's operator row keys, in its order (eigen_value_tpu/bench/
+#: suite.py, bench_operator); the Kronecker rows add eps_mode.
+JAX_OPERATOR_KEYS = ["bench", "backend", "dim", "device_ms", "ms_per_round", "rounds",
+                     "eigenvalue", "rounds_ok", "chain_k"]
+
+
+def test_bench_operator_rows_keep_the_jax_suites_keys_and_order(monkeypatch):
+    """The rows bench_operator builds, with the card's parts stood in for:
+    the rungs on the CPU, a fixed marginal time and a canned dense row."""
+    dense = {"bench": "e2e", "backend": "matvec", "dim": 128, "ms": 1.0, "device_ms": 0.9,
+             "ms_per_round": 0.1, "elems_per_s": 1e9, "rounds": 9, "eigenvalue": 2.2,
+             "rounds_ok": True, "chain_k": 8}
+    real_rungs = tsuite.operator_rungs
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tsuite, "operator_rungs", lambda n, device: real_rungs(n, "cpu"))
+    monkeypatch.setattr(tsuite, "_marginal_resolved", lambda step, init, k, reps: (0.5, k, True))
+    monkeypatch.setattr(tsuite, "bench_e2e", lambda dims, backends, reps: [
+        dict(dense, dim=d) for d in dims] if backends == ["matvec"] else None)
+    rows = tsuite.bench_operator([128, 1000])
+    assert [(r["backend"], r["dim"]) for r in rows] == [
+        ("hankel_fft", 128), ("hankel_fft", 1000), ("kron_8x16", 128),
+        ("sparse_ell_deg9", 128), ("sparse_ell_deg9", 1000), ("matvec", 128), ("matvec", 1000)]
+    for r in rows[:-2]:
+        keys = list(JAX_OPERATOR_KEYS)
+        if r["backend"].startswith("kron"):
+            keys.insert(keys.index("rounds_ok"), "eps_mode")
+        assert list(r) == keys and r["bench"] == "operator" and r["rounds_ok"] is True
+        assert r["ms_per_round"] == 0.5 / max(r["rounds"], 1)
+    assert all(r["bench"] == "operator" for r in rows[-2:])
+
+
+OPERATOR_ROWS = [
+    {"bench": "operator", "backend": "hankel_fft", "dim": 8192, "device_ms": 2.1,
+     "ms_per_round": 0.12, "rounds": 17, "eigenvalue": 2.6, "rounds_ok": True, "chain_k": 4},
+    {"bench": "operator", "backend": "kron_64x128", "dim": 8192, "device_ms": None,
+     "ms_per_round": None, "rounds": 2, "eigenvalue": 2492.7, "eps_mode": "relative",
+     "rounds_ok": False, "chain_k": 1024, "below_resolution": True},
+]
+
+
+def test_operator_rows_print_in_the_jax_clis_format(monkeypatch, capsys):
+    monkeypatch.setattr(jax_suite, "bench_operator", lambda dims, reps: OPERATOR_ROWS)
+    assert jax_cli_main(["--suite", "operator", "--dims", "8192"]) in (0, None)
+    want = capsys.readouterr().out.rstrip("\n")
+    assert cli._fmt_operator(OPERATOR_ROWS) == want
+    assert "[PARITY BREAK]" in want and "below chain resolution" in want
+    monkeypatch.setattr(tsuite, "bench_operator", lambda dims, reps: OPERATOR_ROWS)
+    assert cli.main(["--suite", "operator", "--json"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert [json.loads(line) for line in lines] == OPERATOR_ROWS

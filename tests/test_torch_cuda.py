@@ -733,3 +733,117 @@ def test_warmup_builds_the_plans_before_the_first_call(cuda):
     assert [a.misses for a in after] == [p.misses for p in plans]  # nothing planned anew
     with pytest.raises(ValueError, match="chunk"):
         evt.EigenValue(evt.SolverConfig(backend="matvec", chunk=3)).warmup([128])
+
+
+# --- the matrix-free path: structured operators and max_eigenvalue_operator ---
+
+
+def _structured_cases(dev, n: int = 4096):
+    """``name -> (matvec, dense A, rtol, atol)`` at dim n (kron 64 x 64), inputs
+    from numpy with a seed; the JAX tests' tolerances."""
+    import numpy as np
+
+    from eigen_value_tpu_torch.convert import sparse_from_coo
+    from eigen_value_tpu_torch.ops import structured as st
+
+    rng = np.random.default_rng(n)
+
+    def f32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    i = torch.arange(n, device=dev)
+    diff = i[:, None] - i[None, :]
+    h = f32(rng.random(2 * n - 1, dtype=np.float32) + 0.1)
+    c = f32(rng.random(n, dtype=np.float32) + 0.1)
+    r = f32(rng.random(n, dtype=np.float32) + 0.1)
+    r[0] = c[0]
+    U, V = (f32(rng.random((n, 3), dtype=np.float32) + 0.1) for _ in range(2))
+    d = f32(rng.random(n, dtype=np.float32))
+    B, C = (f32(rng.random((64, 64), dtype=np.float32) + 0.1) for _ in range(2))
+    rows = np.concatenate([np.repeat(np.arange(n), 6), np.arange(n)])
+    cols = np.concatenate([(np.repeat(np.arange(n), 6) + 1
+                            + rng.integers(0, n - 1, size=6 * n)) % n, np.arange(n)])
+    vals = np.concatenate([rng.random(6 * n, dtype=np.float32) + 0.1, np.ones(n, np.float32)])
+    S = torch.zeros(n, n, device=dev)
+    S.index_put_((torch.from_numpy(rows).to(dev), torch.from_numpy(cols).to(dev)), f32(vals),
+                 accumulate=True)
+    low_rank = st.low_rank_matvec(U, V, d)
+    ell = st.ell_matvec(*st.ell_from_coo(rows, cols, vals, n, device=dev))
+    L = U @ V.T + torch.diag(d)
+    Hk = h[i[:, None] + i[None, :]]
+    return {
+        "hankel": (st.hankel_matvec(h, n), Hk, 2e-5, 1e-5),
+        "toeplitz": (st.toeplitz_matvec(c, r, n),
+                     torch.where(diff >= 0, c[diff.abs()], r[diff.abs()]), 2e-5, 1e-5),
+        "circulant": (st.circulant_matvec(c, n), c[diff % n], 2e-5, 1e-5),
+        "low_rank": (low_rank, L, 2e-5, 1e-5),
+        "kron": (st.kron_matvec(B, C), torch.kron(B, C), 2e-5, 1e-5),
+        "sparse": (st.sparse_matvec(sparse_from_coo(np.stack([rows, cols], 1), vals, (n, n),
+                                                    device=dev)), S, 1e-5, 1e-6),
+        "ell": (ell, S, 1e-5, 1e-6),
+        "add": (st.add_matvec(st.scale_matvec(low_rank, 0.25), ell), 0.25 * L + S, 2e-5, 1e-5),
+        "scale": (st.scale_matvec(st.hankel_matvec(h, n), 4.0), 4.0 * Hk, 2e-5, 1e-5),
+    }
+
+
+@pytest.mark.parametrize("name", ["hankel", "toeplitz", "circulant", "low_rank", "kron",
+                                  "sparse", "ell", "add", "scale"])
+def test_structured_matvec_matches_f64_on_the_card(cuda, name):
+    cases = _structured_cases(cuda)
+    mv, A, rtol, atol = cases[name]
+    n = A.shape[0]
+    x = (torch.rand(n, generator=torch.Generator().manual_seed(1)) + 0.1).to(cuda)
+    got = mv(x)
+    assert got.is_cuda and got.dtype == torch.float32
+    want = A.double() @ x.double()
+    assert bool(((got.double() - want).abs() <= atol + rtol * want.abs()).all())
+
+
+def test_kron_keeps_true_f32_under_the_callers_tf32(cuda):
+    from eigen_value_tpu_torch.ops.structured import kron_matvec
+
+    g = torch.Generator().manual_seed(2)
+    B, C = (torch.rand(m, m, generator=g).to(cuda) + 0.1 for m in (64, 128))
+    x = torch.rand(64 * 128, generator=g).to(cuda)
+    mv = kron_matvec(B, C)
+    want = mv(x)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high")
+    try:
+        got = mv(x)
+        assert torch.get_float32_matmul_precision() == "high"  # the caller's, given back
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    assert torch.equal(got, want)
+
+
+def test_dense_backed_operator_is_the_matvec_kernel_loop(cuda):
+    H = tfx.hilbert_matrix(1024, device=cuda)
+    want = solve_matvec_kernel(H, EPS, MAX_ITR)
+    before = tk.matvec.launches
+    got = evt.max_eigenvalue_operator(lambda x: tk.matvec(H, x), 1024)
+    assert tk.matvec.launches - before == int(want.rounds) + 1 == 14
+    _same(got, want)
+
+
+@pytest.mark.parametrize("n", sorted(tfx.HILBERT_ROUNDS))
+def test_hilbert_operator_on_the_card(cuda, n):
+    from eigen_value_tpu_torch.ops.structured import hilbert_matvec
+
+    mv = hilbert_matvec(n)  # no device: the card
+    got = evt.max_eigenvalue_operator(mv, n)
+    want = evt.max_eigenvalue(tfx.hilbert_matrix(n, device=cuda))
+    assert got.eigenvector.is_cuda and bool(got.converged)
+    assert abs(int(got.rounds) - tfx.HILBERT_ROUNDS[n]) <= 1
+    assert float(got.eigenvalue) == pytest.approx(float(want.eigenvalue), rel=1e-4)
+
+
+def test_hilbert_operator_65536_against_a_float64_loop(cuda):
+    from eigen_value_tpu_torch.ops.spectral import operator_residual
+    from eigen_value_tpu_torch.ops.structured import hilbert_matvec
+
+    mv = hilbert_matvec(65536)
+    got = evt.max_eigenvalue_operator(mv, 65536)
+    assert bool(got.converged) and abs(int(got.rounds) - 21) <= 1
+    assert float(got.eigenvalue) == pytest.approx(2.70899626, rel=1e-5)
+    assert float(operator_residual(mv, got)) <= 1e-3
