@@ -5,13 +5,21 @@ similarity-transform method, in its matvec ("power") form and in the
 reference's iterated (mutate-A) form, with hand-written CUDA kernels for
 Hopper (``csrc/``) and a plain PyTorch version beside each kernel, and the
 matrix-free solve of an operator that is never materialized
-(``max_eigenvalue_operator``, ``ops/structured.py``).  Imports
+(``max_eigenvalue_operator``, ``ops/structured.py``), batched solves
+(``max_eigenvalue_batch``), checkpointed solves (``checkpoint``) and
+differentiable eigenvalues (``ops/autodiff.py``).  Imports
 torch and numpy only, never jax: ``eigen_value_tpu`` stays the reference
 the port is tested against.
 """
 
 from . import fixtures
-from .api import EigenValue, eigen_residual, max_eigenvalue, max_eigenvalue_operator
+from .api import (
+    EigenValue,
+    eigen_residual,
+    max_eigenvalue,
+    max_eigenvalue_batch,
+    max_eigenvalue_operator,
+)
 from .config import DEFAULT_CONFIG, EPS, MAX_ITR, SolverConfig
 from .ops.solver import SolveResult
 
@@ -22,6 +30,7 @@ __all__ = [
     "eigen_residual",
     "fixtures",
     "max_eigenvalue",
+    "max_eigenvalue_batch",
     "max_eigenvalue_operator",
     "SolverConfig",
     "SolveResult",

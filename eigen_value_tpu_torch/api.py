@@ -304,6 +304,63 @@ def _reject_unsupported(config: SolverConfig, entry: str, checks) -> None:
             )
 
 
+def max_eigenvalue_batch(
+    mats, config: SolverConfig = DEFAULT_CONFIG, mesh=None, device=None
+) -> SolveResult:
+    """Batched solves over ``mats`` of shape (B, n, n); the result's tensors
+    carry a leading batch axis with per-matrix round counts (see
+    ``parallel/batched.py`` for the masked loop).  The device rule is
+    :func:`max_eigenvalue`'s: ``device`` when given, else a tensor's own,
+    else the CUDA card.
+
+    Honors eps / max_itr / dtype / eps_mode / storage_dtype.  A batch already
+    in ``storage_dtype`` is solved as it is, with no f32 copy; any other is
+    cast to ``config.dtype``.  The batched body is the power-form loop, so
+    any other backend and the kernel knobs are rejected with the JAX
+    package's words; ``mesh`` (the sharded batch) is not ported yet.
+    """
+    from .parallel.batched import solve_batched
+
+    _reject_unsupported(
+        config,
+        "max_eigenvalue_batch",
+        (
+            ("backend", config.backend in ("auto", "matvec"),
+             "the batched body is the vmapped matvec-form solver "
+             "(parallel/batched.py); under vmap the hot op is a batched "
+             "gemv and the Pallas/multiround kernels have no batched form"),
+            ("block_rows", config.block_rows is None,
+             "the batched body runs no Pallas kernel"),
+            ("block_cols", config.block_cols is None,
+             "the batched body runs no Pallas kernel"),
+            ("chunk", config.chunk is None,
+             "the multiround kernel has no batched form"),
+            ("cache_tiles", config.cache_tiles is None,
+             "the VMEM tile cache is a multiround feature; the batched "
+             "body runs no Pallas kernel"),
+            ("interpret", config.interpret is None,
+             "the batched body runs no Pallas kernel"),
+            ("symmetric", not config.symmetric,
+             "the upper-triangle kernel has no batched form; the batched "
+             "gemv streams full matrices"),
+        ),
+    )
+    if mesh is not None:
+        raise _not_ported("mesh= (the sharded batched solves)", "Queue 1 item 10")
+    device = solve_device(device, mats)
+    if not isinstance(mats, torch.Tensor):
+        mats = torch.tensor(np.asarray(mats))  # a copy: host arrays may be read-only
+    prequantized = config.storage_dtype is not None and mats.dtype == config.storage_dtype
+    mats = mats.to(device=device, dtype=mats.dtype if prequantized else config.dtype)
+    return solve_batched(
+        mats.contiguous(),
+        config.eps,
+        config.max_itr,
+        storage_dtype=config.storage_dtype,
+        eps_mode=config.eps_mode,
+    )
+
+
 def max_eigenvalue_operator(
     matvec, n: int, config: SolverConfig = DEFAULT_CONFIG, device=None
 ) -> SolveResult:

@@ -1,10 +1,13 @@
 """Benchmark suites of the port (counterpart of ``eigen_value_tpu.bench``):
-``python -m eigen_value_tpu_torch.bench --suite {e2e,kernels,vector,operator}``."""
+``python -m eigen_value_tpu_torch.bench --suite {e2e,kernels,vector,operator,batched}``."""
 
 from .suite import (
     E2E_BACKENDS,
     MATRIX_DIMS,
     VECTOR_SIZES,
+    batched_row,
+    batched_workload,
+    bench_batched,
     bench_e2e,
     bench_kernels,
     bench_operator,
@@ -18,6 +21,9 @@ __all__ = [
     "E2E_BACKENDS",
     "MATRIX_DIMS",
     "VECTOR_SIZES",
+    "batched_row",
+    "batched_workload",
+    "bench_batched",
     "bench_e2e",
     "bench_kernels",
     "bench_operator",

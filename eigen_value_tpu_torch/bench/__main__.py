@@ -1,12 +1,14 @@
 """Benchmark CLI: ``python -m eigen_value_tpu_torch.bench --suite
-{e2e,kernels,vector,operator,all} [--dims 8192 ...] [--sizes 65536 ...]
-[--backends matvec_pallas ...] [--reps 5] [--json]``.
+{e2e,kernels,vector,operator,batched,all} [--dims 8192 ...] [--sizes 65536 ...]
+[--backends matvec_pallas ...] [--batch 256] [--reps 5] [--json]``.
 
 Prints the JAX CLI's tables: for ``e2e`` one block per backend of
 ``dim x dim   ms   rounds   (device ms, chained)`` rows; for ``kernels`` and
 ``vector`` one block per kernel of ``dim   us   GB/s   % roofline`` rows;
 for ``operator`` one ``[rung] dim x dim   device ms (chained)   rounds``
-line per row; or one JSON object per row with ``--json`` (RFC-valid: nulls,
+line per row; for ``batched`` one ``[batched] B x n^2: ... solves/s`` line
+(``--batch``, and ``--dims`` for the matrix dim; config 4's 256 x 512² by
+default); or one JSON object per row with ``--json`` (RFC-valid: nulls,
 never NaN).  ``all`` runs the first three, as in the JAX CLI.  The other
 suite names of the JAX CLI are accepted and raise, naming the ROADMAP item
 that holds them.
@@ -23,7 +25,7 @@ SUITES = [
     "calibrate", "drift", "operator", "batched", "large", "all",
 ]
 #: The suites that run here; ``all`` is the first three, as in the JAX CLI.
-PORTED = ("e2e", "kernels", "vector", "operator", "all")
+PORTED = ("e2e", "kernels", "vector", "operator", "batched", "all")
 
 
 def _fmt_e2e(rows) -> str:
@@ -81,6 +83,17 @@ def _fmt_operator(rows) -> str:
     return "\n".join(out)
 
 
+def _fmt_batched(rows) -> str:
+    return "\n".join(
+        f"[batched] {r['batch']} x {r['dim']}^2: "
+        f"{r['device_ms_per_batch']:.2f} ms/batch dev, "
+        f"{r['solves_per_s']:.0f} solves/s, rounds {r['rounds_hist']}, "
+        f"max resid {r['max_rel_residual']:.1e}"
+        + ("" if r["rounds_ok"] else "   [CHECK FAILED]")
+        for r in rows
+    )
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="eigen_value_tpu_torch.bench")
     p.add_argument("--suite", choices=SUITES, default="kernels")
@@ -88,6 +101,8 @@ def main(argv=None) -> int:
     p.add_argument("--sizes", type=int, nargs="*",
                    help="vector sizes for --suite vector (default 2^16..2^25)")
     p.add_argument("--backends", nargs="*", help="e2e backends to run")
+    p.add_argument("--batch", type=int,
+                   help="batch size for --suite batched (default 256, config 4)")
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--json", action="store_true", help="emit JSON lines")
     args = p.parse_args(argv)
@@ -116,6 +131,14 @@ def main(argv=None) -> int:
     if args.suite == "operator":
         rows = suite.bench_operator(dims, reps=args.reps)
         tables.append((rows, _fmt_operator(rows)))
+    if args.suite == "batched":
+        kw = {}
+        if args.dims:
+            kw["dim"] = args.dims[0]
+        if args.batch:
+            kw["batch"] = args.batch
+        rows = suite.bench_batched(reps=args.reps, **kw)
+        tables.append((rows, _fmt_batched(rows)))
     if args.json:
         for rows, _ in tables:
             for r in rows:

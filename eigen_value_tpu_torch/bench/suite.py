@@ -1,8 +1,8 @@
 """Benchmark suite (counterpart of ``eigen_value_tpu.bench.suite``): the
 end-to-end sweep over the solve forms (``bench_e2e``), the per-kernel ladder
 of the O(n²) passes (``bench_kernels``), the O(n) vector kernels
-(``bench_vector_kernels``) and the matrix-free operators beside the dense
-solve (``bench_operator``).
+(``bench_vector_kernels``), the matrix-free operators beside the dense
+solve (``bench_operator``) and the batched solve (``bench_batched``).
 
 Each kernel rung is timed marginally, (T(k+1 chained) − T(1)) / k with CUDA
 events (``utils.timing.time_marginal``), and reported with its achieved
@@ -525,3 +525,73 @@ def bench_vector_kernels(sizes: List[int] = VECTOR_SIZES, k: int = 256) -> List[
                 }
             )
     return rows
+
+
+# --- the batched solve ----------------------------------------------------------
+
+#: Seed of the batched suite's matrices (numpy's generator: the same batch on
+#: every device; the JAX suite draws its own with ``jax.random.key(4)``).
+BATCHED_SEED = 4
+
+
+def batched_workload(batch: int, dim: int, device) -> torch.Tensor:
+    """BASELINE config 4's input: ``batch`` independent positive ``dim``²
+    float32 matrices, entries uniform in [0.05, 1), drawn a matrix at a time
+    from ``numpy.random.default_rng(BATCHED_SEED)``."""
+    rng = np.random.default_rng(BATCHED_SEED)
+    As = torch.empty(batch, dim, dim, dtype=torch.float32, device=device)
+    for b in range(batch):
+        mat = rng.random((dim, dim), dtype=np.float32) * np.float32(0.95) + np.float32(0.05)
+        As[b] = torch.from_numpy(mat)
+    return As
+
+
+def batched_row(As: torch.Tensor, res, device_ms: float) -> dict:
+    """The JAX suite's row for one batched solve: solves/s from the marginal
+    time of a whole batch, the per-matrix round histogram, and the batched
+    eigen-pair check ``rounds_ok``: every matrix converged and max over the
+    batch of |A·v − λ·v| / λ ≤ 2e-3 (float64; the reference's atol 1e-3 at
+    λ ≈ 2.6, scaled to these λ ≈ dim/2)."""
+    v = res.eigenvector.double()
+    lam = res.eigenvalue.double()
+    resid = (torch.bmm(As.double(), v[:, :, None])[:, :, 0] - lam[:, None] * v).abs().amax(1)
+    rel = float((resid / lam).max())
+    rounds, counts = np.unique(res.rounds.cpu().numpy(), return_counts=True)
+    converged = bool(res.converged.all())
+    return {
+        "bench": "batched",
+        "batch": As.shape[0],
+        "dim": As.shape[1],
+        "device_ms_per_batch": device_ms,
+        "solves_per_s": As.shape[0] / max(device_ms * 1e-3, 1e-9),
+        "rounds_hist": {int(r): int(c) for r, c in zip(rounds, counts)},
+        "all_converged": converged,
+        "max_rel_residual": rel,
+        "lambda_range": [float(lam.min()), float(lam.max())],
+        "rounds_ok": converged and rel <= 2e-3,
+    }
+
+
+def bench_batched(batch: int = 256, dim: int = 512, reps: int = 5, chain: int = 4) -> List[dict]:
+    """Batched throughput, BASELINE config 4: ``batch`` independent random
+    positive ``dim``² float32 solves through ``parallel.solve_batched`` on the
+    CUDA card (the reference's analog: its wrapper test's Python loop over
+    independent matrices).  ``device_ms_per_batch`` is the marginal time of
+    one batch in a chain (``time_marginal``); each solve's start vector
+    carries the previous one's λ, scaled to nothing.  Like the e2e rows it
+    includes the card's idle time while the host reads a round's flag."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_batched measures the CUDA device; none is available")
+    from ..parallel.batched import solve_batched
+
+    device = torch.device("cuda")
+    As = batched_workload(batch, dim, device)
+    res = solve_batched(As, EPS, MAX_ITR)
+
+    def step(i, acc):
+        sc = 1.0 + acc * _BIAS_SCALE
+        r = solve_batched(As, EPS, MAX_ITR,
+                          ev0=torch.ones(dim, dtype=torch.float32, device=As.device) * sc)
+        return r.eigenvalue[0] + r.eigenvector[0, 0] * _BIAS_SCALE
+
+    return [batched_row(As, res, time_marginal(step, 0.0, k=chain, reps=reps))]

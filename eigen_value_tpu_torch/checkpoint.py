@@ -1,0 +1,323 @@
+"""Checkpoint and resume of an in-flight solve (counterpart of
+``eigen_value_tpu.checkpoint``).
+
+The matvec-form solve's state is small and well defined, ``(A₀, ev, v, λ,
+rounds, done)``: it can be stepped a bounded number of rounds at a time,
+written to disk between steps and resumed bit for bit, so a solve split
+across process restarts returns the same eigenvalue, eigenvector and round
+count as one solve.  Meant for very large solves (the 65536² bf16 matrix)
+and for the pattern ``step → save → (maybe die) → load → step``.
+
+Where a step runs.  On a card whose multiround kernel holds ev (n up to
+57856 on an H100) a step is ONE launch of the stripes kernel with ``chunk``
+= the step's round count, as ``solve_multiround`` resumes a chunk; past
+that it is a host loop over the matvec kernel, the loop of
+``solve_matvec_kernel``.  On the CPU the same calls run the plain versions.
+Either way chunked stepping is bit-identical to the one-launch solve of
+the same route, cap included.  A float64 A steps the ``torch.mv`` loop of
+``solve_matvec`` (the kernels take f32 and 2-byte A only).
+
+Storage.  A 2-byte A follows the port's storage contract
+(``ops/solver_matvec.py``): f32 state, the kernels read A as stored, and a
+step is the f32 step of ``A_q.float()``.  JAX's ``_state_matvec`` divides
+by a quantized ev instead; the port does not copy it.
+
+The snapshot is an ``.npz`` with the JAX package's fields, so an f32 or f64
+snapshot written by either package loads in the other.  numpy has no
+bfloat16, so a 2-byte A is written as its raw uint16 bits with its dtype
+name beside them: such a snapshot is the port's own.  Orbax (JAX's sharded
+multi-host snapshots) has no counterpart yet: it arrives with the sharded
+solves.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .config import EPS, MAX_ITR
+from .device import multiround_fits, solve_device
+from .ops.cuda import kernels
+from .ops.solver import SolveResult, stop_check
+
+
+class SolverState(NamedTuple):
+    """Resumable state of a matvec-form solve, as tensors on A's device.
+
+    ``A`` is the original matrix (the matvec form never writes it); ``v``
+    holds the row sums of the current iterate; ``rounds`` (int32) follows
+    the reference's 0-based counting; ``done`` (bool) is set once the stop
+    fired, and the converging round's ev update and λ are then applied.
+    """
+
+    A: torch.Tensor
+    ev: torch.Tensor
+    v: torch.Tensor
+    lam: torch.Tensor
+    rounds: torch.Tensor
+    done: torch.Tensor
+
+
+def _state_dtype(A: torch.Tensor) -> torch.dtype:
+    """Dtype of the O(n) state: float32 for a 2-byte A (bf16 cannot hold
+    the 1e-3 stop at λ-scale values), else A's own."""
+    return torch.float32 if A.element_size() < 4 else A.dtype
+
+
+def _product(A: torch.Tensor):
+    """``A @ x`` of a step's host loop: the matvec kernel (its plain version
+    on the CPU) for the dtypes the kernels read, ``torch.mv`` for any other."""
+    return kernels.matvec if A.dtype in kernels._ELEM else kernels.matvec_plain
+
+
+def _one_launch(A: torch.Tensor) -> bool:
+    """Whether a step is one launch of the stripes kernel: A is a dtype it
+    reads, and on a card its ev copy fits one block's shared memory."""
+    if A.dtype not in kernels._ELEM:
+        return False
+    return A.device.type != "cuda" or multiround_fits(A.shape[0], A.device)
+
+
+def _as_matrix(A) -> torch.Tensor:
+    """A as a contiguous square tensor on its own device (host input goes to
+    the card, as in the API).  A tensor that already is one is returned as
+    it is, so ``state.A`` aliases the caller's matrix; a misaligned one is
+    cloned (the kernels read rows in aligned chunks)."""
+    if not isinstance(A, torch.Tensor):
+        A = torch.tensor(np.asarray(A), device=solve_device(None, A))
+    if A.dim() != 2 or A.shape[0] != A.shape[1]:
+        raise ValueError(f"must be a square matrix, got shape {tuple(A.shape)}")
+    A = A.contiguous()
+    return A.clone() if A.data_ptr() % 16 else A
+
+
+def init_state(A, donate: bool = False) -> SolverState:
+    """Start a solve: ev = 1, v = the row sums of A (``kernels.matvec(A,
+    ones) / ones``, the first product of ``solve_matvec_kernel``).
+
+    ``donate`` keeps the JAX signature.  It has nothing to do here:
+    ``state.A`` is the caller's tensor itself (never copied, never
+    written), so a solve holds one A whatever it says."""
+    del donate
+    A = _as_matrix(A)
+    n = A.shape[0]
+    dt = _state_dtype(A)
+    ev0 = torch.ones(n, dtype=dt, device=A.device)
+    v0 = _product(A)(A, ev0) / ev0
+    return SolverState(
+        A,
+        ev0,
+        v0,
+        torch.zeros((), dtype=dt, device=A.device),
+        torch.zeros((), dtype=torch.int32, device=A.device),
+        torch.zeros((), dtype=torch.bool, device=A.device),
+    )
+
+
+def step(
+    state: SolverState, num_rounds: int, eps: float = EPS, max_itr: int = MAX_ITR
+) -> SolverState:
+    """Advance the solve by at most ``num_rounds`` rounds; a state that is
+    ``done`` or at ``max_itr`` is returned with no launch.  Each of the
+    rounds checks the stop before advancing (the one that finds it counts
+    among the ``num_rounds``, as in JAX), so stepping in chunks of k then
+    k′ is bit-identical to one chunk of k + k′.
+
+    On the one-launch route the kernel freezes where the stop fires or the
+    budget ends; a launch that advanced fewer rounds than it had, with
+    budget left, found the stop, and the converging round's update is then
+    applied here with ``solver._finish``'s expression (same bits)."""
+    rounds = int(state.rounds)
+    if bool(state.done) or rounds >= max_itr or num_rounds < 1:
+        return state
+    A = state.A
+    dev = A.device
+    if _one_launch(A):
+        ev, v, adv, lam = kernels.multiround(
+            A, state.ev, state.v, state.lam, max_itr - rounds,
+            chunk=num_rounds, eps=eps, init=False,
+        )
+        adv = int(adv)
+        i = rounds + adv
+        done = adv < num_rounds and i < max_itr
+        if done:
+            m = torch.max(v)
+            ev, lam = ev * (v / m), v[0]
+    else:
+        product = _product(A)
+        ev, v, lam, i, done = state.ev, state.v, state.lam, rounds, False
+        for _ in range(num_rounds):
+            if i >= max_itr:
+                break
+            done = bool(stop_check(v, eps))
+            m = torch.max(v)
+            ev, lam = ev * (v / m), v[0]
+            if done:
+                break
+            v = product(A, ev) / ev
+            i += 1
+    return SolverState(
+        A, ev, v, lam,
+        torch.tensor(i, dtype=torch.int32, device=dev),
+        torch.tensor(done, device=dev),
+    )
+
+
+def to_result(state: SolverState) -> SolveResult:
+    """The state as the public result."""
+    return SolveResult(state.lam, state.ev, state.rounds, state.done)
+
+
+def solve_checkpointed(
+    A,
+    chunk_rounds: int = 8,
+    checkpoint_path: Optional[str] = None,
+    eps: float = EPS,
+    max_itr: int = MAX_ITR,
+    donate: bool = False,
+) -> SolveResult:
+    """A whole solve in ``chunk_rounds``-round steps, writing an ``.npz``
+    snapshot after every step when ``checkpoint_path`` is given (the
+    preemption-tolerant loop).  An existing snapshot at that path is
+    resumed, after checking that it was taken for this matrix (shape, dtype
+    and a full-content digest, :func:`_matrix_digest`) and under this
+    ``eps``; a stale snapshot or another tolerance raises instead of
+    returning a wrong result.  ``donate``: see :func:`init_state`."""
+    if chunk_rounds < 1:
+        # a 0-round step would be a no-op and spin this loop forever
+        raise ValueError(f"chunk_rounds must be >= 1, got {chunk_rounds}")
+    A = _as_matrix(A)
+    if checkpoint_path is not None and os.path.exists(checkpoint_path):
+        state, saved_eps = load_state(checkpoint_path, with_eps=True, device=A.device)
+        _check_same_matrix(state.A, A, checkpoint_path)
+        if saved_eps is not None and saved_eps != eps:
+            raise ValueError(
+                f"checkpoint {checkpoint_path!r} was written by a solve with "
+                f"eps={saved_eps!r} but this resume uses eps={eps!r} — "
+                "mixing stop tolerances across chunks corrupts the round "
+                "count; pass the original eps or a fresh checkpoint_path"
+            )
+        state = state._replace(A=A)  # the same bits, held once
+    else:
+        state = init_state(A, donate=donate)
+    while not bool(state.done) and int(state.rounds) < max_itr:
+        state = step(state, chunk_rounds, eps, max_itr)
+        if checkpoint_path is not None:
+            save_state(checkpoint_path, state, eps=eps)
+    return to_result(state)
+
+
+_MASK = (1 << 32) - 1
+
+
+def _mul32(a: torch.Tensor, k: int) -> torch.Tensor:
+    """``a * k mod 2³²`` for int64 ``a`` in [0, 2³²) and a constant ``k <
+    2³²``, with no product past 2⁴⁹ (int64 never overflows)."""
+    lo = (a & 0xFFFF) * k
+    hi = ((a >> 16) * k) & 0xFFFF
+    return (lo + (hi << 16)) & _MASK
+
+
+def _matrix_digest(A: torch.Tensor) -> torch.Tensor:
+    """Bit-level content digest of a matrix, the JAX package's value for
+    value (f32, f64, bf16, f16): the element bits (an f64 as two uint32
+    words, low first; a 2-byte element widened), xor the position index
+    times 2654435761, times 2246822519, summed, all mod 2³².  Computed on
+    A's device a block of rows at a time in int64 masked to 32 bits (sums
+    mod 2³² are exact in any order), never holding more than
+    ``kernels.PLAIN_BLOCK_BYTES`` of int64 a temporary.  Returns a 0-d
+    int64 tensor on A's device."""
+    if A.element_size() == 8:
+        bits = A.reshape(A.shape[0], -1).view(torch.int32)
+    elif A.element_size() == 2:
+        bits = A.view(torch.int16)
+    else:
+        bits = A.view(torch.int32)
+    rows, cols = bits.shape
+    width = 32 if bits.dtype == torch.int32 else 16
+    keep = (1 << width) - 1
+    col_key = _mul32(torch.arange(cols, device=A.device), 2654435761)
+    block = max(1, kernels.PLAIN_BLOCK_BYTES // (8 * max(cols, 1)))
+    total = torch.zeros((), dtype=torch.int64, device=A.device)
+    for r in range(0, rows, block):
+        r_idx = torch.arange(r, min(r + block, rows), device=A.device)
+        row_key = _mul32((r_idx * cols) & _MASK, 2654435761)
+        key = (row_key[:, None] + col_key[None, :]) & _MASK
+        b = bits[r:r + block].to(torch.int64) & keep
+        total = (total + _mul32(b ^ key, 2246822519).sum()) & _MASK
+    return total
+
+
+def _check_same_matrix(saved: torch.Tensor, given, path: str) -> None:
+    """Identity check between a snapshot's matrix and the caller's: shape,
+    dtype and the full-content digest (one read of each, once per
+    resume)."""
+    if not isinstance(given, torch.Tensor):
+        given = torch.as_tensor(np.asarray(given))
+    if saved.shape != given.shape or saved.dtype != given.dtype:
+        raise ValueError(
+            f"checkpoint {path!r} holds a {saved.dtype} {tuple(saved.shape)} matrix "
+            f"but the solve was called with {given.dtype} {tuple(given.shape)}"
+        )
+    if int(_matrix_digest(saved)) != int(_matrix_digest(given)):
+        raise ValueError(
+            f"checkpoint {path!r} was created for a different matrix "
+            "(content digest differs) — pass a fresh checkpoint_path"
+        )
+
+
+# ---------------------------------------------------------------- storage
+
+_FIELDS = SolverState._fields
+#: The 2-byte dtypes, written as their uint16 bits under ``_A_dtype``.
+_BITS = {torch.bfloat16: "bfloat16", torch.float16: "float16"}
+
+
+def save_state(path: str, state: SolverState, eps: Optional[float] = None) -> None:
+    """Write the state to one ``.npz`` (a temporary file, then
+    ``os.replace``: a reader never sees half a snapshot).  ``eps`` records
+    the stop tolerance, so that a resume under another one is rejected."""
+    arrs = {k: t.detach().cpu() for k, t in zip(_FIELDS, state)}
+    if state.A.dtype in _BITS:
+        arrs["_A_dtype"] = np.asarray(_BITS[state.A.dtype])
+        arrs["A"] = arrs["A"].view(torch.int16).numpy().view(np.uint16)
+    arrs = {k: np.asarray(a) for k, a in arrs.items()}
+    if eps is not None:
+        arrs["_eps"] = np.asarray(float(eps), np.float64)
+    tmp = f"{path}.tmp.{os.getpid()}.npz"  # np.savez appends .npz otherwise
+    np.savez(tmp, **arrs)
+    os.replace(tmp, path)
+
+
+def load_state(path: str, with_eps: bool = False, device=None):
+    """Load a snapshot written by :func:`save_state` (of either package) onto
+    ``device`` (default: the CUDA card; ``"cpu"`` asks for the CPU).
+    ``with_eps=True`` also returns the recorded stop tolerance (None for a
+    snapshot that has none)."""
+    dev = solve_device(device)
+    with np.load(path) as z:
+        arrs = {k: z[k] for k in _FIELDS}
+        if "_A_dtype" in z.files:
+            dt = {v: k for k, v in _BITS.items()}[str(z["_A_dtype"][()])]
+            arrs["A"] = torch.from_numpy(arrs["A"].view(np.int16)).view(dt)
+        eps = float(z["_eps"][()]) if "_eps" in z.files else None
+    state = SolverState(*(torch.as_tensor(arrs[k]).to(dev) for k in _FIELDS))
+    return (state, eps) if with_eps else state
+
+
+def save_state_orbax(path: str, state: SolverState) -> None:
+    """Orbax snapshots (sharded, multi-host state) are not ported: they come
+    with the sharded solves, on ``torch.distributed.checkpoint``."""
+    from .api import _not_ported
+
+    raise _not_ported("save_state_orbax (sharded snapshots)", "Queue 1 item 10")
+
+
+def load_state_orbax(path: str, template: SolverState) -> SolverState:
+    """See :func:`save_state_orbax`."""
+    from .api import _not_ported
+
+    raise _not_ported("load_state_orbax (sharded snapshots)", "Queue 1 item 10")

@@ -13,6 +13,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from .checkpoint import SolverState
 from .config import SolverConfig
 from .ops.solver_matvec import _Carry
 
@@ -58,6 +59,28 @@ def state_from_numpy(ev, v, lam, rounds: int, device="cpu", dtype=torch.float32)
         return torch.tensor(np.asarray(x), dtype=dt, device=device)
 
     return _Carry(vec(ev), vec(v), vec(lam).reshape(()), int(rounds))
+
+
+def solver_state_from_numpy(state, device="cpu") -> SolverState:
+    """A JAX ``checkpoint.SolverState`` given as numpy arrays (``A, ev, v,
+    lam, rounds, done``, e.g. ``[np.asarray(x) for x in state]``) as the
+    port's :class:`~.checkpoint.SolverState` on ``device``: A keeps its dtype
+    (a bfloat16 A by its bits), the O(n) state its own, ``rounds`` int32 and
+    ``done`` bool.  Stepping it further follows the port's contracts."""
+    A, ev, v, lam, rounds, done = (np.asarray(x) for x in state)
+    A = matrix_from_numpy(A, device, dtype=A.dtype.name)
+
+    def vec(x):
+        return torch.from_numpy(np.array(x)).to(device)
+
+    return SolverState(
+        A,
+        vec(ev),
+        vec(v),
+        vec(lam).reshape(()),
+        torch.tensor(int(rounds), dtype=torch.int32, device=device),
+        torch.tensor(bool(done), device=device),
+    )
 
 
 def sparse_from_coo(indices, data, shape, device="cpu") -> torch.Tensor:

@@ -42,23 +42,23 @@ class SolveResult(NamedTuple):
 
 def stop_check(v: torch.Tensor, eps, eps_mode: str = "absolute") -> torch.Tensor:
     """Wraparound stop criterion: all |v[i] - v[(i+1) % n]| < tol, a 0-d bool
-    tensor on v's device.
+    tensor on v's device (for a batch of rows v (B, n), one verdict a row).
 
     ``eps_mode="absolute"`` (reference-exact): tol = eps, rounded to v's
-    dtype.  ``"relative"``: tol = eps · max|v|.  The comparison is strict.
-    ``eps`` is a number, or a 0-d tensor of v's dtype that is used where it
-    lies (nothing is read back to the host).
+    dtype.  ``"relative"``: tol = eps · max|v| (of the row).  The comparison
+    is strict.  ``eps`` is a number, or a 0-d tensor of v's dtype that is
+    used where it lies (nothing is read back to the host).
     """
     if isinstance(eps, torch.Tensor):
         e = eps
     else:
         e = torch.tensor(eps, dtype=v.dtype)  # a 0-d CPU tensor acts as a scalar
     if eps_mode == "relative":
-        e = e * v.abs().max()
+        e = e * v.abs().amax(-1, keepdim=True)
     elif eps_mode != "absolute":
         raise ValueError(f"eps_mode must be 'absolute' or 'relative', got {eps_mode!r}")
-    adjacent_ok = torch.all((v[1:] - v[:-1]).abs() < e)
-    wrap_ok = (v[-1] - v[0]).abs() < e
+    adjacent_ok = ((v[..., 1:] - v[..., :-1]).abs() < e).all(-1)
+    wrap_ok = (v[..., -1] - v[..., 0]).abs() < e.squeeze(-1)  # a view: no launch
     return adjacent_ok & wrap_ok
 
 

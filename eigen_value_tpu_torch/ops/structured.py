@@ -52,13 +52,27 @@ def _fft_len(min_len: int) -> int:
     return 1 << (min_len - 1).bit_length()
 
 
+def _traced(*profiles) -> bool:
+    """Whether autograd records and a profile is a tensor that requires
+    grad: its spectrum must then stay in the graph (JAX's traced path)."""
+    return torch.is_grad_enabled() and any(
+        isinstance(p, torch.Tensor) and p.requires_grad for p in profiles
+    )
+
+
 def _spectrum_rfft(arr, m: int, device: torch.device) -> torch.Tensor:
     """rfft of a profile vector, computed once on the host as the JAX
     package computes it: numpy's float64 FFT of the float32 profile, cast to
     complex64, then moved to ``device``.  Both packages so hold the same
     spectrum bit for bit; only the per-round float32 FFTs differ (XLA's,
     PyTorch's on the CPU, cuFFT on the card).  A spectrum computed in
-    float32 moves the Hilbert round count at n = 2²²."""
+    float32 moves the Hilbert round count at n = 2²².
+
+    A profile that requires grad takes ``torch.fft.rfft`` in float32 on
+    ``device`` instead, as JAX takes ``jnp.fft.rfft`` for a traced profile,
+    so that the matvec is differentiable in it (``ops/autodiff.py``)."""
+    if _traced(arr):
+        return torch.fft.rfft(arr.to(device).float(), m)
     prof = np.asarray(_host(arr), np.float32).astype(np.float64)
     return torch.from_numpy(np.fft.rfft(prof, m).astype(np.complex64)).to(device)
 
@@ -117,10 +131,15 @@ def toeplitz_matvec(c, r, n: int, device=None):
     if c.shape[0] != n or r.shape[0] != n:
         raise ValueError(f"need len(c) == len(r) == n == {n}")
     dev = solve_device(device, c, r)
-    # t[k] = A[i][j] with i-j = k-(n-1), built on the host
-    t = np.concatenate(
-        [np.asarray(_host(r), np.float32)[1:][::-1], np.asarray(_host(c), np.float32)]
-    )
+    # t[k] = A[i][j] with i-j = k-(n-1): on the host, or in the autograd
+    # graph when a profile requires grad
+    if _traced(c, r):
+        c, r = _tensor(c, dev), _tensor(r, dev)
+        t = torch.cat([torch.flip(r[1:], (0,)), c])
+    else:
+        t = np.concatenate(
+            [np.asarray(_host(r), np.float32)[1:][::-1], np.asarray(_host(c), np.float32)]
+        )
     m = _fft_len(2 * n - 1)  # aliasing only corrupts the discarded prefix
     Tf = _spectrum_rfft(t, m, dev)
 

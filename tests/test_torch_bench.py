@@ -97,9 +97,12 @@ def _no_card():
                           "--reps", "2"]),
         lambda: bench.bench_operator([N]),
         lambda: cli.main(["--suite", "operator", "--dims", str(N)]),
+        lambda: bench.bench_batched(batch=2, dim=N),
+        lambda: cli.main(["--suite", "batched", "--dims", str(N), "--batch", "2"]),
     ],
     ids=["time_marginal", "bench_kernels", "cli", "cli-default-suite", "bench_vector_kernels",
-         "bench_e2e", "cli-vector", "cli-e2e", "bench_operator", "cli-operator"],
+         "bench_e2e", "cli-vector", "cli-e2e", "bench_operator", "cli-operator",
+         "bench_batched", "cli-batched"],
 )
 def test_no_cpu_time_is_reported_as_a_device_time(call):
     _no_card()
@@ -120,7 +123,7 @@ def test_cli_rejects_the_unported_suites_by_name(suite):
 
 
 def test_cli_runs_the_jax_clis_all_and_names_unknown_backends():
-    assert cli.PORTED == ("e2e", "kernels", "vector", "operator", "all")
+    assert cli.PORTED == ("e2e", "kernels", "vector", "operator", "batched", "all")
     with pytest.raises(SystemExit, match="unknown e2e backends .*'nope'"):
         cli.main(["--suite", "e2e", "--backends", "nope"])
 
@@ -433,3 +436,70 @@ def test_operator_rows_print_in_the_jax_clis_format(monkeypatch, capsys):
     assert cli.main(["--suite", "operator", "--json"]) == 0
     lines = capsys.readouterr().out.splitlines()
     assert [json.loads(line) for line in lines] == OPERATOR_ROWS
+
+
+# --- the batched suite ------------------------------------------------------------
+
+#: The JAX suite's batched row keys, in its order (eigen_value_tpu/bench/
+#: suite.py, bench_batched).
+JAX_BATCHED_KEYS = ["bench", "batch", "dim", "device_ms_per_batch", "solves_per_s",
+                    "rounds_hist", "all_converged", "max_rel_residual", "lambda_range",
+                    "rounds_ok"]
+
+
+def test_the_batched_workload_is_config_4s_and_seeded():
+    As = tsuite.batched_workload(3, 16, "cpu")
+    assert As.shape == (3, 16, 16) and As.dtype == torch.float32
+    assert float(As.min()) >= 0.05 and float(As.max()) < 1.0
+    assert torch.equal(As, tsuite.batched_workload(3, 16, "cpu"))
+    assert torch.equal(As[:2], tsuite.batched_workload(2, 16, "cpu"))  # a matrix at a time
+
+
+def test_bench_batched_rows_keep_the_jax_suites_keys(monkeypatch):
+    """The row bench_batched builds, with the card's parts stood in for:
+    the workload on the CPU and a marginal time that runs the chain's step
+    once (so the step's ev0 path is exercised)."""
+    real = tsuite.batched_workload
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tsuite, "batched_workload", lambda b, d, device: real(b, d, "cpu"))
+    steps = []
+
+    def marginal(step, init, k, reps):
+        steps.append(step(0, init))
+        return 0.5
+
+    monkeypatch.setattr(tsuite, "time_marginal", marginal)
+    (row,) = tsuite.bench_batched(batch=4, dim=48, reps=1, chain=2)
+    assert list(row) == JAX_BATCHED_KEYS
+    assert row["bench"] == "batched" and (row["batch"], row["dim"]) == (4, 48)
+    assert row["device_ms_per_batch"] == 0.5 and row["solves_per_s"] == 4 / 0.5e-3
+    assert sum(row["rounds_hist"].values()) == 4 and row["all_converged"]
+    assert row["rounds_ok"] and row["max_rel_residual"] <= 2e-3
+    assert row["lambda_range"][0] <= row["lambda_range"][1]
+    assert len(steps) == 1 and torch.isfinite(steps[0])
+    assert json.loads(json.dumps(row, allow_nan=False))["rounds_hist"]
+
+
+BATCHED_ROWS = [
+    {"bench": "batched", "batch": 256, "dim": 512, "device_ms_per_batch": 12.5,
+     "solves_per_s": 20480.0, "rounds_hist": {5: 250, 6: 6}, "all_converged": True,
+     "max_rel_residual": 4.2e-7, "lambda_range": [240.1, 246.9], "rounds_ok": True},
+    {"bench": "batched", "batch": 8, "dim": 64, "device_ms_per_batch": 1.0,
+     "solves_per_s": 8000.0, "rounds_hist": {1000: 8}, "all_converged": False,
+     "max_rel_residual": 1.0, "lambda_range": [1.0, 2.0], "rounds_ok": False},
+]
+
+
+def test_batched_rows_print_in_the_jax_clis_format(monkeypatch, capsys):
+    monkeypatch.setattr(jax_suite, "bench_batched", lambda reps, **kw: BATCHED_ROWS)
+    assert jax_cli_main(["--suite", "batched"]) in (0, None)
+    want = capsys.readouterr().out.rstrip("\n")
+    assert cli._fmt_batched(BATCHED_ROWS) == want
+    assert "[CHECK FAILED]" in want
+    got = {}
+    monkeypatch.setattr(tsuite, "bench_batched",
+                        lambda reps, **kw: got.update(kw, reps=reps) or BATCHED_ROWS)
+    assert cli.main(["--suite", "batched", "--dims", "64", "--batch", "8", "--json"]) == 0
+    assert got == {"dim": 64, "batch": 8, "reps": 5}
+    lines = capsys.readouterr().out.splitlines()
+    assert [json.loads(line) for line in lines] == json.loads(json.dumps(BATCHED_ROWS))

@@ -847,3 +847,67 @@ def test_hilbert_operator_65536_against_a_float64_loop(cuda):
     assert bool(got.converged) and abs(int(got.rounds) - 21) <= 1
     assert float(got.eigenvalue) == pytest.approx(2.70899626, rel=1e-5)
     assert float(operator_residual(mv, got)) <= 1e-3
+
+
+# --- the resumable, batched and differentiable solves ----------------------------
+
+
+@pytest.mark.parametrize("chunk", [1, 5, 15])
+def test_checkpoint_step_is_the_one_launch_solve(cuda, chunk):
+    from eigen_value_tpu_torch import checkpoint as cp
+
+    H = tfx.hilbert_matrix(2048, device=cuda)
+    want = solve_multiround(H, EPS, MAX_ITR)
+    before = tk.multiround.launches
+    got = cp.solve_checkpointed(H, chunk_rounds=chunk)
+    steps = -(-(int(want.rounds) + 1) // chunk)  # the last step finds the stop
+    assert tk.multiround.launches - before == steps
+    _same(got, want)
+    _same(got, solve_matvec_kernel(H, EPS, MAX_ITR))
+
+
+def test_checkpoint_digest_on_the_card_is_the_cpus(cuda):
+    from eigen_value_tpu_torch import checkpoint as cp
+
+    g = torch.Generator().manual_seed(8)
+    A = torch.rand(1000, 1000, generator=g)
+    for M in (A, A.to(torch.bfloat16), A.double()):
+        assert int(cp._matrix_digest(M.to(cuda))) == int(cp._matrix_digest(M))
+
+
+def test_a_bf16_batch_is_each_matrixs_kernel_solve(cuda):
+    g = torch.Generator().manual_seed(9)
+    mats = (torch.rand(4, 512, 512, generator=g) + 0.05).to(cuda, torch.bfloat16)
+    before = tk.matvec.launches
+    got = evt.max_eigenvalue_batch(mats, evt.SolverConfig(storage_dtype=torch.bfloat16))
+    assert tk.matvec.launches - before == 4 + int(got.rounds.sum())
+    for b in range(4):
+        want = solve_matvec_kernel(mats[b], EPS, MAX_ITR)
+        assert int(got.rounds[b]) == int(want.rounds)
+        assert torch.equal(got.eigenvalue[b], want.eigenvalue)
+        assert torch.equal(got.eigenvector[b], want.eigenvector)
+
+
+def test_a_gradient_on_the_card_is_the_cpus(cuda):
+    from eigen_value_tpu_torch.ops import autodiff as ad
+    from eigen_value_tpu_torch.ops.structured import hankel_matvec
+
+    g = torch.Generator().manual_seed(10)
+    A = torch.rand(256, 256, generator=g) + 0.1
+
+    def grad(M):
+        M = M.clone().requires_grad_(True)
+        (dM,) = torch.autograd.grad(ad.eigenvalue(M), M)
+        return dM
+
+    torch.testing.assert_close(grad(A.to(cuda)).cpu(), grad(A), rtol=1e-4, atol=1e-7)
+    n = 128
+    h = torch.rand(2 * n - 1, generator=g) + 0.1
+
+    def hgrad(p):
+        p = p.clone().requires_grad_(True)
+        lam = ad.eigenvalue_operator(lambda q: hankel_matvec(q, n), n)(p)
+        (dp,) = torch.autograd.grad(lam, p)
+        return dp
+
+    torch.testing.assert_close(hgrad(h.to(cuda)).cpu(), hgrad(h), rtol=1e-3, atol=1e-6)
