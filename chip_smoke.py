@@ -63,8 +63,9 @@ Reduced-precision storage (A in bf16 / f16, ev and every sum f32): the
 2-byte ``matvec``, ``multiround`` and ``multiround_sym`` kernels are held
 bit for bit against the f32 kernels on ``A_q.float()`` (matvec at 2048² …
 65536², multiround at 2048² / 4096² / 8192², multiround_sym with caches 0,
-3 and the 2-byte auto cache in both modes) and against their plain
-versions; then, with the launch counters read around exactly these calls,
+3 and the 2-byte auto cache in both modes; the two persistent kernels at
+bulk-copy ring depths 0, 1 and the planned one, against the f32 launch
+without a ring) and against their plain versions; then, with the launch counters read around exactly these calls,
 the storage solves through the API: Hilbert 8192² in both dtypes via auto,
 ``symmetric=True`` and ``validate=True`` (rounds within ±1 of the table, λ
 within 1e-3 of the f32 solve, residual against A_q), and Hilbert 65536² in
@@ -113,6 +114,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -769,6 +771,7 @@ def main() -> int:
     from eigen_value_tpu_torch.bench import bench_e2e, bench_kernels, bench_vector_kernels
     from eigen_value_tpu_torch.bench.__main__ import _fmt_e2e, _fmt_kernels
     import kernel_phases
+    from eigen_value_tpu_torch import device as tdev
     from eigen_value_tpu_torch.device import cuda_limits, sym_auto_cache_tiles
     from eigen_value_tpu_torch.ops.cuda import build, kernels
     from eigen_value_tpu_torch.ops.solver import solve_xla, stop_check
@@ -1414,25 +1417,60 @@ def main() -> int:
         v = res.eigenvector.double()
         return float((f64_matvec(A, v) - res.eigenvalue.double() * v).abs().max())
 
+    # ... at bulk-copy ring depths 0, 1 and the planned one (device.STRIPES_RING
+    # / SYM_RING: the streamed part of A by cp.async.bulk into shared memory),
+    # each 2-byte launch against the f32 launch without a ring
+    @contextlib.contextmanager
+    def ring_depth(depth):
+        saved = dict(tdev.STRIPES_RING), dict(tdev.SYM_RING)
+        try:
+            if depth != "planned":
+                for table in (tdev.STRIPES_RING, tdev.SYM_RING):
+                    table.update({size: depth for size in table})
+            kernels.multiround_launch_plan.cache_clear()
+            kernels.multiround_sym_plan.cache_clear()
+            yield
+        finally:
+            tdev.STRIPES_RING.update(saved[0])
+            tdev.SYM_RING.update(saved[1])
+            kernels.multiround_launch_plan.cache_clear()
+            kernels.multiround_sym_plan.cache_clear()
+
+    rings_used = set()
     for dt, tag in store.items():
         for n_ in (2048, 4096, 8192):
             Hq, x_ = mats[n_].to(dt), torch.ones(n_, device=dev)
             Hf = Hq.float()
             ok_mv = torch.equal(kernels.matvec(Hq, x_), kernels.matvec(Hf, x_))
-            ok_mr = equal(kernels.multiround(Hq, x_, x_, z, evt.MAX_ITR, **whole),
-                          kernels.multiround(Hf, x_, x_, z, evt.MAX_ITR, **whole))
-            ok_sym, tried = True, []
-            for sym_ in (True, False):
-                ref = kernels.multiround_sym(Hf, x_, x_, z, evt.MAX_ITR, cache_tiles=0, tile=bt,
-                                             sym=sym_, **whole)
-                for c in sorted({0, 3, sym_auto_cache_tiles(n_, bt, dev, sym_, itemsize=2)}):
-                    tried.append(f"{'sym' if sym_ else 'dense'} {c}")
-                    ok_sym &= equal(kernels.multiround_sym(Hq, x_, x_, z, evt.MAX_ITR, cache_tiles=c,
-                                                           tile=bt, sym=sym_, **whole), ref)
-            say(f"{tag} {n_}²: against the f32 kernels on A_q.float(): matvec bit-identical "
-                f"{ok_mv}, multiround {ok_mr}, multiround_sym caches {', '.join(tried)} {ok_sym}")
-            check(ok_mv and ok_mr and ok_sym, f"{tag} {n_}²: a 2-byte kernel is not its f32 kernel")
+            with ring_depth(0):
+                ref_mr = kernels.multiround(Hf, x_, x_, z, evt.MAX_ITR, **whole)
+                ref_sym = {sym_: kernels.multiround_sym(Hf, x_, x_, z, evt.MAX_ITR, cache_tiles=0,
+                                                        tile=bt, sym=sym_, **whole)
+                           for sym_ in (True, False)}
+            ok_mr, ok_sym, tried_mr, tried = True, True, [], []
+            for depth in (0, 1, "planned"):
+                with ring_depth(depth):
+                    ring = kernels.multiround_launch_plan(dev, n_, dtype=dt).ring
+                    tried_mr.append(ring)
+                    rings_used.add(("multiround", ring))
+                    ok_mr &= equal(kernels.multiround(Hq, x_, x_, z, evt.MAX_ITR, **whole), ref_mr)
+                    for sym_ in (True, False):
+                        auto_ = sym_auto_cache_tiles(n_, bt, dev, sym_, itemsize=2)
+                        for c in sorted({0, 3, auto_}):
+                            ring = kernels.multiround_sym_plan(dev, n_, bt, c, sym_, dtype=dt).ring
+                            rings_used.add(("multiround_sym", ring))
+                            tried.append(f"{'sym' if sym_ else 'dense'} {c}/ring {ring}")
+                            ok_sym &= equal(kernels.multiround_sym(
+                                Hq, x_, x_, z, evt.MAX_ITR, cache_tiles=c, tile=bt, sym=sym_,
+                                **whole), ref_sym[sym_])
+            say(f"{tag} {n_}²: against the f32 kernels on A_q.float() without a ring: matvec "
+                f"bit-identical {ok_mv}, multiround at ring depths {tried_mr} {ok_mr}, "
+                f"multiround_sym cache/ring {', '.join(tried)} {ok_sym}")
+            check(ok_mv and ok_mr and ok_sym,
+                  f"{tag} {n_}²: a 2-byte kernel is not its f32 kernel")
     del Hq, Hf
+    check({("multiround", 0), ("multiround", 1), ("multiround_sym", 0),
+           ("multiround_sym", 1)} <= rings_used, f"the ring depths tried: {sorted(rings_used)}")
 
     # each 2-byte kernel against its plain version at 8192²; matvec also
     # against a float64 product of the stored values
@@ -1598,7 +1636,7 @@ def main() -> int:
     }
     say(f"2-byte plain versions (ms): {st_plain}; bf16 plans at {n}²: stripes {tuple(mr2_plan)}, "
         f"triangle grid {sym2_plan.grid} slots {sym2_plan.slots} resident {sym2_plan.C} "
-        f"L2 {sym2_plan.l2_tiles}; phases (µs) {json.dumps(st_phases)}")
+        f"L2 {sym2_plan.l2_tiles} ring {sym2_plan.ring}; phases (µs) {json.dumps(st_phases)}")
     del Hbig, xq_big
     torch.cuda.empty_cache()
 
@@ -1724,7 +1762,8 @@ def main() -> int:
         in_l2 = min(n_ - kept, plan.grid * plan.l2_rows)
         row = {
             "kernel": "multiround", "n": n_, "card": card, "grid": plan.grid,
-            "resident_rows": kept, "l2_rows": in_l2, "resident_mb": kept * 4 * n_ / 1e6,
+            "ring": plan.ring, "resident_rows": kept, "l2_rows": in_l2,
+            "resident_mb": kept * 4 * n_ / 1e6,
             "streamed_mb_per_round": (n_ - kept - in_l2) * 4 * n_ / 1e6,
         }
         fn = lambda: kernels.multiround(H_, x_, x_, z, evt.MAX_ITR, **whole)  # noqa: E731
@@ -1737,7 +1776,7 @@ def main() -> int:
             sp = kernels.multiround_sym_plan(dev, n_, bt, c, sym_)
             row = {
                 "kernel": "multiround_sym", "arm": label, "n": n_, "card": card, "grid": sp.grid,
-                "slots": sp.slots, "resident_tiles": sp.C, "l2_tiles": sp.l2_tiles,
+                "ring": sp.ring, "slots": sp.slots, "resident_tiles": sp.C, "l2_tiles": sp.l2_tiles,
                 "split": sp.split, "resident_mb": sp.C * tile_mb / 1e6,
                 "streamed_mb_per_round": (sp.T - sp.l2_tiles) * tile_mb / 1e6,
             }
@@ -1849,6 +1888,7 @@ def main() -> int:
                bound(4 * nn + 4 * vec, passes * 2 * nn),
                passes_bound_ms=bound(passes * 4 * nn, 0)["bound_ms"],
                resident_bound_ms=resident_bound(4 * nn, mr_row["resident_rows"] * 4 * n),
+               ring_stages=mr_row["ring"],
                resident_rows=mr_row["resident_rows"], l2_rows=mr_row["l2_rows"],
                streamed_mb_per_round=mr_row["streamed_mb_per_round"],
                phases_us=mr_row["phases_us"], ms_at=at_sizes("multiround")),
@@ -1857,6 +1897,7 @@ def main() -> int:
                t_sym_p.median_ms, None, bound(tri_bytes + 4 * vec, passes * 2 * nn),
                passes_bound_ms=bound(passes * tri_streamed + cache * tile_mb, 0)["bound_ms"],
                resident_bound_ms=resident_bound(tri_bytes, cache * tile_mb),
+               ring_stages=sym_row["ring"],
                slots=sym_row["slots"], resident_tiles=sym_row["resident_tiles"],
                l2_tiles=sym_row["l2_tiles"],
                streamed_mb_per_round=sym_row["streamed_mb_per_round"],
@@ -1899,9 +1940,13 @@ def main() -> int:
                passes_bound_ms=bound((mr2_adv + 1) * 2 * nn, 0)["bound_ms"],
                resident_bound_ms=resident_bound(2 * nn, min(n, mr2_plan.grid * mr2_plan.resident)
                                                 * 2 * n, mr2_adv + 1),
+               ring_stages=mr2_plan.ring,
                resident_rows=min(n, mr2_plan.grid * mr2_plan.resident),
                l2_rows=min(n - min(n, mr2_plan.grid * mr2_plan.resident),
                            mr2_plan.grid * mr2_plan.l2_rows),
+               streamed_mb_per_round=(n - min(n, mr2_plan.grid * mr2_plan.resident)
+                                      - min(n - min(n, mr2_plan.grid * mr2_plan.resident),
+                                            mr2_plan.grid * mr2_plan.l2_rows)) * 2 * n / 1e6,
                f32_ms=st_ms["multiround f32"], f16_ms=st_ms["multiround f16"],
                phases_us=st_phases["multiround"]),
         record("multiround_sym[bf16]", "multiround_sym.cu", f"{jk}:889",
@@ -1910,7 +1955,9 @@ def main() -> int:
                bound(tri_bytes // 2 + 4 * vec, passes * 2 * nn),
                passes_bound_ms=bound(passes * tri2_streamed + auto2 * tile2, 0)["bound_ms"],
                resident_bound_ms=resident_bound(tri_bytes // 2, auto2 * tile2),
-               slots=sym2_plan.slots, resident_tiles=sym2_plan.C, l2_tiles=sym2_plan.l2_tiles,
+               ring_stages=sym2_plan.ring, slots=sym2_plan.slots, resident_tiles=sym2_plan.C,
+               l2_tiles=sym2_plan.l2_tiles,
+               streamed_mb_per_round=(sym2_plan.T - sym2_plan.l2_tiles) * tile2 / 1e6,
                f32_ms=st_ms[f"multiround_sym f32 cache {cache}"],
                f16_ms=st_ms[f"multiround_sym f16 cache {auto2}"],
                phases_us=st_phases["multiround_sym"]),

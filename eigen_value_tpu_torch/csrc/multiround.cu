@@ -46,10 +46,43 @@
 // Asking the L2 for the next round's first rows before the barrier
 // (cp.async.bulk.prefetch.L2) was measured and is not here: it cost 3% at
 // 8192^2, where it pushes kept rows out of L2.
+//
+// The bulk-copy ring (`ring` > 0 stages a warp; the plan's choice,
+// device.multiround_plan, from n, A's element size and the card): the
+// streamed rows do not pass through registers.  Each warp owns `ring`
+// stages of kSegChunks chunks (1 KB of a bf16 row, 2 KB of an f32 one) and
+// one mbarrier per stage in shared memory, after the resident rows.  Lane 0
+// issues 1-D cp.async.bulk copies of its warp's streamed rows, a segment a
+// copy, with the L2 policy of the load it replaces (evict_last for the
+// first l2_rows streamed rows, evict_first for the rest), `ring` copies
+// ahead of the warp's reads; the warp reads a stage from shared memory in
+// row_dot's lane order (evt::seg_dot: the same chunks, accumulators and
+// fmaf chains, so the same bits), and only then issues the copy that reuses
+// the stage.  A is the same in every round, so the copy sequence is cyclic:
+// the copies ahead of the warp's last segment of round r are the first
+// segments of round r + 1, in flight across the grid barrier and the
+// prologue with no register holding them.  Measured at 8192^2 (PERF.md):
+// one stage a warp takes 1% off the bf16 launch (the barrier, not the
+// stream: a ring byte costs a resident byte) and cost 15% at 4096^2, where
+// every row stays on the chip; any depth cost the f32 launch 12%.  So the
+// plan gives one stage to a 2-byte A whose rows stream from device memory,
+// and none otherwise.  Constraints:
+//   * shared memory: the stages take resident rows (32 warps x 1 KB a stage
+//     is two 16 KB bf16 rows at n = 8192); the plan counts both;
+//   * threads and registers: 1024 threads of 64 registers leave no room for
+//     a producer warp, so an elected lane of each consumer warp issues;
+//   * no empty barriers, no wait across warps: a warp's stages are its own,
+//     and copy t waits on stage t % ring with parity (t / ring) & 1 only
+//     after copy t - ring was read, so no wait can be a phase ahead;
+//   * no copy in flight at exit: a block that leaves the round loop (the
+//     solve froze, or the chunk ended) waits for every copy it issued;
+//   * A must be 16-byte aligned and n * sizeof(T) a multiple of 16 (the
+//     plan gives no ring otherwise; the wrapper checks A's address).
 // No atomics anywhere: the results are bitwise reproducible.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "bulk.cuh"
 #include "prologue.cuh"
 #include "rowdot.cuh"
 
@@ -62,21 +95,82 @@ using evt::kWarps;
 
 constexpr int kBatch = 2;  // float4 chunks of v a thread holds in the prologue
 
+using evt::kSegChunks;
+
 // Dynamic shared memory: ev (n floats) | resident rows (resident * n
-// elements of T).  device.multiround_smem_bytes mirrors this.
+// elements of T) | ring stages (kWarps * ring, kSegChunks chunks each) |
+// their mbarriers (kWarps * ring).  device.multiround_smem_bytes mirrors this.
 template <class T>
-size_t smem_bytes(int n, int resident) {
-  return static_cast<size_t>(n) * (sizeof(float) + static_cast<size_t>(resident) * sizeof(T));
+size_t stage_bytes() {
+  return kSegChunks * sizeof(typename evt::Elem<T>::Chunk);
 }
 
 template <class T>
+size_t smem_bytes(int n, int resident, int ring) {
+  return static_cast<size_t>(n) * (sizeof(float) + static_cast<size_t>(resident) * sizeof(T)) +
+         static_cast<size_t>(ring) * kWarps * (stage_bytes<T>() + 8);
+}
+
+// A warp's ring over its streamed rows q = 0 .. nq - 1 (work item warp +
+// q * kWarps, segments j = 0 .. nseg - 1 each), cyclic over the rounds.
+template <class T>
+struct StripeRing {
+  using Chunk = typename evt::Elem<T>::Chunk;
+  Chunk* stages;  // ring stages of kSegChunks chunks
+  unsigned long long* bars;
+  int ring, nq, nseg;
+  const T* A;
+  int n, b, G, nres, warp, l2_rows;  // streamed row q is b + (nres + warp + q * kWarps) * G
+  unsigned long long keep, pass;     // the L2 policies
+  unsigned used, issued;  // copies read, copies issued
+  int q, j;               // the next copy: segment j of streamed row q
+
+  // Lane 0 issues the next copy of the sequence into stage issued % ring.
+  __device__ __forceinline__ void issue(int lane) {
+    if (lane == 0) {
+      const int m = warp + q * kWarps;
+      const int base = j * kSegChunks;
+      const int n4 = n >> 2;
+      const unsigned bytes =
+          static_cast<unsigned>(min(kSegChunks, n4 - base) * sizeof(Chunk));
+      const int s = static_cast<int>(issued % ring);
+      const Chunk* src =
+          reinterpret_cast<const Chunk*>(A + static_cast<size_t>(b + (nres + m) * G) * n) + base;
+      evt::fence_proxy_async();
+      evt::mbar_expect(bars + s, bytes);
+      evt::bulk_copy(stages + s * kSegChunks, src, bytes, bars + s, m < l2_rows ? keep : pass);
+    }
+    ++issued;
+    if (++j == nseg) {
+      j = 0;
+      if (++q == nq) q = 0;
+    }
+  }
+
+  // Waits for the next copy and returns its stage.
+  __device__ __forceinline__ const Chunk* take() {
+    const unsigned s = used % ring;
+    evt::mbar_wait(bars + s, (used / ring) & 1u);
+    return stages + s * kSegChunks;
+  }
+
+  // Waits for every copy still in flight.
+  __device__ __forceinline__ void drain() {
+    for (; used < issued; ++used) evt::mbar_wait(bars + used % ring, (used / ring) & 1u);
+  }
+};
+
+// kRing: the instance with the ring (a launch whose plan has `ring` > 0);
+// the other is the register path alone, so the ring's code costs it no
+// register.
+template <class T, bool kRing>
 __global__ void __launch_bounds__(kThreads) multiround_kernel(
     const T* __restrict__ A, const float* __restrict__ ev_in,
     const float* __restrict__ v_in, const float* __restrict__ lam_in,
     int budget, float* __restrict__ ev_out, float* __restrict__ v_out,
     int* __restrict__ adv_out, float* __restrict__ lam_out,
     float* __restrict__ raw, int n, int chunk, float eps, int init, int rel,
-    int resident, int l2_rows, unsigned long long* stamps) {
+    int resident, int l2_rows, int ring, unsigned long long* stamps) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float4 smem4[];
   using Chunk = typename evt::Elem<T>::Chunk;
@@ -95,6 +189,34 @@ __global__ void __launch_bounds__(kThreads) multiround_kernel(
   const int nstream = nrows - nres;
   const evt::FromGlobalHinted keep{evt::l2_evict_last()};
   const evt::FromGlobalHinted pass{evt::l2_evict_first()};
+
+  // this warp's ring, after the resident rows (16-byte aligned: the plan
+  // gives a ring only where n * sizeof(T) is a multiple of 16)
+  T* ring_s = rows_s + static_cast<size_t>(resident) * n;
+  StripeRing<T> rg;
+  Chunk* ring_c = reinterpret_cast<Chunk*>(ring_s);
+  rg.stages = ring_c + static_cast<size_t>(warp) * ring * kSegChunks;
+  rg.bars = reinterpret_cast<unsigned long long*>(ring_c + static_cast<size_t>(kWarps) * ring *
+                                                               kSegChunks) +
+            warp * ring;
+  rg.ring = ring;
+  rg.nq = kRing && ring && warp < nstream ? (nstream - 1 - warp) / kWarps + 1 : 0;
+  rg.nseg = (n / 4 + kSegChunks - 1) / kSegChunks;
+  rg.A = A;
+  rg.n = n;
+  rg.b = b;
+  rg.G = G;
+  rg.nres = nres;
+  rg.warp = warp;
+  rg.l2_rows = l2_rows;
+  rg.keep = keep.policy;
+  rg.pass = pass.policy;
+  rg.used = rg.issued = 0;
+  rg.q = rg.j = 0;
+  if (rg.nq && lane == 0) {
+    for (int s = 0; s < ring; ++s) evt::mbar_init(rg.bars + s);
+    evt::mbar_init_fence();
+  }
 
   for (int j = tid; j < n; j += kThreads) ev_s[j] = ev_in[j];
   // fill the resident rows, once per launch
@@ -116,6 +238,7 @@ __global__ void __launch_bounds__(kThreads) multiround_kernel(
     }
   }
   __syncthreads();
+  for (int s = 0; s < (rg.nq ? ring : 0); ++s) rg.issue(lane);
 
   int adv = 0;
   float lam = *lam_in;
@@ -134,7 +257,20 @@ __global__ void __launch_bounds__(kThreads) multiround_kernel(
     for (int m = warp; m < nrows; m += kWarps) {
       float s;
       int row;
-      if (m < nstream) {
+      if (m < nstream && rg.nq) {
+        row = b + (nres + m) * G;
+        const float4* x4 = reinterpret_cast<const float4*>(ev_s);
+        float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+        for (int j = 0; j < rg.nseg; ++j) {
+          const int base = j * kSegChunks;
+          evt::seg_dot<T>(rg.take(), x4 + base, min(kSegChunks, n / 4 - base), lane, s0, s1,
+                          s2, s3);
+          ++rg.used;
+          __syncwarp();  // every lane has read the stage before it is refilled
+          rg.issue(lane);
+        }
+        s = evt::row_finish(s0, s1, s2, s3);
+      } else if (m < nstream) {
         row = b + (nres + m) * G;
         s = evt::row_dot(A + static_cast<size_t>(row) * n, ev_s, n, lane,
                          m < l2_rows ? keep : pass);
@@ -151,6 +287,7 @@ __global__ void __launch_bounds__(kThreads) multiround_kernel(
     grid.sync();
     evt::stamp(stamps, r, 3, false);
   }
+  rg.drain();  // the copies issued ahead for a round that did not run
 
   // A frozen solve keeps the v it stopped on (the previous matvec / ev, or
   // the input if it stopped at r == 0); a running one leaves the division
@@ -167,26 +304,25 @@ __global__ void __launch_bounds__(kThreads) multiround_kernel(
 }
 
 template <class T>
-int blocks(int n, int resident) {
+int blocks(int n, int resident, int ring) {
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
   cudaFuncAttributes attr;
-  const size_t smem = smem_bytes<T>(n, resident);
+  const size_t smem = smem_bytes<T>(n, resident, ring);
+  const auto kernel = ring ? multiround_kernel<T, true> : multiround_kernel<T, false>;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, multiround_kernel<T>);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
   if (e != cudaSuccess) return -static_cast<int>(e);
   const size_t limit = static_cast<size_t>(optin) - attr.sharedSizeBytes;
   if (smem > limit) return 0;
-  e = cudaFuncSetAttribute(multiround_kernel<T>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(limit));
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, multiround_kernel<T>,
-                                                      kThreads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
   return per_sm * sms;
 }
@@ -194,14 +330,14 @@ int blocks(int n, int resident) {
 }  // namespace
 
 // Co-resident blocks of the kernel at dimension n with `resident` rows of
-// element type `elem` (0 float32, 1 bfloat16, 2 float16) a block on the
-// current device, 0 if one block does not fit, or a negated cudaError_t.
-// Also raises the kernel's dynamic shared-memory limit to the most the card
-// allows.
-extern "C" int evt_multiround_blocks(int n, int resident, int elem) {
+// element type `elem` (0 float32, 1 bfloat16, 2 float16) and `ring` ring
+// stages a warp per block on the current device, 0 if one block does not
+// fit, or a negated cudaError_t.  Also raises the kernel's dynamic
+// shared-memory limit to the most the card allows.
+extern "C" int evt_multiround_blocks(int n, int resident, int ring, int elem) {
   if (elem < 0 || elem > 2) return -static_cast<int>(cudaErrorInvalidValue);
   return evt::with_elem(elem, [&](auto tag) {
-    return blocks<typename decltype(tag)::type>(n, resident);
+    return blocks<typename decltype(tag)::type>(n, resident, ring);
   });
 }
 
@@ -210,8 +346,10 @@ extern "C" int evt_multiround_blocks(int n, int resident, int elem) {
 // adv_out (1,) int32; raw (2n,) scratch; all on the current device.  `grid`
 // blocks with `resident` rows each must be co-resident
 // (evt_multiround_blocks); the first `l2_rows` streamed rows of a block are
-// kept in L2.  `stamps` is null, or kStampRounds * kStampPhases * grid
-// words for the phase stamps.  Launches on `stream` and does not
+// kept in L2.  `ring` > 0 streams the other rows through that many
+// bulk-copy stages a warp (A 16-byte aligned, n * sizeof(T) % 16 == 0);
+// 0 reads them into registers.  `stamps` is null, or kStampRounds *
+// kStampPhases * grid words for the phase stamps.  Launches on `stream` and does not
 // synchronise.  Returns the launch's cudaError_t (0 on success; a card
 // without cooperative launch fails here).
 extern "C" int evt_multiround(const void* A, const float* ev_in,
@@ -219,16 +357,18 @@ extern "C" int evt_multiround(const void* A, const float* ev_in,
                               int budget, float* ev_out, float* v_out,
                               int* adv_out, float* lam_out, float* raw, int n,
                               int chunk, float eps, int init, int rel,
-                              int resident, int l2_rows, void* stamps,
+                              int resident, int l2_rows, int ring, void* stamps,
                               int elem, int grid, void* stream) {
   return evt::with_elem(elem, [&](auto tag) {
     using T = typename decltype(tag)::type;
-    const size_t smem = smem_bytes<T>(n, resident);
+    const size_t smem = smem_bytes<T>(n, resident, ring);
     void* args[] = {&A,      &ev_in,   &v_in,    &lam_in,   &budget,  &ev_out,
                     &v_out,  &adv_out, &lam_out, &raw,      &n,       &chunk,
-                    &eps,    &init,    &rel,     &resident, &l2_rows, &stamps};
+                    &eps,    &init,    &rel,     &resident, &l2_rows, &ring,
+                    &stamps};
     const cudaError_t e = cudaLaunchCooperativeKernel(
-        (const void*)multiround_kernel<T>, dim3(grid),
+        ring ? (const void*)multiround_kernel<T, true> : (const void*)multiround_kernel<T, false>,
+        dim3(grid),
         dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());

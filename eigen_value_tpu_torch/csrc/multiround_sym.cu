@@ -27,10 +27,10 @@
 //   * a resident tile s lives in shared memory of block s % grid, loaded
 //     once at the start of the launch and read from there in every round
 //     of that launch, so it crosses device memory once per launch instead
-//     of once per round.  A block's shared memory holds ev and tiles and
-//     nothing else (the column sums of a tile stay in registers), so three
-//     64 KiB tiles fit a block at n = 8192: 396 tiles, 26 MB.  The budget
-//     comes from the card (device.sym_auto_cache_tiles);
+//     of once per round.  A block's shared memory holds ev, tiles and the
+//     ring below, if any (the column sums of a tile stay in registers), so
+//     three 64 KiB f32 tiles fit a block at n = 8192: 396 tiles, 26 MB.  The
+//     budget comes from the card (device.sym_auto_cache_tiles);
 //   * a second resident level in L2: the first `l2_tiles` streamed tiles
 //     are read with an evict_last policy, every other byte of A with
 //     evict_first, so the stream passes by them (3/8 of the L2, or 5/8
@@ -65,10 +65,11 @@
 // every chunking and whatever the lower block triangle holds.
 // A may be stored in bf16 or f16 (reduced-precision storage, as the TPU
 // kernel's tiles cast up to f32 at kernels.py:889, :947, :999): tiles stream
-// and stay resident in 2 bytes, so a block holds twice the tiles beside ev
-// (six 32 KiB tiles at n = 8192: 792), a lane reads its four columns of a
-// row as one 8-byte load, and each chunk is converted to f32 exactly before
-// the f32 row and transpose terms.  The work items, slots and sums are
+// and stay resident in 2 bytes, so a block holds more of them beside ev
+// (four 32 KiB tiles beside a 64 KiB ring at n = 8192: 528), a lane reads
+// its four columns of a row as one 8-byte load, and each chunk is
+// converted to f32 exactly before the f32 row and transpose terms.  The
+// work items, slots and sums are
 // those of the f32 kernel (the split depends on n, bt and the card only),
 // so a launch on A_q gives the bits of a launch on A_q.float(), for every
 // cache size.  All O(n) state stays f32.
@@ -77,9 +78,64 @@
 // of the next round into registers before the barriers (32 more live
 // registers spill: +9% at 8192^2); cutting tiles into groups at 8192^2
 // (more slots to sum than warps gained: +15%).
+//
+// The row terms of a trip's eight rows, for a 2-byte A: a reduce-scatter
+// over the rows (rows8_sum) instead of eight butterflies.  At lane offsets
+// 16, 8 and 4 a lane sends the half of its row partials that its partner
+// keeps and adds the half it keeps (4 + 2 + 1 shuffles), then one row is
+// left on every lane and two xor stages (offsets 2, 1) finish it; one more
+// shuffle brings row u's sum to lane r8 + u.  10 shuffles where eight
+// butterflies took 40.
+// At every stage a lane adds its partner's value to its own, as the
+// butterfly of each row did: the 32 lane partials of a row are added in the
+// same tree (lane bit 4 first, then bits 3, 2, 1, 0) and the bits do not
+// change.  The f32 instance keeps the eight butterflies: there the
+// reduce-scatter, which waits for all eight rows before its first shuffle,
+// was measured 24% slower at 8192^2 with the auto cache (it took 5% off the
+// bf16 launch); both give the same bits, so a 2-byte launch still equals
+// the f32 launch on A_q.float().
+//
+// The bulk-copy ring (`ring` > 0 stages a warp; the plan's choice,
+// device.sym_ring, from A's element size and the card): the streamed tiles
+// do not pass through registers.  A stage is one trip, the kAhead rows of a
+// 128-column chunk of a tile (2 KB of bf16, 4 KB of f32), brought by one
+// 2-D tensor copy of the Tensor Memory Accelerator (a box of A's tensor
+// map, built on the host for each launch) that completes on the stage's
+// mbarrier, with the L2 policy of the load it replaces.  (Eight 1-D
+// cp.async.bulk copies a trip, one a row, were measured first: the ring
+// lost 11% at 8192^2 in bf16.)  Each warp owns its `ring` stages (after the
+// resident tiles, 128-byte aligned) and its lane 0 copies the warp's
+// streamed work items' trips in the order the warp reads them, `ring`
+// trips ahead; the trip is read from shared memory in the lane order of
+// the load it replaces (lane l the chunk of columns 4l..4l+3 of each row),
+// so the row and transpose terms keep their bits.  The copy sequence is
+// cyclic over the rounds (A does not change), so the trips ahead of a
+// warp's last trip of round r are its first of round r + 1: they land
+// during the barriers, the sum and the prologue, held by no register.
+// Measured at 8192^2 (PERF.md): two stages a warp take the bf16
+// triangle from 16.2 to 12.2 us of tile phase a round though 264 fewer
+// tiles stay resident (its trips were latency-bound); every depth cost the
+// f32 launch (6% at one stage), so the plan gives an f32 A none.
+// Constraints:
+//   * shared memory: a warp's stage costs resident tiles (16 warps x 2 KB
+//     is one 32 KiB bf16 slot, 132 tiles at n = 8192); the plan counts it;
+//   * threads and registers: sixteen warps of 128 registers fill the
+//     register file, so lane 0 of each consumer warp issues its copies; no
+//     producer warp, no setmaxnreg;
+//   * no empty barriers, no wait across warps: a warp's stages are its
+//     own, and trip t waits on stage t % ring with parity (t / ring) & 1 only
+//     after trip t - ring was read, so no wait can be a phase ahead;
+//   * no copy in flight at exit: a block that leaves the round loop waits
+//     for every copy it issued;
+//   * A must be 16-byte aligned (the wrapper checks; n % 128 == 0 makes
+//     its row pitch a multiple of 16 bytes, as a tensor map needs).
 #include <cooperative_groups.h>
+#include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "bulk.cuh"
 #include "prologue.cuh"
 #include "rowdot.cuh"
 
@@ -103,12 +159,21 @@ constexpr int kAhead = 8;
 constexpr int kClasses = 8;  // lanes that share a row's sum over the column blocks
 constexpr int kRowsPerWarp = 32 / kClasses;
 
-// Dynamic shared memory: ev (n floats) | resident tiles (slots * bt^2
-// elements of S, A's storage type).  device.sym_smem_bytes mirrors this.
+// A ring stage: kAhead rows of kChunk columns.
 template <class S>
-size_t smem_bytes(int n, int bt, int slots) {
+constexpr size_t stage_bytes() {
+  return static_cast<size_t>(kAhead) * kChunk * sizeof(S);
+}
+
+// Dynamic shared memory: ev (n floats) | resident tiles (slots * bt^2
+// elements of S, A's storage type) | up to 128 bytes to align the ring (a
+// tensor copy's destination) | ring stages (kWarps * ring) | their
+// mbarriers (kWarps * ring).  device.sym_smem_bytes mirrors this.
+template <class S>
+size_t smem_bytes(int n, int bt, int slots, int ring) {
   return static_cast<size_t>(n) * sizeof(float) +
-         static_cast<size_t>(slots) * bt * bt * sizeof(S);
+         static_cast<size_t>(slots) * bt * bt * sizeof(S) +
+         (ring ? 128 + static_cast<size_t>(ring) * kWarps * (stage_bytes<S>() + 8) : 0);
 }
 
 __device__ __forceinline__ float warp_sum(float a) {
@@ -118,20 +183,111 @@ __device__ __forceinline__ float warp_sum(float a) {
   return a;
 }
 
+// The sums of kAhead = 8 rows whose partials on this lane are d[0..7]: lane
+// l gets the sum of row l >> 2 over the 32 lanes, each pair of lanes added
+// in the order of a per-row xor butterfly at offsets 16, 8, 4, 2, 1 (own
+// value + partner's), so the sum has that butterfly's bits.
+__device__ __forceinline__ float rows8_sum(const float (&d)[kAhead], int lane) {
+  const bool h4 = lane & 16, h3 = lane & 8, h2 = lane & 4;
+  float e[4], f[2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)  // rows 0-3 stay on lanes 0-15, rows 4-7 on 16-31
+    e[i] = (h4 ? d[i + 4] : d[i]) + __shfl_xor_sync(0xffffffffu, h4 ? d[i] : d[i + 4], 16);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    f[i] = (h3 ? e[i + 2] : e[i]) + __shfl_xor_sync(0xffffffffu, h3 ? e[i] : e[i + 2], 8);
+  float g = (h2 ? f[1] : f[0]) + __shfl_xor_sync(0xffffffffu, h2 ? f[0] : f[1], 4);
+  g += __shfl_xor_sync(0xffffffffu, g, 2);
+  g += __shfl_xor_sync(0xffffffffu, g, 1);
+  return g;
+}
+
+// No ring: tile_terms reads its rows through a load policy.
+struct NoRing {};
+
+// A warp's ring over the trips of its streamed work items k = 0 .. nk - 1
+// (item warp + k * kWarps; for each 128-column chunk q, the rows lo, lo +
+// 8, ... of its span), cyclic over the rounds.
+template <class S>
+struct SymRing {
+  using Chunk = typename evt::Elem<S>::Chunk;
+  Chunk* stages;  // kAhead * 32 chunks each
+  unsigned long long* bars;
+  int ring, nk;
+  const void* tmap;  // A's tensor map
+  const int2* tiles;
+  int bt, warp, split, l2_tiles;
+  unsigned long long keep, pass;  // the L2 policies
+  unsigned used, issued;  // trips read, trips issued
+  int k, q, r;            // the next trip: rows r.. of column chunk q of item k
+  int row0, col0;         // item k's first row and column in A
+  unsigned long long policy;
+
+  // Points row0 / col0 / policy at item k.
+  __device__ __forceinline__ void locate() {
+    const int e = warp + k * kWarps;
+    const int m = e / split, span = bt / split;
+    const int t = blockIdx.x + m * gridDim.x;
+    const int2 ij = tiles[t];
+    row0 = ij.x * bt + (e - m * split) * span;
+    col0 = ij.y * bt;
+    policy = t < l2_tiles ? keep : pass;
+  }
+
+  // Lane 0 issues the next trip into stage issued % ring: the box of kAhead
+  // rows x kChunk columns at (row0 + r, col0 + q), one tensor copy.
+  __device__ __forceinline__ void issue(int lane) {
+    if (lane == 0) {
+      const int s = static_cast<int>(issued % ring);
+      evt::fence_proxy_async();
+      evt::mbar_expect(bars + s, static_cast<unsigned>(kAhead * kChunk * sizeof(S)));
+      evt::tensor_copy_2d(stages + s * kAhead * 32, tmap, col0 + q, row0 + r, bars + s, policy);
+    }
+    ++issued;
+    r += kAhead;
+    if (r == bt / split) {
+      r = 0;
+      q += kChunk;
+      if (q == bt) {
+        q = 0;
+        if (++k == nk) k = 0;
+        locate();
+      }
+    }
+  }
+
+  // Waits for the next trip and returns its stage (row u at u * 32 chunks).
+  __device__ __forceinline__ const Chunk* take() {
+    const unsigned s = used % ring;
+    evt::mbar_wait(bars + s, (used / ring) & 1u);
+    return stages + s * kAhead * 32;
+  }
+
+  __device__ __forceinline__ void drain() {
+    for (; used < issued; ++used) evt::mbar_wait(bars + used % ring, (used / ring) & 1u);
+  }
+};
+
 // One warp's pass over rows [r_lo, r_hi) (whole groups) of tile (i, j), row
 // r at src + r * stride (A in device memory, or a resident copy in shared
 // memory; element type S), read through `load`.  Writes the row term
 // T . ev[j_blk] of these rows to `row_out` (the tile's slot) and, when
 // `trans`, the transpose term T^T . ev[i_blk] of these rows to `col_out`
 // (bt floats).
-template <class S, class Load>
+// With a SymRing `ring` (streamed tiles of a launch with ring stages) the
+// rows come from its stages, trip by trip, and src / stride / load are not
+// read.
+template <class S, class Load, class Ring = NoRing>
 __device__ __forceinline__ void tile_terms(const S* src, size_t stride, int bt,
                                            int r_lo, int r_hi, bool trans,
                                            const float* evi, const float* evj,
                                            float* row_out, float* col_out, int lane,
-                                           Load load) {
+                                           Load load, Ring* ring = nullptr) {
   using E = evt::Elem<S>;
   using Chunk = typename E::Chunk;
+  constexpr bool kRing = !std::is_same<Ring, NoRing>::value;
+  // a 2-byte A: the rows' reduce-scatter; f32: a butterfly per row
+  constexpr bool kScatter = sizeof(Chunk) < sizeof(float4);
   const size_t stride4 = stride >> 2;  // chunks of four elements a row
   for (int q = 0; q < bt; q += kChunk) {
     const float4 x = reinterpret_cast<const float4*>(evj + q)[lane];
@@ -143,14 +299,28 @@ __device__ __forceinline__ void tile_terms(const S* src, size_t stride, int bt,
 #pragma unroll 1
       for (int r8 = 0; r8 < kGroup; r8 += kAhead) {
         Chunk c[kAhead];  // kAhead row segments in flight per lane
+        if constexpr (kRing) {
+          const Chunk* st = ring->take();
 #pragma unroll
-        for (int u = 0; u < kAhead; ++u) c[u] = load(p + u * stride4);
-        p += kAhead * stride4;
+          for (int u = 0; u < kAhead; ++u) c[u] = st[u * 32 + lane];
+          ++ring->used;
+          __syncwarp();  // every lane has read the stage before it is refilled
+          ring->issue(lane);
+        } else {
+#pragma unroll
+          for (int u = 0; u < kAhead; ++u) c[u] = load(p + u * stride4);
+          p += kAhead * stride4;
+        }
+        [[maybe_unused]] float d[kAhead];  // this lane's partial of each row's term (2-byte A)
 #pragma unroll
         for (int u = 0; u < kAhead; ++u) {
           const float4 a = E::up(c[u]);
-          const float d = warp_sum(evt::dot4(a, x));
-          if (lane == r8 + u) mine = d;
+          if constexpr (kScatter) {
+            d[u] = evt::dot4(a, x);
+          } else {
+            const float t = warp_sum(evt::dot4(a, x));
+            if (lane == r8 + u) mine = t;
+          }
           if (trans) {
             const float e = evi[g0 + r8 + u];
             col.x = fmaf(a.x, e, col.x);
@@ -158,6 +328,12 @@ __device__ __forceinline__ void tile_terms(const S* src, size_t stride, int bt,
             col.z = fmaf(a.z, e, col.z);
             col.w = fmaf(a.w, e, col.w);
           }
+        }
+        if constexpr (kScatter) {
+          // row r8 + u's sum lies on lanes 4u..4u+3; lane r8 + u keeps it
+          const float got =
+              __shfl_sync(0xffffffffu, rows8_sum(d, lane), ((lane - r8) & 7) << 2);
+          if (static_cast<unsigned>(lane - r8) < kAhead) mine = got;
         }
       }
       // chunks in order; the same lane wrote the earlier ones
@@ -203,7 +379,9 @@ __device__ __forceinline__ float slot_sum(const float* p, const float* pt, int k
 // tiles: T streamed (i, j) pairs, then C resident ones.  part: g * n floats;
 // part_t: g * n * split floats (sym only).  split: 1 (an item is a tile) or
 // bt / 32 (an item is a 32-row group).
-template <class S>
+// kRing: the instance with the ring (a launch whose plan has `ring` > 0);
+// the other is the register path alone.
+template <class S, bool kRing>
 __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
     const S* __restrict__ A, const int2* __restrict__ tiles, int T, int C,
     int slots, const float* __restrict__ ev_in, const float* __restrict__ v_in,
@@ -211,7 +389,8 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
     float* __restrict__ v_out, int* __restrict__ adv_out,
     float* __restrict__ lam_out, float* raw, float* part, float* part_t, int n,
     int bt, int chunk, float eps, int init, int rel, int sym, int split,
-    int l2_tiles, unsigned long long* stamps) {
+    int l2_tiles, int ring, const __grid_constant__ CUtensorMap tmap,
+    unsigned long long* stamps) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float4 smem4[];
   float* ev_s = reinterpret_cast<float*>(smem4);
@@ -233,6 +412,37 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
   const evt::FromGlobalHinted keep{evt::l2_evict_last()};
   const evt::FromGlobalHinted pass{evt::l2_evict_first()};
 
+  // this warp's ring, after the resident tiles
+  using Ring = SymRing<S>;
+  char* after = reinterpret_cast<char*>(cache + static_cast<size_t>(slots) * tile_elems);
+  Chunk* ring_s =
+      reinterpret_cast<Chunk*>(after + ((128u - (evt::smem_addr(after) & 127u)) & 127u));
+  Ring rg;
+  rg.stages = ring_s + static_cast<size_t>(warp) * ring * kAhead * 32;
+  rg.bars = reinterpret_cast<unsigned long long*>(
+                ring_s + static_cast<size_t>(kWarps) * ring * kAhead * 32) +
+            warp * ring;
+  rg.ring = ring;
+  rg.nk = kRing && ring && warp < nstream * split ? (nstream * split - 1 - warp) / kWarps + 1
+                                                   : 0;
+  rg.tmap = &tmap;
+  rg.tiles = tiles;
+  rg.bt = bt;
+  rg.warp = warp;
+  rg.split = split;
+  rg.l2_tiles = l2_tiles;
+  rg.keep = keep.policy;
+  rg.pass = pass.policy;
+  rg.used = rg.issued = 0;
+  rg.k = rg.q = rg.r = 0;
+  if (rg.nk) {
+    rg.locate();
+    if (lane == 0) {
+      for (int s = 0; s < ring; ++s) evt::mbar_init(rg.bars + s);
+      evt::mbar_init_fence();
+    }
+  }
+
   for (int j = tid; j < n; j += kThreads) ev_s[j] = ev_in[j];
   // fill this block's resident tiles, once per launch
   for (int k = 0; k < ncached; ++k) {
@@ -249,6 +459,7 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
     }
   }
   __syncthreads();
+  for (int s = 0; s < (rg.nk ? ring : 0); ++s) rg.issue(lane);
 
   int adv = 0;
   float lam = *lam_in;
@@ -272,7 +483,10 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
       float* row_out = part + (static_cast<size_t>(ij.x) * g + ij.y) * bt;
       float* col_out =
           part_t + ((static_cast<size_t>(ij.y) * g + ij.x) * split + lo / span) * bt;
-      if (streamed) {
+      if (streamed && rg.nk) {
+        tile_terms(A, n, bt, lo, lo + span, trans, evi, evj, row_out, col_out, lane,
+                   evt::FromShared(), &rg);
+      } else if (streamed) {
         const S* src = A + static_cast<size_t>(ij.x) * bt * n +
                        static_cast<size_t>(ij.y) * bt;
         tile_terms(src, n, bt, lo, lo + span, trans, evi, evj, row_out, col_out,
@@ -314,6 +528,7 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
     grid.sync();
     evt::stamp(stamps, r, 5, false);
   }
+  rg.drain();  // the trips issued ahead for a round that did not run
 
   // A frozen solve keeps the v it stopped on (the previous matvec / ev, or
   // the input if it stopped at r == 0); a running one leaves the division
@@ -329,41 +544,85 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
 }
 
 template <class S>
-int grid_of(int n, int bt, int slots) {
+int grid_of(int n, int bt, int slots, int ring) {
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
   cudaFuncAttributes attr;
-  const size_t smem = smem_bytes<S>(n, bt, slots);
+  const size_t smem = smem_bytes<S>(n, bt, slots, ring);
+  const auto kernel = ring ? multiround_sym_kernel<S, true> : multiround_sym_kernel<S, false>;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                                dev);
-  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, multiround_sym_kernel<S>);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
   if (e != cudaSuccess) return -static_cast<int>(e);
   const size_t limit = static_cast<size_t>(optin) - attr.sharedSizeBytes;
   if (smem > limit) return 0;
-  e = cudaFuncSetAttribute(multiround_sym_kernel<S>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(limit));
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, multiround_sym_kernel<S>, kThreads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
   return per_sm * sms;
+}
+
+// cuTensorMapEncodeTiled, looked up at run time by its entry point (no link
+// against libcuda).
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+template <class S>
+constexpr CUtensorMapDataType map_type() {
+  return std::is_same<S, float>::value           ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+         : std::is_same<S, __nv_bfloat16>::value ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                                 : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+}
+
+// The tensor map of A (n x n, row-major) whose box is one ring stage:
+// kAhead rows of kChunk elements.  0 or a cudaError_t.
+template <class S>
+int tile_map(CUtensorMap* map, const void* A, int n) {
+  static EncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return static_cast<int>(cudaErrorNotSupported);
+    encode = reinterpret_cast<EncodeTiled>(fn);
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(n) * sizeof(S)};
+  const cuuint32_t box[2] = {kChunk, kAhead};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(map, map_type<S>(), 2, const_cast<void*>(A), dims, strides, box, step,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // Co-resident blocks of the kernel at (n, bt, slots resident tiles per
-// block, element type `elem`: 0 float32, 1 bfloat16, 2 float16) on the
-// current device, 0 if one block does not fit, or a negated cudaError_t.
-// Also raises the kernel's dynamic shared-memory limit to the most the card
-// allows.
-extern "C" int evt_multiround_sym_grid(int n, int bt, int slots, int elem) {
+// block, ring stages a warp, element type `elem`: 0 float32, 1 bfloat16, 2
+// float16) on the current device, 0 if one block does not fit, or a negated
+// cudaError_t.  Also raises the kernel's dynamic shared-memory limit to the
+// most the card allows.
+extern "C" int evt_multiround_sym_grid(int n, int bt, int slots, int ring, int elem) {
   if (elem < 0 || elem > 2) return -static_cast<int>(cudaErrorInvalidValue);
   return evt::with_elem(elem, [&](auto tag) {
-    return grid_of<typename decltype(tag)::type>(n, bt, slots);
+    return grid_of<typename decltype(tag)::type>(n, bt, slots, ring);
   });
 }
 
@@ -373,7 +632,9 @@ extern "C" int evt_multiround_sym_grid(int n, int bt, int slots, int elem) {
 // and part_t (g * n * split,; one float when not sym) scratch; all on the
 // current device.  `grid` blocks must be co-resident with `slots` resident
 // tiles each (evt_multiround_sym_grid) and grid * slots >= C.  `split` is 1
-// or bt / 32; the first `l2_tiles` streamed tiles are kept in L2.  `stamps`
+// or bt / 32; the first `l2_tiles` streamed tiles are kept in L2.  `ring`
+// > 0 streams tiles through that many bulk-copy stages a warp (A 16-byte
+// aligned), 0 through registers.  `stamps`
 // is null, or kStampRounds * kStampPhases * grid words for the phase
 // stamps.  Launches on `stream` and does not synchronise.  Returns the
 // launch's cudaError_t (0 on success).
@@ -384,19 +645,26 @@ extern "C" int evt_multiround_sym(const void* A, const int* tiles, int T,
                                   int* adv_out, float* lam_out, float* raw,
                                   float* part, float* part_t, int n, int bt,
                                   int chunk, float eps, int init, int rel,
-                                  int sym, int split, int l2_tiles,
+                                  int sym, int split, int l2_tiles, int ring,
                                   void* stamps, int elem, int grid, void* stream) {
   const int2* tiles2 = reinterpret_cast<const int2*>(tiles);
+  CUtensorMap tmap = {};  // read only by a launch with a ring
   void* args[] = {&A,       &tiles2,   &T,        &C,      &slots,  &ev_in,
                   &v_in,    &lam_in,   &budget,   &ev_out, &v_out,  &adv_out,
                   &lam_out, &raw,      &part,     &part_t, &n,      &bt,
                   &chunk,   &eps,      &init,     &rel,    &sym,    &split,
-                  &l2_tiles, &stamps};
+                  &l2_tiles, &ring,    &tmap,     &stamps};
   return evt::with_elem(elem, [&](auto tag) {
     using E = typename decltype(tag)::type;
+    if (ring) {
+      const int rc = tile_map<E>(&tmap, A, n);
+      if (rc != 0) return rc;
+    }
     const cudaError_t e = cudaLaunchCooperativeKernel(
-        (const void*)multiround_sym_kernel<E>, dim3(grid), dim3(kThreads), args,
-        smem_bytes<E>(n, bt, slots), static_cast<cudaStream_t>(stream));
+        ring ? (const void*)multiround_sym_kernel<E, true>
+             : (const void*)multiround_sym_kernel<E, false>,
+        dim3(grid), dim3(kThreads), args,
+        smem_bytes<E>(n, bt, slots, ring), static_cast<cudaStream_t>(stream));
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
   });

@@ -160,6 +160,16 @@ __device__ __forceinline__ unsigned long long l2_evict_first() {
   return p;
 }
 
+// The end of a row: the four accumulators of a lane, then the 32 lane
+// partials by the butterfly; every lane gets the row's sum.
+__device__ __forceinline__ float row_finish(float s0, float s1, float s2, float s3) {
+  float acc = (s0 + s1) + (s2 + s3);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  return acc;
+}
+
 // `a` (element type T) is read through `load`; `x` may live in global or
 // shared memory.  With n % 4 == 0 `x` must be 16-byte aligned and `a` must
 // be aligned to its chunk (16 bytes for f32, 8 for bf16 / f16): the host
@@ -221,11 +231,35 @@ __device__ __forceinline__ float row_dot(const T* __restrict__ a,
     if (k + 32 < n) s1 = fmaf(E::up(load(ab + k + 32)), x[k + 32], s1);
     if (k + 64 < n) s2 = fmaf(E::up(load(ab + k + 64)), x[k + 64], s2);
   }
-  float acc = (s0 + s1) + (s2 + s3);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_xor_sync(0xffffffffu, acc, off);
-  return acc;
+  return row_finish(s0, s1, s2, s3);
+}
+
+// One segment of a row whose chunks base .. base + cnt - 1 (base a multiple
+// of kSegChunks, cnt <= kSegChunks) lie in shared memory from `seg` on: a
+// stage of the persistent kernels' bulk-copy rings.  Lane l adds chunk
+// base + l + 32u to accumulator u, which is where row_dot puts it (chunk
+// l + 32i goes to accumulator i % 4, base / 32 being a multiple of 4), and
+// a row's segments come in increasing order: the accumulators of a row
+// read segment by segment hold the bits of row_dot's.
+constexpr int kSegChunks = 128;
+
+template <class T>
+__device__ __forceinline__ void seg_dot(const typename Elem<T>::Chunk* seg,
+                                        const float4* __restrict__ x4, int cnt, int lane,
+                                        float& s0, float& s1, float& s2, float& s3) {
+  using E = Elem<T>;
+  if (cnt == kSegChunks) {
+    const auto c0 = seg[lane], c1 = seg[lane + 32], c2 = seg[lane + 64], c3 = seg[lane + 96];
+    s0 += dot4(E::up(c0), x4[lane]);
+    s1 += dot4(E::up(c1), x4[lane + 32]);
+    s2 += dot4(E::up(c2), x4[lane + 64]);
+    s3 += dot4(E::up(c3), x4[lane + 96]);
+  } else {
+    if (lane < cnt) s0 += dot4(E::up(seg[lane]), x4[lane]);
+    if (lane + 32 < cnt) s1 += dot4(E::up(seg[lane + 32]), x4[lane + 32]);
+    if (lane + 64 < cnt) s2 += dot4(E::up(seg[lane + 64]), x4[lane + 64]);
+    if (lane + 96 < cnt) s3 += dot4(E::up(seg[lane + 96]), x4[lane + 96]);
+  }
 }
 
 }  // namespace evt

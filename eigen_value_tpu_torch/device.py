@@ -17,10 +17,26 @@ import torch
 _MULTIROUND_STATIC_SMEM = 1024
 #: Warps of one block of the stripes kernel (csrc/prologue.cuh, kWarps).
 _WARPS = 32
+#: Warps of one block of the triangle kernel (csrc/multiround_sym.cu, kWarps).
+_SYM_WARPS = 16
 #: The triangle kernel cuts its tiles into 32-row work items when the card
 #: has fewer than this many tiles a block: a block has sixteen warps, and
 #: with fewer tiles a warp per tile leaves warps without work.
 _SYM_SPLIT_BELOW = 12
+#: Bulk-copy ring stages a warp of each persistent kernel keeps, by A's
+#: element size (csrc/multiround.cu, csrc/multiround_sym.cu): the streamed
+#: part of A lands in shared memory by bulk copies, the next round's first
+#: stages across the grid barrier; 0 reads it into registers.  Measured at
+#: 8192² on an H100 (kernel_phases.py --rings; PERF.md): in bf16 the
+#: stripes kernel gains 1% from one stage and the triangle 10% from two; in
+#: f32 any ring loses (the stripes kernel 12%, the triangle 6%), so f32
+#: keeps the register path.
+STRIPES_RING = {2: 1, 4: 0}
+SYM_RING = {2: 2, 4: 0}
+#: Elements of A in one stage of the stripes kernel's ring (128 chunks of
+#: four), and rows x columns of one stage of the triangle kernel's.
+_STRIPES_STAGE = 512
+_SYM_STAGE = 8 * 128
 
 
 class CudaLimits(NamedTuple):
@@ -78,12 +94,19 @@ def l2_resident_bytes(device: torch.device, rest_bytes: int) -> int:
     return l2 * 5 // 8 if rest_bytes <= l2 * 3 // 4 else l2 * 3 // 8
 
 
-def multiround_smem_bytes(n: int, resident: int = 0, itemsize: int = 4) -> int:
+def stripes_ring_bytes(ring: int, itemsize: int) -> int:
+    """Shared memory of the stripes kernel's ring: ``ring`` stages a warp
+    of 512 elements (1 KB of bf16, 2 KB of f32) and an 8-byte mbarrier
+    each, for its 32 warps."""
+    return ring * _WARPS * (_STRIPES_STAGE * itemsize + 8)
+
+
+def multiround_smem_bytes(n: int, resident: int = 0, itemsize: int = 4, ring: int = 0) -> int:
     """Dynamic shared memory of one block of the stripes kernel
-    (csrc/multiround.cu ``smem_bytes``): ev (n floats) and ``resident`` rows
+    (csrc/multiround.cu ``smem_bytes``): ev (n floats), ``resident`` rows
     of A, n elements of ``itemsize`` bytes each (4, or 2 for bf16 / f16
-    storage)."""
-    return n * (4 + resident * itemsize)
+    storage), and the ring's ``ring`` stages a warp."""
+    return n * (4 + resident * itemsize) + stripes_ring_bytes(ring, itemsize)
 
 
 def multiround_fits(n: int, device: torch.device) -> bool:
@@ -98,20 +121,26 @@ class StripesPlan(NamedTuple):
     grid: int  # blocks, at most one per SM
     resident: int  # rows of A a block keeps in shared memory for the launch
     l2_rows: int  # streamed rows a block reads with the L2 evict_last policy
+    ring: int = 0  # bulk-copy stages a warp for the streamed rows (0: registers)
 
 
-def multiround_plan(n: int, device: torch.device, itemsize: int = 4) -> StripesPlan:
-    """How the stripes kernel spends the card at dimension n, for A stored
-    in ``itemsize`` bytes an element.  Block b owns rows b, b + grid, ...;
-    it keeps in shared memory as many of them as fit beside ev (6 f32 or 12
-    bf16 rows at n = 8192 on an H100, every f32 row at n <= 2048, none past
-    n = 28928 in f32), and asks the L2 to keep the next ``l2_rows``
-    (:func:`l2_resident_bytes` over the grid).  The grid gives every warp a
-    row and, where rows fit, is large enough that every row is resident, up
-    to one block per SM."""
+def stripes_ring(n: int, device: torch.device, itemsize: int = 4) -> int:
+    """Ring stages a warp of the stripes kernel at dimension n for A stored
+    in ``itemsize`` bytes (``STRIPES_RING``): 0 where a row is not a whole
+    number of 16-byte units (a bulk copy's), or where the ring does not fit
+    beside ev."""
+    depth = STRIPES_RING.get(itemsize, 0)
+    if not depth or n % 4 or (n * itemsize) % 16:
+        return 0
+    need = multiround_smem_bytes(n, 0, itemsize, depth) + _MULTIROUND_STATIC_SMEM
+    return depth if need <= cuda_limits(device).smem_per_block_optin else 0
+
+
+def _stripes(n: int, device: torch.device, itemsize: int, ring: int) -> StripesPlan:
     lim = cuda_limits(device)
     row = itemsize * n
-    free = lim.smem_per_block_optin - _MULTIROUND_STATIC_SMEM - multiround_smem_bytes(n)
+    free = (lim.smem_per_block_optin - _MULTIROUND_STATIC_SMEM
+            - multiround_smem_bytes(n, 0, itemsize, ring))
     fit = max(0, free // row)
     want = -(-n // _WARPS)
     if fit:
@@ -121,24 +150,61 @@ def multiround_plan(n: int, device: torch.device, itemsize: int = 4) -> StripesP
     resident = min(fit, per_block)
     keep = l2_resident_bytes(device, (n - min(n, grid * resident)) * row)
     l2_rows = min(per_block - resident, keep // (grid * row))
-    return StripesPlan(grid, resident, l2_rows)
+    return StripesPlan(grid, resident, l2_rows, ring)
 
 
-def sym_smem_bytes(n: int, bt: int, slots: int = 0, itemsize: int = 4) -> int:
+def multiround_plan(n: int, device: torch.device, itemsize: int = 4) -> StripesPlan:
+    """How the stripes kernel spends the card at dimension n, for A stored
+    in ``itemsize`` bytes an element.  Block b owns rows b, b + grid, ...;
+    it keeps in shared memory as many of them as fit beside ev and the ring
+    (6 f32 or 10 bf16 rows at n = 8192 on an H100, every f32 row at n <=
+    2048, none past n = 28928 in f32), and asks the L2 to keep the next
+    ``l2_rows`` (:func:`l2_resident_bytes` over the grid).  The grid gives
+    every warp a row and, where rows fit, is large enough that every row is
+    resident, up to one block per SM.  Where rows stream from device memory
+    (past the resident rows and the L2 band), they go through
+    :func:`stripes_ring` stages a warp, whose bytes are taken from the
+    resident rows; where every row stays on the chip there is no ring (one
+    stage a warp cost 15% at 4096² in bf16, where the ring only re-reads
+    the L2)."""
+    plan = _stripes(n, device, itemsize, 0)
+    ring = stripes_ring(n, device, itemsize)
+    if ring and plan.grid * (plan.resident + plan.l2_rows) < n:
+        plan = _stripes(n, device, itemsize, ring)
+    return plan
+
+
+def sym_ring_bytes(ring: int, itemsize: int) -> int:
+    """Shared memory of the triangle kernel's ring: ``ring`` stages a warp
+    of 8 rows x 128 columns (2 KB of bf16, 4 KB of f32) and an 8-byte
+    mbarrier each, for its 16 warps, and 128 bytes to align the stages (a
+    tensor copy's destination)."""
+    return ring and 128 + ring * _SYM_WARPS * (_SYM_STAGE * itemsize + 8)
+
+
+def sym_smem_bytes(n: int, bt: int, slots: int = 0, itemsize: int = 4, ring: int = 0) -> int:
     """Dynamic shared memory of one block of the triangle kernel
-    (csrc/multiround_sym.cu ``smem_bytes``): ev (n floats) and ``slots``
-    resident bt x bt tiles of ``itemsize``-byte elements.  A tile's column
-    sums stay in registers."""
-    return 4 * n + slots * bt * bt * itemsize
+    (csrc/multiround_sym.cu ``smem_bytes``): ev (n floats), ``slots``
+    resident bt x bt tiles of ``itemsize``-byte elements and the ring's
+    ``ring`` stages a warp.  A tile's column sums stay in registers."""
+    return 4 * n + slots * bt * bt * itemsize + sym_ring_bytes(ring, itemsize)
 
 
 def multiround_sym_fits(
-    n: int, bt: int, device: torch.device, slots: int = 0, itemsize: int = 4
+    n: int, bt: int, device: torch.device, slots: int = 0, itemsize: int = 4, ring: int = 0
 ) -> bool:
     """Whether one block of the triangle kernel, with ``slots`` resident
-    tiles, fits the card's shared memory."""
-    need = sym_smem_bytes(n, bt, slots, itemsize) + _MULTIROUND_STATIC_SMEM
+    tiles and ``ring`` ring stages a warp, fits the card's shared memory."""
+    need = sym_smem_bytes(n, bt, slots, itemsize, ring) + _MULTIROUND_STATIC_SMEM
     return need <= cuda_limits(device).smem_per_block_optin
+
+
+def sym_ring(n: int, bt: int, device: torch.device, itemsize: int = 4) -> int:
+    """Ring stages a warp of the triangle kernel at (n, bt) for A stored in
+    ``itemsize`` bytes (``SYM_RING``): every such launch streams tiles (the
+    diagonal ones at least); 0 where the ring does not fit beside ev."""
+    depth = SYM_RING.get(itemsize, 0)
+    return depth if depth and multiround_sym_fits(n, bt, device, 0, itemsize, depth) else 0
 
 
 def sym_auto_cache_tiles(
@@ -146,8 +212,9 @@ def sym_auto_cache_tiles(
 ) -> int:
     """The largest resident tile cache the triangle kernel can hold at
     (n, bt) on ``device`` for A stored in ``itemsize`` bytes an element: as
-    many bt x bt tiles as fit one block's shared memory beside ev (three
-    64 KiB f32 tiles, or six 32 KiB bf16 ones, at n = 8192 on an H100),
+    many bt x bt tiles as fit one block's shared memory beside ev and the
+    ring (:func:`sym_ring`; three 64 KiB f32 tiles with no ring, or four
+    32 KiB bf16 ones beside a 64 KiB ring, at n = 8192 on an H100),
     times the kernel's co-resident grid (one block per SM once the cache
     fills the block), capped at the cacheable count — g(g-1)/2 off-diagonal
     tiles for the symmetric kernel, g^2 - 1 for the dense tiled one (one
@@ -158,7 +225,9 @@ def sym_auto_cache_tiles(
     if device.type != "cuda":
         return 0
     lim = cuda_limits(device)
-    free = lim.smem_per_block_optin - _MULTIROUND_STATIC_SMEM - sym_smem_bytes(n, bt)
+    ring = sym_ring(n, bt, device, itemsize)
+    free = (lim.smem_per_block_optin - _MULTIROUND_STATIC_SMEM
+            - sym_smem_bytes(n, bt, 0, itemsize, ring))
     slots = max(0, free // (itemsize * bt * bt))
     g = n // bt
     cap = g * (g - 1) // 2 if sym else g * g - 1

@@ -48,6 +48,7 @@ from ...device import (
     multiround_plan,
     multiround_sym_fits,
     sym_auto_cache_tiles,
+    sym_ring,
     sym_l2_tiles,
     sym_smem_bytes,
     sym_split,
@@ -83,6 +84,15 @@ def _check_aligned(cols: int, *tensors: torch.Tensor) -> None:
     # of f32, 8 of bf16 / f16, each aligned to its size
     if cols % 4 == 0 and any(t.data_ptr() % (4 * t.element_size()) for t in tensors):
         raise ValueError("the chunked kernels need tensors aligned to 4 elements")
+
+
+def _check_ring_aligned(ring: int, A: torch.Tensor) -> None:
+    # a bulk copy moves 16-byte units between 16-byte aligned addresses
+    if ring and A.data_ptr() % 16:
+        raise ValueError(
+            "A must be 16-byte aligned: the plan streams it through bulk copies "
+            "(api.max_eigenvalue clones a misaligned matrix)"
+        )
 
 
 def _sized(dtype: torch.dtype, name: str = "dtype") -> dict:
@@ -220,13 +230,14 @@ def multiround_launch_plan(device: torch.device, n: int, dtype: torch.dtype = to
 
     plan = multiround_plan(n, device, dtype.itemsize)
     with torch.cuda.device(device):
-        cap = build.load().evt_multiround_blocks(n, plan.resident, _ELEM[dtype])
+        cap = build.load().evt_multiround_blocks(n, plan.resident, plan.ring, _ELEM[dtype])
     if cap < 0:
         raise RuntimeError(f"multiround occupancy query failed with cudaError {-cap}")
     if cap < plan.grid:
         raise RuntimeError(
             f"n={n}: the card runs {cap} blocks of the multiround kernel side by side "
-            f"with {plan.resident} resident rows each, the plan needs {plan.grid}"
+            f"with {plan.resident} resident rows and {plan.ring} ring stages a warp each, "
+            f"the plan needs {plan.grid}"
         )
     return plan
 
@@ -288,6 +299,7 @@ def multiround(
     lam_out = torch.empty((), dtype=torch.float32, device=dev)
     raw = torch.empty(2 * n, dtype=torch.float32, device=dev)
     plan = multiround_launch_plan(dev, n, **_sized(A.dtype))
+    _check_ring_aligned(plan.ring, A)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = build.load().evt_multiround(
@@ -295,7 +307,7 @@ def multiround(
             min(budget, 2**31 - 1),
             ev_out.data_ptr(), v_out.data_ptr(), adv.data_ptr(), lam_out.data_ptr(),
             raw.data_ptr(), n, min(chunk, 2**31 - 1), eps, int(init),
-            int(eps_mode == "relative"), plan.resident, plan.l2_rows, _stamps_ptr(),
+            int(eps_mode == "relative"), plan.resident, plan.l2_rows, plan.ring, _stamps_ptr(),
             _ELEM[A.dtype], plan.grid, stream,
         )
         _launch(rc, "multiround")
@@ -463,6 +475,7 @@ class SymPlan(NamedTuple):
     slots: int  # resident tiles per block
     split: int  # work items per tile (device.sym_split)
     l2_tiles: int  # streamed tiles read with the L2 evict_last policy
+    ring: int = 0  # bulk-copy stages a warp for the streamed tiles (device.sym_ring)
 
 
 @functools.lru_cache(maxsize=None)
@@ -482,15 +495,17 @@ def multiround_sym_plan(
     T, C = len(streamed), len(cached)
     sms = cuda_limits(device).sms
     slots0 = -(-C // sms)  # the grid holds at least one block per SM
-    if not multiround_sym_fits(n, bt, device, slots0, size):
+    ring = sym_ring(n, bt, device, size)
+    if not multiround_sym_fits(n, bt, device, slots0, size, ring):
         most = sym_auto_cache_tiles(n, bt, device, sym, size)
         raise ValueError(
             f"cache_tiles={cache_tiles} does not fit the card: {slots0} resident "
-            f"{bt}x{bt} {dtype} tiles per block need {sym_smem_bytes(n, bt, slots0, size)} "
-            f"bytes of shared memory; at most {most} tiles fit at n={n}"
+            f"{bt}x{bt} {dtype} tiles per block and {ring} ring stages a warp need "
+            f"{sym_smem_bytes(n, bt, slots0, size, ring)} bytes of shared memory; at most "
+            f"{most} tiles fit at n={n}"
         )
     with torch.cuda.device(device):
-        cap = build.load().evt_multiround_sym_grid(n, bt, slots0, _ELEM[dtype])
+        cap = build.load().evt_multiround_sym_grid(n, bt, slots0, ring, _ELEM[dtype])
     if cap < 0:
         raise RuntimeError(f"multiround_sym occupancy query failed with cudaError {-cap}")
     if cap == 0:
@@ -499,7 +514,7 @@ def multiround_sym_plan(
     slots = -(-C // grid) if C else 0
     tab = torch.tensor(streamed + cached, dtype=torch.int32, device=device).reshape(-1, 2)
     return SymPlan(tab.contiguous(), T, C, grid, slots, sym_split(n, bt, device, sym),
-                   sym_l2_tiles(bt, device, T, **_sized(dtype, "itemsize")))
+                   sym_l2_tiles(bt, device, T, **_sized(dtype, "itemsize")), ring)
 
 
 def multiround_sym(
@@ -552,6 +567,7 @@ def multiround_sym(
     from . import build
 
     plan = multiround_sym_plan(dev, n, bt, int(cache_tiles), bool(sym), **_sized(A.dtype))
+    _check_ring_aligned(plan.ring, A)
     ev_out = torch.empty(n, dtype=torch.float32, device=dev)
     v_out = torch.empty(n, dtype=torch.float32, device=dev)
     adv = torch.empty((), dtype=torch.int32, device=dev)
@@ -570,7 +586,7 @@ def multiround_sym(
             ev_out.data_ptr(), v_out.data_ptr(), adv.data_ptr(), lam_out.data_ptr(),
             raw.data_ptr(), part.data_ptr(), part_t.data_ptr(), n, bt,
             min(chunk, 2**31 - 1), eps, int(init), int(eps_mode == "relative"), int(sym),
-            plan.split, plan.l2_tiles, _stamps_ptr(), _ELEM[A.dtype], plan.grid,
+            plan.split, plan.l2_tiles, plan.ring, _stamps_ptr(), _ELEM[A.dtype], plan.grid,
             stream,
         )
         _launch(rc, "multiround_sym")

@@ -1,16 +1,27 @@
 #!/usr/bin/env python3
 """Time the two persistent kernels and split one launch into its phases.
 
-    python3 kernel_phases.py [--root DIR] [--sizes 2048 4096 8192] [--reps 20] [--sweep]
+    python3 kernel_phases.py [--root DIR [DIR ...]] [--dtype f32|bf16|f16]
+                             [--sizes 2048 4096 8192] [--reps 20] [--sweep] [--rings]
 
-For every size it solves the Hilbert matrix in one whole-budget launch
-(``init=True``, ``chunk = MAX_ITR + 1``: the main path's launch) of the
-stripes kernel (``kernels.multiround``) and of the tiled kernel
-(``kernels.multiround_sym``: the triangle streaming, the triangle with the
-card's auto tile cache, the dense tiled mode with its auto cache), and
-prints one JSON line per arm: median and min ms over ``--reps`` launches by
-CUDA events, the card's name and power limit, and, where the kernels write
-stamps, the phase split of one more launch.
+For every size it solves the Hilbert matrix, stored in ``--dtype`` (the
+storage path's launches for bf16 / f16; ev and every sum stay f32), in one
+whole-budget launch (``init=True``, ``chunk = MAX_ITR + 1``: the main path's
+launch) of the stripes kernel (``kernels.multiround``) and of the tiled
+kernel (``kernels.multiround_sym``: the triangle streaming, the triangle
+with the card's auto tile cache, the dense tiled mode with its auto cache),
+and prints one JSON line per arm and checkout: median and min ms over
+``--reps`` launches by CUDA events, the launch plan, the card's name and
+power limit, and, where the kernels write stamps, the phase split of one
+more launch.
+
+``--root`` names one or more checkouts that hold ``eigen_value_tpu_torch/``
+(an earlier commit unpacked with ``git archive``; the default is this one).
+Each is loaded as a package of its own in this one process, with its own
+kernel library, and every arm is timed in turns across them (A B, B A,
+A B, ...; a sample is the median of five launches back to back), so that
+two versions are compared on one card at one time.  Each row also says whether
+the launch gave the bits of the first checkout's.
 
 The phase split: with ``kernels.STAMPS`` set to an int64 tensor on the
 card, thread 0 of every block writes the card's nanosecond timer at each
@@ -21,25 +32,29 @@ difference of two stamps; ``stream_slowest`` is, per round, the last
 block's end of stream minus the first block's start: what the barrier
 waits for.
 
-``--sweep`` times the same launches under other plans than the card's own
-(``eigen_value_tpu_torch.device``): the stripes kernel with and without its
-resident rows and with 0, the planned and more L2-kept rows a block; the
-tiled kernel with 0 to 600 L2-kept tiles and with whole tiles or 32-row
-groups as work items.  The plans are replaced from outside, for the length
-of this process; the package has no such switch.
-
-``--root`` names another checkout that holds ``eigen_value_tpu_torch/``
-(an earlier commit unpacked with ``git archive``), so that two versions
-can be timed in turns inside one call on one card.  Needs a CUDA device.
+``--sweep`` times the first checkout's launches under other plans than the
+card's own (``eigen_value_tpu_torch.device``): the stripes kernel with and
+without its resident rows and with 0, the planned and more L2-kept rows a
+block; the tiled kernel with 0 to 600 L2-kept tiles and with whole tiles or
+32-row groups as work items.  ``--rings`` times them at bulk-copy ring
+depths 0, 1, 2 and 4 stages a warp (the stripes kernel) and 0, 1 and 2
+(the triangle with its auto cache, which each depth resizes), every depth
+held bit for bit to depth 0.  The plans are replaced from outside, for the
+length of this process; the package has no such switch.  Needs a CUDA
+device.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
+import importlib.util
 import json
 import os
+import statistics
 import subprocess
 import sys
+import types
 
 STAMP_ROUNDS, STAMP_PHASES = 32, 6  # csrc/prologue.cuh
 WARMUP = 10  # launches before the timed ones: a process's first arm meets an idle card
@@ -47,6 +62,7 @@ DEFAULT_PHASES = {
     "multiround": ("prologue", "stream", "barrier"),
     "multiround_sym": ("prologue", "stream", "barrier_1", "reduce", "barrier_2"),
 }
+DTYPES = {"f32": "float32", "bf16": "bfloat16", "f16": "float16"}
 
 
 def split(stamps, grid: int, names) -> dict:
@@ -79,27 +95,91 @@ def stamped_split(kernels, fn, kernel: str, grid: int, dev) -> dict:
         kernels.STAMPS = None
 
 
-def sweep(kernels, device, evt, H, n: int, dev, reps: int, card: str) -> None:
-    """One JSON line per plan variant of both kernels at dimension n."""
-    from eigen_value_tpu_torch.utils.timing import time_call
+def load_root(root: str, i: int) -> types.SimpleNamespace:
+    """The port package of checkout ``root``, imported under a name of its
+    own so that several checkouts live side by side in this process."""
+    alias = f"_evt_root{i}"
+    pkg = os.path.join(root, "eigen_value_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        alias, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return types.SimpleNamespace(
+        evt=mod, root=os.path.relpath(root),
+        kernels=importlib.import_module(f"{alias}.ops.cuda.kernels"),
+        device=importlib.import_module(f"{alias}.device"))
 
+
+def plan_fields(plan) -> dict:
+    return {k: v for k, v in plan._asdict().items() if k != "table"}
+
+
+def arms(R, H, dev) -> list:
+    """(label, kernel, cache, plan, launch) of the four arms at H's size,
+    under checkout R's plans for H's dtype."""
     import torch
 
+    k, d = R.kernels, R.device
+    n, bt, dt = H.shape[0], k.SYM_TILE, H.dtype
+    x = torch.ones(n, device=dev)
+    z = torch.zeros((), device=dev)
+    kw = dict(chunk=R.evt.MAX_ITR + 1, eps=R.evt.EPS, init=True)
+    sized = {} if dt == torch.float32 else {"dtype": dt}
+    isz = {} if dt == torch.float32 else {"itemsize": dt.itemsize}
+    out = [("multiround", "multiround", None, k.multiround_launch_plan(dev, n, **sized),
+            lambda: k.multiround(H, x, x, z, R.evt.MAX_ITR, **kw))]
+    for label, sym, auto in (("multiround_sym, streaming", True, False),
+                             ("multiround_sym, auto cache", True, True),
+                             ("multiround_sym dense tiled, auto cache", False, True)):
+        c = d.sym_auto_cache_tiles(n, bt, dev, sym=sym, **isz) if auto else 0
+        out.append((label, "multiround_sym", c, k.multiround_sym_plan(dev, n, bt, c, sym, **sized),
+                    lambda c=c, sym=sym: k.multiround_sym(H, x, x, z, R.evt.MAX_ITR, tile=bt,
+                                                          cache_tiles=c, sym=sym, **kw)))
+    return out
+
+
+def in_turns(fns, reps: int) -> list:
+    """Per function, ``reps`` samples taken in turns (A B, B A, ...); a
+    sample is the median of five launches back to back, each between its
+    own CUDA events (so the host's wrapper time is hidden behind the card's
+    work, as in a solve)."""
+    from eigen_value_tpu_torch.utils.timing import time_call
+
+    for fn in fns:
+        for _ in range(WARMUP):
+            fn()
+    samples = [[] for _ in fns]
+    for rep in range(reps):
+        order = range(len(fns)) if rep % 2 == 0 else reversed(range(len(fns)))
+        for j in order:
+            samples[j].append(time_call(fns[j], reps=5, warmup=1).median_ms)
+    return samples
+
+
+def sweep(R, H, dev, reps: int, card: str) -> None:
+    """One JSON line per plan variant of both kernels at H's size."""
+    import torch
+
+    kernels, device, evt = R.kernels, R.device, R.evt
+    n, dt = H.shape[0], H.dtype
+    sized = {} if dt == torch.float32 else {"dtype": dt}
     x = torch.ones(n, device=dev)
     z = torch.zeros((), device=dev)
     kw = dict(chunk=evt.MAX_ITR + 1, eps=evt.EPS, init=True)
     bt = kernels.SYM_TILE
+    from eigen_value_tpu_torch.utils.timing import time_call
 
     def row(arm, kernel, grid, fn, **plan):
         fn()
         t = time_call(fn, reps=reps, warmup=WARMUP)
-        print(json.dumps({"sweep": arm, "n": n, **plan, "ms_median": t.median_ms,
+        print(json.dumps({"sweep": arm, "n": n, "dtype": str(dt), **plan, "ms_median": t.median_ms,
                           "ms_min": t.min_ms, "card": card,
                           "phases_us": stamped_split(kernels, fn, kernel, grid, dev)},
                          allow_nan=False), flush=True)
 
     planned = kernels.multiround_launch_plan
-    own = planned(dev, n)  # also raises the kernel's shared-memory limit
+    own = planned(dev, n, **sized)  # also raises the kernel's shared-memory limit
     try:
         for resident, l2_rows in sorted({(0, 0), (own.resident, 0), (own.resident, own.l2_rows),
                                          (own.resident, own.l2_rows + 2),
@@ -107,8 +187,8 @@ def sweep(kernels, device, evt, H, n: int, dev, reps: int, card: str) -> None:
                                          (own.resident, own.l2_rows + 8)}):
             if resident + l2_rows > -(-n // own.grid):
                 continue
-            plan = device.StripesPlan(own.grid, resident, l2_rows)
-            kernels.multiround_launch_plan = lambda d, m, plan=plan: plan
+            plan = own._replace(resident=resident, l2_rows=l2_rows)
+            kernels.multiround_launch_plan = lambda d, m, plan=plan, **_: plan
             row("multiround", "multiround", own.grid,
                 lambda: kernels.multiround(H, x, x, z, evt.MAX_ITR, **kw),
                 resident=resident, l2_rows=l2_rows, own=plan == own)
@@ -116,92 +196,125 @@ def sweep(kernels, device, evt, H, n: int, dev, reps: int, card: str) -> None:
         kernels.multiround_launch_plan = planned
 
     l2_rule, split_rule = kernels.sym_l2_tiles, kernels.sym_split
-    auto = device.sym_auto_cache_tiles(n, bt, dev)
+    isz = {} if dt == torch.float32 else {"itemsize": dt.itemsize}
+    auto = device.sym_auto_cache_tiles(n, bt, dev, **isz)
     own_split = device.sym_split(n, bt, dev)
     try:
         for cache in sorted({0, auto}):
             T = len(kernels.sym_cache_split(n, bt, cache)[0])
-            own_l2 = device.sym_l2_tiles(bt, dev, T)
+            own_l2 = device.sym_l2_tiles(bt, dev, T, **isz)
             variants = {(own_split, l2) for l2 in (0, 300, 400, 500, 600, own_l2) if l2 <= T}
             variants.add((1 if own_split != 1 else bt // 32, own_l2))
-            for split, l2 in sorted(variants):
-                kernels.sym_l2_tiles = lambda bt_, d, streamed, l2=l2: min(streamed, l2)
-                kernels.sym_split = lambda n_, bt_, d, sym, split=split: split
+            for split_, l2 in sorted(variants):
+                kernels.sym_l2_tiles = lambda bt_, d, streamed, l2=l2, **_: min(streamed, l2)
+                kernels.sym_split = lambda n_, bt_, d, sym, split_=split_: split_
                 kernels.multiround_sym_plan.cache_clear()
-                plan = kernels.multiround_sym_plan(dev, n, bt, cache, True)
+                plan = kernels.multiround_sym_plan(dev, n, bt, cache, True, **sized)
                 row("multiround_sym", "multiround_sym", plan.grid,
                     lambda: kernels.multiround_sym(H, x, x, z, evt.MAX_ITR, tile=bt,
                                                    cache_tiles=cache, **kw),
-                    cache=cache, l2_tiles=l2, split=split,
-                    own=(split, l2) == (own_split, own_l2))
+                    cache=cache, l2_tiles=l2, split=split_,
+                    own=(split_, l2) == (own_split, own_l2))
     finally:
         kernels.sym_l2_tiles, kernels.sym_split = l2_rule, split_rule
         kernels.multiround_sym_plan.cache_clear()
 
 
+def rings(R, H, dev, reps: int, card: str) -> None:
+    """One JSON line per ring depth of each kernel at H's size: the plan,
+    ms, phases, and whether the launch gave depth 0's bits."""
+    import torch
+
+    kernels, device, evt = R.kernels, R.device, R.evt
+    n, dt = H.shape[0], H.dtype
+    isz = dt.itemsize
+    sized = {} if dt == torch.float32 else {"dtype": dt}
+    x = torch.ones(n, device=dev)
+    z = torch.zeros((), device=dev)
+    kw = dict(chunk=evt.MAX_ITR + 1, eps=evt.EPS, init=True)
+    bt = kernels.SYM_TILE
+    saved = dict(device.STRIPES_RING), dict(device.SYM_RING)
+    try:
+        for name, table, depths in (("multiround", device.STRIPES_RING, (0, 1, 2, 4)),
+                                    ("multiround_sym", device.SYM_RING, (0, 1, 2))):
+            first = None
+            for depth in depths:
+                table[isz] = depth  # the wrappers look the plan up anew
+                kernels.multiround_launch_plan.cache_clear()
+                kernels.multiround_sym_plan.cache_clear()
+                if name == "multiround":
+                    plan = kernels.multiround_launch_plan(dev, n, **sized)
+                    fn = lambda: kernels.multiround(H, x, x, z, evt.MAX_ITR, **kw)  # noqa: E731
+                else:
+                    c = device.sym_auto_cache_tiles(n, bt, dev, itemsize=isz)
+                    plan = kernels.multiround_sym_plan(dev, n, bt, c, True, **sized)
+                    fn = lambda c=c: kernels.multiround_sym(  # noqa: E731
+                        H, x, x, z, evt.MAX_ITR, tile=bt, cache_tiles=c, **kw)
+                out = fn()
+                first = first or out
+                ms = in_turns([fn], reps)[0]
+                print(json.dumps({"rings": name, "n": n, "dtype": str(dt), "ring": depth,
+                                  "plan": plan_fields(plan), "ms_median": statistics.median(ms),
+                                  "ms_min": min(ms),
+                                  "bits_equal_depth_0": all(torch.equal(a, b)
+                                                            for a, b in zip(first, out)),
+                                  "card": card,
+                                  "phases_us": stamped_split(kernels, fn, name, plan.grid, dev)},
+                                 allow_nan=False), flush=True)
+    finally:
+        device.STRIPES_RING.update(saved[0])
+        device.SYM_RING.update(saved[1])
+        kernels.multiround_launch_plan.cache_clear()
+        kernels.multiround_sym_plan.cache_clear()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--root", nargs="+", default=[os.path.dirname(os.path.abspath(__file__))])
+    ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
     ap.add_argument("--sizes", type=int, nargs="+", default=[2048, 4096, 8192])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--sweep", action="store_true", help="also time other plans than the card's")
+    ap.add_argument("--rings", action="store_true", help="also time other ring depths")
     args = ap.parse_args()
 
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("FAILED: no CUDA device")
-    root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
-    import eigen_value_tpu_torch as evt
-    from eigen_value_tpu_torch import device, fixtures
-    from eigen_value_tpu_torch.device import sym_auto_cache_tiles
-    from eigen_value_tpu_torch.ops.cuda import kernels
-    from eigen_value_tpu_torch.utils.timing import time_call
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    roots = [load_root(os.path.abspath(r), i) for i, r in enumerate(args.root)]
+    from eigen_value_tpu_torch import fixtures
 
     dev = torch.device("cuda", 0)
+    dt = getattr(torch, DTYPES[args.dtype])
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    stamped = hasattr(kernels, "STAMPS")
-    bt = kernels.SYM_TILE
     for n in args.sizes:
-        H = fixtures.hilbert_matrix(n, device=dev)
-        x = torch.ones(n, device=dev)
-        z = torch.zeros((), device=dev)
-        kw = dict(chunk=evt.MAX_ITR + 1, eps=evt.EPS, init=True)
-        cache = sym_auto_cache_tiles(n, bt, dev)
-        dense_cache = sym_auto_cache_tiles(n, bt, dev, sym=False)
-        arms = [
-            ("multiround", "multiround", None, True,
-             lambda: kernels.multiround(H, x, x, z, evt.MAX_ITR, **kw)),
-            ("multiround_sym, streaming", "multiround_sym", 0, True, None),
-            (f"multiround_sym, cache {cache}", "multiround_sym", cache, True, None),
-            (f"multiround_sym dense tiled, cache {dense_cache}", "multiround_sym", dense_cache,
-             False, None),
-        ]
-        for label, kernel, c, sym, fn in arms:
-            if fn is None:
-                def fn(c=c, sym=sym):
-                    return kernels.multiround_sym(H, x, x, z, evt.MAX_ITR, tile=bt,
-                                                  cache_tiles=c, sym=sym, **kw)
-            out = fn()
-            t = time_call(fn, reps=args.reps, warmup=WARMUP)
-            row = {"arm": label, "n": n, "advanced": int(out[2]), "ms_median": t.median_ms,
-                   "ms_min": t.min_ms, "card": card, "root": os.path.relpath(root)}
-            if stamped:
-                if kernel == "multiround":
-                    grid = kernels.multiround_grid(dev, n)
-                else:
-                    plan = kernels.multiround_sym_plan(dev, n, bt, c, sym)
-                    grid = getattr(plan, "grid", None) or plan[3]
-                row["grid"] = grid
-                row["phases_us"] = stamped_split(kernels, fn, kernel, grid, dev)
-            print(json.dumps(row, allow_nan=False), flush=True)
+        H = fixtures.hilbert_matrix(n, device=dev).to(dt)
+        per_root = [arms(R, H, dev) for R in roots]
+        for a in range(len(per_root[0])):
+            label, kernel = per_root[0][a][:2]
+            fns = [p[a][4] for p in per_root]
+            outs = [fn() for fn in fns]
+            samples = in_turns(fns, args.reps)
+            for R, arm, out, ms in zip(roots, (p[a] for p in per_root), outs, samples):
+                _, _, cache, plan, fn = arm
+                row = {"arm": label, "n": n, "dtype": args.dtype, "root": R.root,
+                       "advanced": int(out[2]), "ms_median": statistics.median(ms),
+                       "ms_min": min(ms), "cache": cache, "plan": plan_fields(plan),
+                       "bits_equal_root0": all(torch.equal(p, q) for p, q in zip(outs[0], out)),
+                       "card": card}
+                if hasattr(R.kernels, "STAMPS"):
+                    row["phases_us"] = stamped_split(R.kernels, fn, kernel, plan.grid, dev)
+                print(json.dumps(row, allow_nan=False), flush=True)
         if args.sweep:
-            sweep(kernels, device, evt, H, n, dev, args.reps, card)
-        del H
+            sweep(roots[0], H, dev, args.reps, card)
+        if args.rings:
+            rings(roots[0], H, dev, args.reps, card)
+        del H, per_root
         torch.cuda.empty_cache()
     return 0
 

@@ -8,6 +8,8 @@ Imports torch and the port only, so it runs on a machine without jax:
 needs a CUDA device and skips without one.
 """
 
+import contextlib
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -715,6 +717,139 @@ def test_a_misaligned_view_is_solved(cuda):
     _same(evt.max_eigenvalue(view), evt.max_eigenvalue(H))
     _same(evt.max_eigenvalue(view, evt.SolverConfig(symmetric=True)),
           evt.max_eigenvalue(H, evt.SolverConfig(symmetric=True)))
+
+
+# --- the bulk-copy rings of the persistent kernels (device.STRIPES_RING /
+# SYM_RING): the streamed part of A lands in shared memory by cp.async.bulk
+# copies; the depth changes where the bytes come from, never the bits ------
+
+
+@contextlib.contextmanager
+def _ring_depth(depth):
+    """Both kernels' ring at ``depth`` stages a warp for every element size
+    (``"planned"``: the package's own depths) while the block runs."""
+    from eigen_value_tpu_torch import device as tdev
+
+    saved = dict(tdev.STRIPES_RING), dict(tdev.SYM_RING)
+    try:
+        if depth != "planned":
+            for table in (tdev.STRIPES_RING, tdev.SYM_RING):
+                table.update({size: depth for size in table})
+        tk.multiround_launch_plan.cache_clear()
+        tk.multiround_sym_plan.cache_clear()
+        yield
+    finally:
+        tdev.STRIPES_RING.update(saved[0])
+        tdev.SYM_RING.update(saved[1])
+        tk.multiround_launch_plan.cache_clear()
+        tk.multiround_sym_plan.cache_clear()
+
+
+def _equal(a, b):
+    return all(torch.equal(p, q) for p, q in zip(a, b))
+
+
+@pytest.mark.parametrize("dt", STORE)
+@pytest.mark.parametrize("n", [2048, 4096, 8192])
+def test_2_byte_launches_are_f32_launches_at_every_ring_depth(cuda, n, dt):
+    """A 2-byte launch on A_q gives the bits of the f32 launch on
+    A_q.float() without a ring, at ring depths 0, 1 and the planned one, for
+    the stripes kernel and for the tiled kernel with caches 0, 3 and the
+    depth's auto cache in both modes; an f32 launch at each depth too."""
+    A_q = tfx.hilbert_matrix(n, device=cuda).to(dt)
+    A_f = A_q.float()
+    x, z = torch.ones(n, device=cuda), torch.zeros((), device=cuda)
+    kw = dict(chunk=MAX_ITR + 1, eps=EPS, init=True)
+    with _ring_depth(0):
+        ref = tk.multiround(A_f, x, x, z, MAX_ITR, **kw)
+        ref_sym = {sym: tk.multiround_sym(A_f, x, x, z, MAX_ITR, cache_tiles=0, sym=sym, **kw)
+                   for sym in (True, False)}
+    rings = set()
+    for depth in (0, 1, "planned"):
+        with _ring_depth(depth):
+            rings.add(tk.multiround_launch_plan(cuda, n, dtype=dt).ring)
+            assert _equal(tk.multiround(A_q, x, x, z, MAX_ITR, **kw), ref), depth
+            assert _equal(tk.multiround(A_f, x, x, z, MAX_ITR, **kw), ref), depth
+            for sym in (True, False):
+                auto = sym_auto_cache_tiles(n, 128, cuda, sym, itemsize=2)
+                for c in sorted({0, 3, auto}):
+                    got = tk.multiround_sym(A_q, x, x, z, MAX_ITR, cache_tiles=c, sym=sym, **kw)
+                    assert _equal(got, ref_sym[sym]), (depth, sym, c)
+                    rings.add(tk.multiround_sym_plan(cuda, n, 128, c, sym, dtype=dt).ring)
+                got = tk.multiround_sym(A_f, x, x, z, MAX_ITR, cache_tiles=3, sym=sym, **kw)
+                assert _equal(got, ref_sym[sym]), (depth, sym, "f32")
+    assert rings >= {0, 1}  # the launches above did run with and without a ring
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1024, 2048, 8192])
+def test_the_stripes_ring_keeps_the_matvec_loops_bits(cuda, n, dt, monkeypatch):
+    """At every ring depth, with the planned resident rows and with none,
+    the stripes kernel's solve is the matvec kernel loop, bit for bit, for
+    every chunking."""
+    storage = None if dt == torch.float32 else dt
+    A = tfx.hilbert_matrix(n, device=cuda).to(dt)
+    want = solve_matvec_kernel(A, EPS, MAX_ITR, storage_dtype=storage)
+    planned = tk.multiround_launch_plan
+    for depth in (0, 1, 2, 4):
+        with _ring_depth(depth):
+            own = planned(cuda, n, **({} if storage is None else {"dtype": dt}))
+            for plan in {own, own._replace(resident=0, l2_rows=0)}:
+                monkeypatch.setattr(tk, "multiround_launch_plan", lambda d, m, plan=plan, **_: plan)
+                for chunk in (1, 5, None):
+                    _same(solve_multiround(A, EPS, MAX_ITR, chunk=chunk, storage_dtype=storage),
+                          want)
+                monkeypatch.setattr(tk, "multiround_launch_plan", planned)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("depth", [1, "planned"])
+def test_a_launch_that_freezes_early_leaves_no_copy_behind(cuda, depth, dt):
+    """A launch that freezes at round 0 (a constant v stops at once) and
+    one that freezes at round 5 (the budget) leave their rounds with copies
+    issued ahead; each is followed by a whole launch, and every result is
+    the bits of the launches without a ring."""
+    n = 4096
+    A = tfx.hilbert_matrix(n, device=cuda).to(dt)
+    ev, z = torch.ones(n, device=cuda), torch.zeros((), device=cuda)
+    v = tk.matvec(A, ev)
+    whole = dict(chunk=MAX_ITR + 1, eps=EPS, init=True)
+    calls = [
+        lambda f, **k: f(A, ev, ev, z, MAX_ITR, chunk=18, eps=EPS, **k),  # round 0
+        lambda f, **k: f(A, ev, v, z, 5, chunk=18, eps=EPS, **k),  # round 5
+        lambda f, **k: f(A, ev, ev, z, MAX_ITR, **whole, **k),
+    ]
+    kernels = ((tk.multiround, {}), (tk.multiround_sym, dict(cache_tiles=3)))
+    with _ring_depth(0):
+        want = [[call(f, **k) for call in calls] for f, k in kernels]
+    with _ring_depth(depth):
+        assert tk.multiround_sym_plan(cuda, n, 128, 3, True, **(
+            {} if dt == torch.float32 else {"dtype": dt})).ring > 0 or depth == "planned"
+        for (f, k), ref in zip(kernels, want):
+            got = [call(f, **k) for call in calls]
+            torch.cuda.synchronize()
+            assert int(got[0][2]) == 0 and int(got[1][2]) == 5
+            for g, w in zip(got, ref):
+                assert _equal(g, w)
+
+
+def test_a_ring_needs_a_16_byte_aligned_a(cuda):
+    """A 2-byte view 8 bytes off a 16-byte boundary meets the chunked
+    kernels' rule (4 elements) but not a bulk copy's: a launch with a ring
+    raises, and the API, which clones such a view, solves it."""
+    n = 1024
+    H = tfx.hilbert_matrix(n, device=cuda).to(torch.bfloat16)
+    buf = torch.empty(n * n + 4, dtype=torch.bfloat16, device=cuda)
+    view = buf[4:].view(n, n)
+    view.copy_(H)
+    assert view.data_ptr() % 16 == 8
+    x = torch.ones(n, device=cuda)
+    tk.matvec(view, x)  # the 4-element rule holds
+    with _ring_depth(1):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            tk.multiround_sym(view, x, x, 0.0, MAX_ITR, chunk=2, eps=EPS)
+        cfg = evt.SolverConfig(storage_dtype=torch.bfloat16, symmetric=True)
+        _same(evt.max_eigenvalue(view, cfg), evt.max_eigenvalue(H, cfg))
 
 
 def test_warmup_builds_the_plans_before_the_first_call(cuda):

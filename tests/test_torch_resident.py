@@ -43,17 +43,18 @@ def h100(monkeypatch):
 @pytest.mark.parametrize("n, want", [
     # 198656 bytes beside ev hold six 32 KiB rows; 19660800 bytes of L2 over
     # 132 blocks of 32 KiB rows keep four more
-    (8192, (132, 6, 4)),
+    (8192, (132, 6, 4, 0)),
     # 13 of a block's 32 rows; the other 2380 rows (39.0 MB) are under 3/4 of
     # the L2, so 5/8 of it (32768000 bytes) keep 15 more a block
-    (4096, (132, 13, 15)),
-    (2048, (76, 27, 0)),  # 27 rows fit: 76 blocks hold all 2048
-    (1024, (32, 32, 0)),  # a row a warp, every row resident
-    (128, (4, 32, 0)),
-    (3, (1, 3, 0)),
-    (28928, (132, 1, 1)),  # the last n with a row beside ev
-    (28932, (132, 0, 1)),
-    (57856, (132, 0, 0)),  # ev alone fills the block
+    (4096, (132, 13, 15, 0)),
+    (2048, (76, 27, 0, 0)),  # 27 rows fit: 76 blocks hold all 2048
+    (1024, (32, 32, 0, 0)),  # a row a warp, every row resident
+    (128, (4, 32, 0, 0)),
+    (3, (1, 3, 0, 0)),
+    (28928, (132, 1, 1, 0)),  # the last n with a row beside ev
+    (28932, (132, 0, 1, 0)),
+    (57856, (132, 0, 0, 0)),  # ev alone fills the block
+    # (an f32 A streams through registers: device.STRIPES_RING[4] == 0)
 ])
 def test_multiround_plan_on_an_h100(h100, n, want):
     assert tuple(device.multiround_plan(n, h100)) == want
@@ -64,8 +65,8 @@ def test_multiround_plan_on_a_smaller_card(monkeypatch):
     dev = torch.device("cuda", 0)
     # 101376 - 1024 - 32768 = 67584 bytes: two rows; 2359296 bytes of L2
     # over 46 blocks of 32 KiB rows keep one more
-    assert tuple(device.multiround_plan(8192, dev)) == (46, 2, 1)
-    assert tuple(device.multiround_plan(2048, dev)) == (46, 11, 6)
+    assert tuple(device.multiround_plan(8192, dev)) == (46, 2, 1, 0)
+    assert tuple(device.multiround_plan(2048, dev)) == (46, 11, 6, 0)
     assert device.multiround_plan(25088, dev).resident == 0
     assert not device.multiround_fits(25092, dev) and device.multiround_fits(25088, dev)
 
@@ -121,6 +122,7 @@ def test_sym_smem_bytes_mirrors_the_kernel():
 
 
 @pytest.mark.parametrize("n, bt, sym, want", [
+    # (an f32 A streams through registers: device.SYM_RING[4] == 0)
     (8192, 128, True, 396),  # three tiles a block
     (8192, 128, False, 396),
     (4096, 128, True, 396),  # of 496 off-diagonal tiles
@@ -199,6 +201,89 @@ def test_the_resident_and_l2_sets_leave_the_rest_to_stream(h100):
     streamed, cached = tk.sym_cache_split(n, bt, cache)
     assert (len(streamed), len(cached)) == (1684, 396)
     assert len(streamed) - device.sym_l2_tiles(bt, h100, len(streamed)) == 1384
+
+
+# --- the bulk-copy rings: what they cost in shared memory --------------------
+
+
+def test_the_ring_bytes_mirror_the_kernels():
+    # stripes: 32 warps x (512 elements + an 8-byte mbarrier) a stage
+    assert device.stripes_ring_bytes(2, 2) == 2 * 32 * (1024 + 8) == 66048
+    assert device.stripes_ring_bytes(1, 4) == 32 * (2048 + 8)
+    assert device.multiround_smem_bytes(8192, 8, 2, 2) == 32768 + 8 * 16384 + 66048
+    # triangle: 16 warps x (8 rows x 128 columns + an 8-byte mbarrier) a
+    # stage, and 128 bytes to align the stages for the tensor copies
+    assert device.sym_ring_bytes(1, 2) == 128 + 16 * (2048 + 8) == 33024
+    assert device.sym_ring_bytes(2, 4) == 128 + 2 * 16 * (4096 + 8)
+    assert device.sym_smem_bytes(8192, 128, 5, 2, 1) == 32768 + 5 * 32768 + 33024
+    assert device.stripes_ring_bytes(0, 2) == device.sym_ring_bytes(0, 2) == 0
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("n", [2048, 4096, 8192])
+def test_the_plans_fit_the_card_with_their_rings(card, n, itemsize):
+    """ev, the resident rows or tiles, the ring's stages and the static
+    shared memory fit one block, for both kernels, on both cards; the
+    stripes kernel has a ring only where rows stream, of the depth its
+    table gives; the triangle's auto cache leaves the ring its room."""
+    dev, lim = card
+    plan = device.multiround_plan(n, dev, itemsize)
+    assert plan.ring in (0, device.STRIPES_RING[itemsize])
+    assert device.multiround_smem_bytes(n, plan.resident, itemsize, plan.ring) + STATIC <= (
+        lim.smem_per_block_optin)
+    if plan.ring:  # rows stream from device memory
+        assert plan.grid * (plan.resident + plan.l2_rows) < n
+    else:  # every row on the chip, or the table's depth is 0, or it does not fit
+        assert (plan.grid * (plan.resident + plan.l2_rows) >= n
+                or device.stripes_ring(n, dev, itemsize) == 0)
+    ring = device.sym_ring(n, 128, dev, itemsize)
+    assert ring in (0, device.SYM_RING[itemsize])
+    for sym in (True, False):
+        tiles = device.sym_auto_cache_tiles(n, 128, dev, sym=sym, itemsize=itemsize)
+        slots = -(-tiles // lim.sms)
+        assert device.sym_smem_bytes(n, 128, slots, itemsize, ring) + STATIC <= (
+            lim.smem_per_block_optin)
+        assert device.multiround_sym_fits(n, 128, dev, slots, itemsize, ring)
+
+
+def _row_dot_order(n4):
+    """Per lane, (chunk, accumulator) in the order csrc/rowdot.cuh row_dot
+    adds them for a 2-byte row of n4 chunks: eight a trip, then four, then
+    at most three."""
+    order = {lane: [] for lane in range(32)}
+    for lane in range(32):
+        k = lane
+        while k + 224 < n4:
+            order[lane] += [(k + 32 * u, u % 4) for u in range(8)]
+            k += 256
+        while k + 96 < n4:
+            order[lane] += [(k + 32 * u, u) for u in range(4)]
+            k += 128
+        order[lane] += [(k + 32 * u, u) for u in range(3) if k + 32 * u < n4]
+    return order
+
+
+def _seg_dot_order(n4, seg=128):
+    """The same for a row read a ring stage at a time (seg_dot)."""
+    order = {lane: [] for lane in range(32)}
+    for base in range(0, n4, seg):
+        cnt = min(seg, n4 - base)
+        for lane in range(32):
+            order[lane] += [(base + lane + 32 * u, u) for u in range(4) if lane + 32 * u < cnt]
+    return order
+
+
+@pytest.mark.parametrize("n4", [1, 31, 32, 97, 128, 200, 255, 256, 257, 500, 512, 1024, 2047,
+                                2048, 14464])
+def test_a_row_read_by_stages_adds_its_chunks_as_row_dot_does(n4):
+    """Every accumulator of every lane gets the same chunks in the same
+    order, whether the row comes whole (row_dot) or in 128-chunk ring stages
+    (seg_dot): the f32 sums, and so the bits, are the same."""
+    a, b = _row_dot_order(n4), _seg_dot_order(n4)
+    for lane in range(32):
+        for acc in range(4):
+            assert [c for c, u in a[lane] if u == acc] == [c for c, u in b[lane] if u == acc]
+    assert sorted(c for lane in range(32) for c, _ in b[lane]) == list(range(n4))
 
 
 # --- reading the kernels' phase stamps (kernel_phases.py) --------------------

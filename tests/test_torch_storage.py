@@ -266,41 +266,55 @@ def h100(monkeypatch):
 
 
 @pytest.mark.parametrize("n, want", [
-    # 232448 - 1024 - 32768 = 198656 bytes beside ev hold twelve 16 KiB rows;
-    # 3/8 of the L2 (19660800 bytes) over 132 blocks of 16 KiB rows keep nine
-    (8192, (132, 12, 9)),
+    # rows stream, so the ring takes 1 stage a warp: 32 * (1024 + 8) = 33024
+    # bytes; 232448 - 1024 - 32768 - 33024 = 165632 bytes beside ev and the
+    # ring hold ten 16 KiB rows (twelve without the ring); 3/8 of the L2
+    # (19660800 bytes) over 132 blocks of 16 KiB rows keep nine
+    (8192, (132, 10, 9, 1)),
     # 215040 bytes hold 26 rows of 8 KiB; a block has 32, and the other 664
-    # rows (5.4 MB) are under 3/4 of the L2: its 5/8 keep the last six
-    (4096, (132, 26, 6)),
-    (2048, (64, 32, 0)),  # 54 rows fit: 64 blocks (a row a warp) hold all 2048
-    # ev alone fills the block; one 113 KiB row a block fits the L2 band
-    (57856, (132, 0, 1)),
+    # rows (5.4 MB) are under 3/4 of the L2: its 5/8 keep the last six, so
+    # no row streams from device memory and there is no ring
+    (4096, (132, 26, 6, 0)),
+    # 54 rows fit: 64 blocks (a row a warp) hold all 2048, and nothing streams
+    (2048, (64, 32, 0, 0)),
+    # ev alone fills the block: no room for a ring; one 113 KiB row a block
+    # fits the L2 band
+    (57856, (132, 0, 1, 0)),
 ])
 def test_the_stripes_plan_for_a_2_byte_a(h100, n, want):
     assert tuple(device.multiround_plan(n, h100, itemsize=2)) == want
-    assert device.multiround_smem_bytes(n, want[1], 2) == 4 * n + 2 * n * want[1]
+    assert device.multiround_smem_bytes(n, want[1], 2, want[3]) == (
+        4 * n + 2 * n * want[1] + device.stripes_ring_bytes(want[3], 2))
     assert device.multiround_fits(n, h100)  # ev stays f32: the n limit is the same
 
 
-@pytest.mark.parametrize("n, sym, want", [
-    (8192, True, 792),  # six 32 KiB tiles beside a 32 KiB ev, 132 blocks
-    (8192, False, 792),
-    (4096, True, 496),  # all 32 * 31 / 2 off-diagonal tiles
-    (4096, False, 792),
-    (2048, True, 120),
+@pytest.mark.parametrize("n, sym, want, want_f32", [
+    # four 32 KiB tiles beside a 32 KiB ev and the ring (128 + 2 * 16 *
+    # (2048 + 8) = 65920 bytes: two stages a warp), 132 blocks; six without
+    # the ring.  f32: three 64 KiB tiles, no ring
+    (8192, True, 528, 396),
+    (8192, False, 528, 396),
+    (4096, True, 496, 396),  # all 32 * 31 / 2 off-diagonal tiles
+    (4096, False, 528, 396),
+    (2048, True, 120, 120),
 ])
-def test_the_auto_cache_doubles_for_2_byte_tiles(h100, n, sym, want):
+def test_the_auto_cache_doubles_for_2_byte_tiles(h100, n, sym, want, want_f32):
     assert device.sym_auto_cache_tiles(n, 128, h100, sym, itemsize=2) == want
     f32 = device.sym_auto_cache_tiles(n, 128, h100, sym)
-    assert f32 == min(396, want)  # three 64 KiB f32 tiles a block
+    assert f32 == want_f32
     assert device.sym_smem_bytes(n, 128, 6, 2) == 4 * n + 6 * 32768
     assert device.multiround_sym_fits(n, 128, h100, 6, 2)
     assert not device.multiround_sym_fits(n, 128, h100, 7, 2)
+    ring = device.sym_ring(n, 128, h100, 2)
+    assert ring == 2 and device.multiround_sym_fits(n, 128, h100, 4, 2, ring)
+    assert not device.multiround_sym_fits(n, 128, h100, 5, 2, ring)
 
 
 def test_the_l2_tiles_and_the_split_for_2_byte_tiles(h100):
-    # at 8192², cache 792: 2080 - 792 = 1288 tiles of 32 KiB (42.2 MB) stream,
-    # more than 3/4 of the L2, so 3/8 of it keeps 600 of them
+    # at 8192², cache 528: 2080 - 528 = 1552 tiles of 32 KiB (50.9 MB) stream,
+    # more than 3/4 of the L2, so 3/8 of it keeps 600 of them (as it did of
+    # the 1288 that streamed beside a cache of 792)
+    assert device.sym_l2_tiles(128, h100, 1552, itemsize=2) == 600
     assert device.sym_l2_tiles(128, h100, 1288, itemsize=2) == 600
     assert device.sym_l2_tiles(128, h100, 1684) == 300  # the f32 plan
     # 4096², cache 496: 32 diagonal tiles (1 MB) stream, all kept
@@ -310,7 +324,7 @@ def test_the_l2_tiles_and_the_split_for_2_byte_tiles(h100):
 
 
 def test_the_api_sizes_the_auto_cache_by_the_storage_type(h100):
-    for storage, want in ((None, 396), (torch.bfloat16, 792), (torch.float16, 792)):
+    for storage, want in ((None, 396), (torch.bfloat16, 528), (torch.float16, 528)):
         cfg = evt.SolverConfig(symmetric=True, storage_dtype=storage)
         assert api.resolve_backend(cfg, 8192, h100) == "multiround"
         fn = api._solve_fn(cfg, "multiround", 8192, h100)

@@ -105,6 +105,82 @@ def test_sym_auto_cache_tiles_from_the_cards_limits(fake_h100):
     assert device.sym_auto_cache_tiles(8192, 128, torch.device("cpu")) == 0
 
 
+# --- the row terms' lane exchange (csrc/multiround_sym.cu rows8_sum) --------
+#
+# The kernel adds the 32 lane partials of each of a trip's eight rows in
+# float32 on the card.  Both exchanges are emulated here lane by lane in
+# float32 numpy: one xor butterfly per row (offsets 16, 8, 4, 2, 1; each
+# lane adds its partner's value to its own), and the transposed one that
+# replaced it (a reduce-scatter over the rows at offsets 16, 8, 4, then the
+# butterfly at 2 and 1, then row u fetched from lane 4u).  They must agree
+# bit for bit on every lane that keeps a row.
+
+LANES = np.arange(32)
+
+
+def _butterfly_per_row(p):
+    """(32 lanes, 8 rows) partials -> (32, 8): row u's sum on every lane."""
+    out = np.empty_like(p)
+    for u in range(8):
+        a = p[:, u].copy()
+        for off in (16, 8, 4, 2, 1):
+            a = a + a[LANES ^ off]
+        out[:, u] = a
+    return out
+
+
+def _butterfly_transposed(p):
+    """(32 lanes, 8 rows) partials -> (8,): row u's sum as lane r8 + u
+    receives it from lane 4u, and (32,): the sum each lane holds (row l >> 2)."""
+    h4, h3, h2 = (LANES & 16) != 0, (LANES & 8) != 0, (LANES & 4) != 0
+    e = [np.where(h4, p[:, i + 4], p[:, i]) + np.where(h4, p[:, i], p[:, i + 4])[LANES ^ 16]
+         for i in range(4)]
+    f = [np.where(h3, e[i + 2], e[i]) + np.where(h3, e[i], e[i + 2])[LANES ^ 8] for i in range(2)]
+    g = np.where(h2, f[1], f[0]) + np.where(h2, f[0], f[1])[LANES ^ 4]
+    g = g + g[LANES ^ 2]
+    g = g + g[LANES ^ 1]
+    return g[np.arange(8) << 2], g
+
+
+def _partials(kind, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "hilbert":  # dot4 terms of Hilbert rows against a smooth ev
+        i = rng.integers(0, 8192, (32, 8, 4))
+        j = rng.integers(0, 8192, (32, 8, 4))
+        ev = rng.uniform(0.5, 1.0, (32, 8, 4))
+        return ((ev / (i + j + 1)).sum(axis=2)).astype(np.float32)
+    if kind == "huge_tiny":  # ±1e±30 mixed in one row: absorption everywhere
+        mag = np.float32(10.0) ** rng.choice([-30, -1, 0, 1, 30], (32, 8)).astype(np.float32)
+        return (mag * rng.choice([-1.0, 1.0], (32, 8)) * rng.uniform(1, 2, (32, 8))).astype(
+            np.float32)
+    if kind == "spread":  # exponents spread over 2^-100 .. 2^100
+        return (rng.uniform(-1, 1, (32, 8)) * 2.0 ** rng.integers(-100, 100, (32, 8))).astype(
+            np.float32)
+    if kind == "cancel":  # large pairs that cancel, and small rest
+        a = rng.uniform(1e6, 1e7, (16, 8)).astype(np.float32)
+        return np.concatenate([a, -a], axis=0) + rng.normal(0, 1, (32, 8)).astype(np.float32)
+    if kind == "subnormal":
+        return (rng.uniform(-1, 1, (32, 8)) * np.float32(1e-39)).astype(np.float32)
+    return rng.standard_normal((32, 8)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["hilbert", "huge_tiny", "spread", "cancel", "subnormal",
+                                  "normal"])
+def test_the_transposed_row_exchange_is_the_per_row_butterfly_bit_for_bit(kind):
+    with np.errstate(over="ignore", under="ignore"):
+        for seed in range(200):
+            p = _partials(kind, seed)
+            assert p.dtype == np.float32
+            want = _butterfly_per_row(p)
+            routed, held = _butterfly_transposed(p)
+            for u in range(8):
+                # the per-row butterfly leaves one value on all 32 lanes
+                assert len(set(want[:, u].view(np.uint32).tolist())) == 1
+                assert routed[u].view(np.uint32) == want[0, u].view(np.uint32), (kind, seed, u)
+                # the four lanes that hold row u agree
+                assert (held[4 * u:4 * u + 4].view(np.uint32) == want[0, u].view(np.uint32)).all()
+
+
 # --- kernel: plain version against the JAX kernel in interpret mode ----------
 
 
