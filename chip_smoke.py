@@ -105,6 +105,21 @@ float64 dense solve of the bordered system, ``eigenvalue_operator`` on the
 Hankel operator at 8192 (nonzero) and 256 (against the dense float64
 adjoint), and examples/autodiff.py's steps; with the times of each.
 
+The sharded solves (``mesh_phase``, step 8), on a one-rank NCCL group on
+this card (the host the port is measured on has one card, and NCCL takes
+one rank a card): ``kernels.matvec`` on column-block views of Hilbert 8192²
+(the ring's and the 2-D body's local products, read in place through the
+kernel's leading dimension) at every chunk position of P = 2, 4 and 8, in
+f32 and bf16, bit for bit the kernel on ``.contiguous()``; then, with the
+launch counters read around exactly these calls, ``max_eigenvalue(H,
+mesh=make_row_mesh(1))``, the ring, the 2-D solve on a 1 × 1 mesh and the
+bf16 door, each bit for bit the single-card matvec kernel loop,
+``solve_sharded`` bit for bit the single-card ``"xla"`` solve, and
+BASELINE config 4 on a ``batch`` and a ``batch × rows`` mesh bit for bit
+the unsharded batch; ``bench/mh_worker.py`` as a process of its own at
+8192² (and a 2-process NCCL group where the host has two cards); and the
+P = 1 mesh solves timed beside the single-card loop.
+
 Uses torch only (no jax).  Exits non-zero, without the final result line,
 on any failed check or when there is no CUDA device.
 
@@ -753,6 +768,189 @@ def resumable_batched_autodiff_phase(dev, mats, same, reset_counts, read_counts,
     check(sum(c.values()) == 0, "autodiff launched a kernel of the port")
     torch.cuda.empty_cache()
     return counts
+
+
+def mesh_phase(dev, mats, reset_counts, read_counts, card) -> dict:
+    """The sharded solves on a one-rank NCCL group on this card (step 8).
+
+    8a: ``kernels.matvec`` on the column blocks of Hilbert 8192² at every
+    chunk position of P = 2, 4, 8, in f32 and bf16: bit for bit the kernel on
+    ``.contiguous()``, within PLAIN_TOL of a float64 product; views whose
+    rows are not aligned raise.  8b (launch counters read around exactly
+    these calls): ``max_eigenvalue(H, mesh=make_row_mesh(1))`` through
+    "auto", the ring on the same mesh, the 2-D solve on a 1 × 1 mesh and the
+    bf16 storage solve through the door, each bit for bit the single-card
+    matvec kernel loop with rounds + 1 ``matvec`` launches; ``solve_sharded``
+    bit for bit the single-card ``backend="xla"``; BASELINE config 4 through
+    ``max_eigenvalue_batch`` on a ``batch`` and a ``batch × rows`` mesh, bit
+    for bit the unsharded batch.  8c: ``bench/mh_worker.py`` as a process of
+    its own (one rank: ``initialize``, ``assemble_rowsharded``,
+    ``solve_multihost``, the ring, 2-D, iterated and batched solves) at
+    8192², and, where the host has two cards, a 2-process NCCL group.  8d:
+    the host µs of each exchange of a round alone, and ms per solve of the
+    P = 1 mesh solves beside the single-card loop, interleaved.  Returns the launch counts of 8b, the largest difference of
+    a view's product from the plain version's, and the times."""
+    import torch
+    import torch.distributed as dist
+
+    import eigen_value_tpu_torch as evt
+    from eigen_value_tpu_torch.bench import batched_workload, run_mh_workers
+    from eigen_value_tpu_torch.bench.suite import exchange_times
+    from eigen_value_tpu_torch.ops.cuda import kernels
+    from eigen_value_tpu_torch.ops.solver_matvec import solve_matvec_kernel
+    from eigen_value_tpu_torch.parallel import (
+        make_mesh2d,
+        make_row_mesh,
+        solve_sharded,
+        solve_sharded_2d,
+        solve_sharded_matvec,
+        solve_sharded_matvec_ring,
+    )
+
+    EPS, MAX = evt.EPS, evt.MAX_ITR
+    n = 8192
+    H = mats[n]
+    Hq = H.to(torch.bfloat16)
+
+    def local(res):
+        return [x.to_local() if hasattr(x, "to_local") else x for x in res]
+
+    def bits(got, want) -> bool:
+        return all(torch.equal(g, w) for g, w in zip(local(got), want))
+
+    # --- 8a. the leading dimension ---
+    gen = torch.Generator().manual_seed(SEED + 8)
+    strided_err, views = 0.0, 0
+    for A in (H, Hq):
+        for parts in (2, 4, 8):
+            w = n // parts
+            x = (torch.rand(w, generator=gen) + 0.5).to(dev)
+            for s in range(parts):
+                view = A[:, s * w:(s + 1) * w]
+                got = kernels.matvec(view, x)
+                ok = torch.equal(got, kernels.matvec(view.contiguous(), x))
+                exact = f64_matvec(view, x)
+                rel = float(((got.double() - exact).abs() / exact.abs()).max())
+                check(ok and rel <= PLAIN_TOL, f"matvec on a {A.dtype} column view {s}/{parts}: "
+                      f"bit-identical {ok}, rel err {rel}")
+                strided_err = max(strided_err,
+                                  float((got - kernels.matvec_plain(view, x)).abs().max()))
+                views += 1
+    for bad, what in ((torch.ones(64, 65, device=dev)[:, :64], "rows 65 elements apart"),
+                      (torch.ones(64, 72, device=dev)[:, 1:65], "a base 4 bytes off")):
+        try:
+            kernels.matvec(bad, torch.ones(64, device=dev))
+        except ValueError:
+            continue
+        raise SystemExit(f"FAILED: matvec took a view with {what}")
+    say(f"matvec on {views} column-block views of Hilbert {n}² (P = 2, 4, 8; f32 and bf16): "
+        f"each bit-identical to the kernel on .contiguous(), rel err to float64 ≤ {PLAIN_TOL}; "
+        f"max |kernel - plain| {strided_err:.3e}; misaligned views raise")
+
+    # --- 8b. the mesh path, one rank of NCCL on this card ---
+    rows = make_row_mesh(1)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "a one-rank NCCL group")
+    mesh2d = make_mesh2d(1, 1)
+    batch = make_row_mesh(1, "batch")
+    batch_rows = make_mesh2d(1, 1, "batch", "rows")
+    bf16 = evt.SolverConfig(storage_dtype=torch.bfloat16)
+    As = batched_workload(256, 512, dev)
+    want = solve_matvec_kernel(H, EPS, MAX)
+    want_q = solve_matvec_kernel(H, EPS, MAX, storage_dtype=torch.bfloat16)
+    want_xla = evt.max_eigenvalue(H, evt.SolverConfig(backend="xla"))
+    want_b = evt.max_eigenvalue_batch(As)
+    solve_sharded_matvec(mats[128], rows)  # NCCL sets up its communicator here
+    solve_sharded_matvec_ring(mats[128], rows)
+    solve_sharded_2d(mats[128], mesh2d)
+    cases = {
+        "max_eigenvalue(H, mesh=make_row_mesh(1))":
+            (lambda: evt.max_eigenvalue(H, mesh=rows), want),
+        "solve_sharded_matvec_ring": (lambda: solve_sharded_matvec_ring(H, rows), want),
+        "solve_sharded_2d on 1 x 1": (lambda: solve_sharded_2d(H, mesh2d), want),
+        "max_eigenvalue(H, bf16 storage, mesh=)":
+            (lambda: evt.max_eigenvalue(H, bf16, mesh=rows), want_q),
+        "solve_sharded (the xla body)": (lambda: solve_sharded(H, rows), want_xla),
+        "max_eigenvalue_batch(config 4, batch mesh)":
+            (lambda: evt.max_eigenvalue_batch(As, mesh=batch), want_b),
+        "max_eigenvalue_batch(config 4, batch x rows mesh)":
+            (lambda: evt.max_eigenvalue_batch(As, mesh=batch_rows), want_b),
+    }
+    total = {}
+    for name, (fn, ref) in cases.items():
+        reset_counts()
+        got = fn()
+        c = read_counts()
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+        ok = bits(got, ref)
+        rounds = local(got)[2]
+        if rounds.dim():
+            r = f"rounds {dict(zip(*[t.tolist() for t in rounds.unique(return_counts=True)]))}"
+        else:
+            r = f"rounds {int(rounds)}"
+        say(f"mesh {name}: {r}, bit-identical to the single-card solve {ok}; launches "
+            f"{ {k: v for k, v in c.items() if v} }")
+        check(ok, f"mesh {name} differs from the single-card solve")
+        matvec_runs = name.startswith(("max_eigenvalue(H", "solve_sharded_matvec", "solve_sharded_2d"))
+        want_mv = int(ref.rounds) + 1 if matvec_runs else 0
+        check(c["matvec"] == want_mv and sum(c.values()) == c["matvec"],
+              f"mesh {name}: launches {c}, expected {want_mv} matvec")
+    check(int(want.rounds) == 17, "Hilbert 8192² rounds")
+    say(f"mesh path launches: {total}")
+
+    # --- 8c. the multi-host worker ---
+    def workers(nprocs: int, solvers) -> list:
+        try:
+            return run_mh_workers(nprocs, n, 3, solvers, timeout_s=300)
+        except RuntimeError as e:
+            raise SystemExit(f"FAILED: {e}")
+
+    lam64 = None
+    mh = workers(1, ["gather", "ring", "2d", "iterated", "batched"])[0]
+    for solver, r in mh["results"].items():
+        say(f"mh_worker, 1 process on {mh['card']}, {solver}: mesh {r['mesh']}, rounds "
+            f"{r['rounds']}, λ {r['eigenvalue']!r}, residual {r['residual']:.3e}, "
+            f"{r['ms']:.4f} ms (least of 3), {r['elems_per_s']:.4e} elements/s")
+        check(r["converged"] and r["rounds"] == 17 and r["residual"] < 1e-3,
+              f"mh_worker {solver}")
+        lam64 = lam64 or r["eigenvalue"]
+        check(abs(r["eigenvalue"] - lam64) <= 1e-5 * lam64, f"mh_worker {solver} λ")
+    if torch.cuda.device_count() >= 2:
+        two = workers(2, ["gather", "ring", "2d"])
+        for solver in ("gather", "ring", "2d"):
+            lams = {o["results"][solver]["eigenvalue"] for o in two}
+            r = two[0]["results"][solver]
+            say(f"mh_worker, 2 processes of NCCL on 2 cards, {solver}: rounds {r['rounds']}, "
+                f"λ {r['eigenvalue']!r}, {r['ms']:.4f} ms")
+            check(len(lams) == 1 and r["rounds"] == 17 and r["residual"] < 1e-3,
+                  f"2-process {solver}")
+    else:
+        say(f"mh_worker with 2 processes of NCCL: not run, this host has "
+            f"{torch.cuda.device_count()} card")
+
+    # --- 8d. what a world of one adds to a solve ---
+    # each exchange of a round alone, with the round's read (bench.suite.exchange_times)
+    exch_us = exchange_times(rows.get_group("rows"), n, dev)
+    say(f"exchanges alone, 1 rank of NCCL on 1 card ({card}; host µs a call with the read, "
+        f"median of 15 blocks of 40): " + json.dumps({k: round(v, 2) for k, v in exch_us.items()}))
+    arms = {
+        "matvec kernel loop (single card)": lambda: solve_matvec_kernel(H, EPS, MAX),
+        "gathered mesh solve, 1 rank": lambda: solve_sharded_matvec(H, rows),
+        "ring mesh solve, 1 rank": lambda: solve_sharded_matvec_ring(H, rows),
+        "2-D mesh solve, 1 x 1": lambda: solve_sharded_2d(H, mesh2d),
+    }
+    ms = interleaved_ms(arms, reps=20)
+    base = ms["matvec kernel loop (single card)"]
+    passes = int(want.rounds) + 1
+    added = {k: (v - base) / passes * 1e3 for k, v in ms.items()}
+    say(f"mesh times at {n}², 1 rank of NCCL on 1 card ({card}; median of 20 interleaved "
+        f"solves, ms): " + json.dumps({k: round(v, 4) for k, v in ms.items()})
+        + f"; µs a round added to the loop ({passes} products): "
+        + json.dumps({k: round(v, 2) for k, v in added.items() if v != 0.0}))
+    dist.destroy_process_group()
+    return {"launches": total, "strided_max_abs_err": strided_err, "views": views, "ms": ms,
+            "added_us_per_round": added, "exchange_us": exch_us}
+
 
 
 def main() -> int:
@@ -1842,6 +2040,10 @@ def main() -> int:
     say(f"resumable / batched / autodiff launches: {p7}")
     check(p7["multiround"] > 0 and p7["matvec"] > 0, "phase 7 launched no multiround or matvec")
 
+    # --- 8. the sharded solves, one rank of NCCL on this card ---
+    p8 = mesh_phase(dev, mats, reset_counts, read_counts, card)
+    check(p8["launches"]["matvec"] > 0, "the mesh path launched no matvec")
+
     # The least time the card could take: each input read once and each
     # output written once at the published memory rate, against the float32
     # operations at the published rate outside the tensor cores.  The two
@@ -1880,8 +2082,11 @@ def main() -> int:
 
     jk = "eigen_value_tpu/ops/pallas/kernels.py"
     say(json.dumps({"kernels": [
-        record("matvec", "matvec.cu", f"{jk}:227", launches["matvec"] + p7["matvec"], mv_err,
-               t_mv.median_ms, t_mv_p.median_ms, t_mv_lib, bound(4 * nn + 2 * vec, 2 * nn)),
+        record("matvec", "matvec.cu", f"{jk}:227",
+               launches["matvec"] + p7["matvec"] + p8["launches"]["matvec"], mv_err,
+               t_mv.median_ms, t_mv_p.median_ms, t_mv_lib, bound(4 * nn + 2 * vec, 2 * nn),
+               mesh_launches=p8["launches"]["matvec"],
+               strided_max_abs_err=p8["strided_max_abs_err"], strided_views=p8["views"]),
         record("multiround", "multiround.cu", f"{jk}:483", launches["multiround"] + p7["multiround"],
                mr_err,
                t_mr.median_ms, t_mr_p.median_ms, None,

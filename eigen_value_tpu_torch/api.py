@@ -270,11 +270,24 @@ def max_eigenvalue(
     is declared, and raises instead of returning garbage.  Under "auto" on
     a card it also checks symmetry where the triangle kernel could take the
     solve, and a matrix that passes is solved there (as the JAX package
-    does on the TPU).  ``mesh`` (the
-    sharded solves) is rejected until ported.
+    does on the TPU).
+
+    ``mesh`` (a ``torch.distributed`` ``DeviceMesh`` with a ``"rows"``
+    dimension, e.g. ``parallel.make_row_mesh``) runs the row-partitioned
+    solve over its ranks instead of the single-card one; a mesh with both
+    ``"rows"`` and ``"cols"`` runs the 2-D block-sharded solve
+    (``parallel/sharded.py``).  ``backend`` maps to the sharded body of the
+    same structure: "auto" and "matvec_pallas" the gathered body over the
+    matvec kernel, "matvec" the gathered body over ``torch.mv`` in true f32,
+    "xla" the iterated body; "pallas", "multiround" and ``symmetric=True``
+    are single-card only and raise, as the JAX package's do.  ``mat`` is the
+    whole matrix on every rank (each rank takes its rows or block) or a
+    DTensor from ``parallel.multihost.assemble_*``; the eigenvector comes
+    back as a DTensor sharded over rows.  The mesh places the solve, so
+    ``device`` is rejected with it.
     """
     if mesh is not None:
-        raise _not_ported("mesh= (the sharded solves)", "Queue 1 item 10")
+        return _max_eigenvalue_mesh(mat, config, validate, mesh, device)
     mat = _as_matrix(mat, config, device)
     n = mat.shape[0]
     backend = resolve_backend(config, n, mat.device)
@@ -291,6 +304,124 @@ def max_eigenvalue(
         if cand is not None and sym_ok:
             solve = _solve_fn(cand, "multiround", n, mat.device)
     return solve(mat)
+
+
+def _mesh_input(mat, config: SolverConfig, mesh, device):
+    """A mesh solve's input: a DTensor as it is, anything else as a tensor;
+    cast to ``config.dtype`` unless already in ``storage_dtype`` (no f32
+    copy of a pre-quantized matrix)."""
+    from torch.distributed.tensor import DTensor
+
+    if device is not None:
+        raise ValueError(
+            "device= with mesh=: the mesh places the solve (each rank on its own "
+            "device); drop device"
+        )
+    if not isinstance(mat, torch.Tensor):
+        mat = torch.tensor(np.asarray(mat))  # a copy: host arrays may be read-only
+    if not (config.storage_dtype is not None and mat.dtype == config.storage_dtype):
+        mat = mat.to(config.dtype)
+    return mat, isinstance(mat, DTensor)
+
+
+def _all_positive(mat, is_dtensor: bool, mesh) -> bool:
+    """``validate=True``'s positivity check on a mesh input: a whole matrix
+    on every rank is checked where it is; a DTensor's local blocks are
+    checked and the verdicts combined over every mesh dimension."""
+    from .parallel._collectives import all_reduce_min
+    from .parallel.sharded import _axes
+
+    if not is_dtensor:
+        return bool(torch.all(mat > 0))
+    ok = torch.all(mat.to_local() > 0).to(torch.int32).reshape(1)
+    for name in _axes(mesh):
+        ok = all_reduce_min(ok, mesh.get_group(name))
+    return bool(ok)
+
+
+def _max_eigenvalue_mesh(mat, config: SolverConfig, validate: bool, mesh, device):
+    """The mesh door of :func:`max_eigenvalue`, with the JAX package's
+    rejections (``api.py`` of ``eigen_value_tpu``)."""
+    from .parallel.sharded import _axes, solve_sharded, solve_sharded_2d, solve_sharded_matvec
+
+    _reject_unsupported(
+        config,
+        "the mesh path",
+        (
+            ("block_rows", config.block_rows is None,
+             "the sharded Pallas path sizes its own tiles per shard "
+             "(parallel/sharded.py local_matvec)"),
+            ("block_cols", config.block_cols is None,
+             "the sharded Pallas path sizes its own tiles per shard "
+             "(parallel/sharded.py local_matvec)"),
+            ("chunk", config.chunk is None,
+             "the multiround kernel is single-chip only"),
+            ("cache_tiles", config.cache_tiles is None,
+             "the VMEM-resident tile cache is a single-chip "
+             "multiround feature (one chip's VMEM holds the tiles)"),
+            ("interpret", config.interpret is None,
+             "interpret auto-resolves from the mesh's platform (CPU "
+             "meshes interpret, TPU meshes compile)"),
+        ),
+    )
+    if config.symmetric:
+        raise ValueError(
+            "symmetric=True has no sharded form (the upper-triangle "
+            "kernel is single-chip — its round state lives in one "
+            "chip's VMEM scratch; the sharded solvers stream full row "
+            "blocks); it would be silently dropped. Solve single-chip "
+            "or drop the declaration."
+        )
+    is_2d = "cols" in _axes(mesh)
+    if config.backend == "multiround":
+        raise ValueError(
+            "backend='multiround' is single-chip only (its round "
+            "state lives in one chip's VMEM scratch); the mesh path "
+            "would silently ignore it. Use backend='auto' for the "
+            "sharded solvers, or solve single-chip."
+        )
+    if config.backend == "pallas":
+        raise ValueError(
+            "backend='pallas' (the iterated fused kernel) has no "
+            "sharded form; use backend='auto' (matvec-form sharded "
+            "solve) or 'xla' (iterated sharded solve)"
+        )
+    if is_2d and config.backend not in ("auto", "matvec"):
+        raise ValueError(
+            f"backend={config.backend!r} has no 2D block-sharded "
+            "form (solve_sharded_2d runs the matvec-form XLA body); "
+            "use backend='auto' or 'matvec'"
+        )
+    if config.storage_dtype is not None and config.storage_dtype not in _STORAGE:
+        raise ValueError(
+            f"storage_dtype={config.storage_dtype!r}: the kernels read A as "
+            f"torch.bfloat16, torch.float16 or torch.float32"
+        )
+    mat, is_dtensor = _mesh_input(mat, config, mesh, device)
+    if mat.dim() != 2 or mat.shape[0] != mat.shape[1]:
+        raise ValueError(f"must be a square matrix, got shape {tuple(mat.shape)}")
+    if validate and not _all_positive(mat, is_dtensor, mesh):
+        raise ValueError("similarity-transform method requires all entries > 0")
+    if is_2d:
+        if "rows" not in _axes(mesh):
+            raise ValueError(
+                "a mesh with a 'cols' axis needs a 'rows' axis too "
+                "(size 1 for pure column sharding) — got axes "
+                f"{_axes(mesh)}; build it with "
+                "parallel.make_mesh2d(1, pc)"
+            )
+        return solve_sharded_2d(mat, mesh, config=config)
+    if config.backend == "xla":
+        # the iterated (mutate-A) sharded body: the sharded "xla" rung
+        if config.storage_dtype is not None:
+            raise ValueError(
+                "storage_dtype requires a matvec-family backend on the "
+                "mesh path too (the iterated sharded body mutates A "
+                "and cannot honor the storage contract)"
+            )
+        return solve_sharded(mat, mesh, config=config)
+    return solve_sharded_matvec(mat, mesh, config=config,
+                                use_pallas=config.backend != "matvec")
 
 
 def _reject_unsupported(config: SolverConfig, entry: str, checks) -> None:
@@ -317,7 +448,13 @@ def max_eigenvalue_batch(
     in ``storage_dtype`` is solved as it is, with no f32 copy; any other is
     cast to ``config.dtype``.  The batched body is the power-form loop, so
     any other backend and the kernel knobs are rejected with the JAX
-    package's words; ``mesh`` (the sharded batch) is not ported yet.
+    package's words.
+
+    ``mesh`` (a ``DeviceMesh``) mirrors :func:`max_eigenvalue`'s door: a
+    ``"batch"`` dimension shards the batch (``solve_batched_sharded``); with
+    a ``"rows"`` dimension too each matrix's rows are sharded as well
+    (``solve_batched_rowsharded``, BASELINE config 4's layout).  The result
+    is then DTensors sharded over the batch.
     """
     from .parallel.batched import solve_batched
 
@@ -346,7 +483,22 @@ def max_eigenvalue_batch(
         ),
     )
     if mesh is not None:
-        raise _not_ported("mesh= (the sharded batched solves)", "Queue 1 item 10")
+        from .parallel.sharded import _axes
+
+        mats, _ = _mesh_input(mats, config, mesh, device)
+        if "batch" not in _axes(mesh):
+            raise ValueError(
+                f"a batched mesh needs a 'batch' axis — got axes "
+                f"{_axes(mesh)}; build it with "
+                "make_row_mesh(pb, 'batch') or make_mesh2d(pb, pr, 'batch', 'rows')"
+            )
+        if "rows" in _axes(mesh):
+            from .parallel.sharded import solve_batched_rowsharded
+
+            return solve_batched_rowsharded(mats, mesh, config=config)
+        from .parallel.batched import solve_batched_sharded
+
+        return solve_batched_sharded(mats, mesh, config=config)
     device = solve_device(device, mats)
     if not isinstance(mats, torch.Tensor):
         mats = torch.tensor(np.asarray(mats))  # a copy: host arrays may be read-only

@@ -1,5 +1,6 @@
 """Benchmark suites of the port (counterpart of ``eigen_value_tpu.bench``):
-``python -m eigen_value_tpu_torch.bench --suite {e2e,kernels,vector,operator,batched}``."""
+``python -m eigen_value_tpu_torch.bench --suite
+{e2e,kernels,vector,operator,batched,sharded,multihost}``."""
 
 from .suite import (
     E2E_BACKENDS,
@@ -10,10 +11,13 @@ from .suite import (
     bench_batched,
     bench_e2e,
     bench_kernels,
+    bench_multihost,
     bench_operator,
+    bench_sharded,
     bench_vector_kernels,
     kernel_steps,
     operator_rungs,
+    run_mh_workers,
     vector_steps,
 )
 
@@ -26,9 +30,12 @@ __all__ = [
     "bench_batched",
     "bench_e2e",
     "bench_kernels",
+    "bench_multihost",
     "bench_operator",
+    "bench_sharded",
     "bench_vector_kernels",
     "kernel_steps",
     "operator_rungs",
+    "run_mh_workers",
     "vector_steps",
 ]

@@ -1,6 +1,7 @@
 """Benchmark CLI: ``python -m eigen_value_tpu_torch.bench --suite
-{e2e,kernels,vector,operator,batched,all} [--dims 8192 ...] [--sizes 65536 ...]
-[--backends matvec_pallas ...] [--batch 256] [--reps 5] [--json]``.
+{e2e,kernels,vector,operator,batched,sharded,multihost,all} [--dims 8192 ...]
+[--sizes 65536 ...] [--backends matvec_pallas ...] [--batch 256] [--reps 5]
+[--json]``.
 
 Prints the JAX CLI's tables: for ``e2e`` one block per backend of
 ``dim x dim   ms   rounds   (device ms, chained)`` rows; for ``kernels`` and
@@ -8,8 +9,13 @@ Prints the JAX CLI's tables: for ``e2e`` one block per backend of
 for ``operator`` one ``[rung] dim x dim   device ms (chained)   rounds``
 line per row; for ``batched`` one ``[batched] B x n^2: ... solves/s`` line
 (``--batch``, and ``--dims`` for the matrix dim; config 4's 256 x 512² by
-default); or one JSON object per row with ``--json`` (RFC-valid: nulls,
-never NaN).  ``all`` runs the first three, as in the JAX CLI.  The other
+default); for ``sharded`` one ``[sharded] solver dim x dim  P shards (mesh)
+ms  rounds`` line per solver, in the world the CLI was launched in
+(``torchrun --nproc_per_node=K -m eigen_value_tpu_torch.bench --suite
+sharded``; rank 0 prints; ``--dims`` default 4096); for ``multihost`` one
+line per solver and group of ``mh_worker`` processes (``--dims`` default
+2048); or one JSON object per row with ``--json`` (RFC-valid: nulls, never
+NaN).  ``all`` runs the first three, as in the JAX CLI.  The other
 suite names of the JAX CLI are accepted and raise, naming the ROADMAP item
 that holds them.
 """
@@ -25,7 +31,7 @@ SUITES = [
     "calibrate", "drift", "operator", "batched", "large", "all",
 ]
 #: The suites that run here; ``all`` is the first three, as in the JAX CLI.
-PORTED = ("e2e", "kernels", "vector", "operator", "batched", "all")
+PORTED = ("e2e", "kernels", "vector", "operator", "batched", "sharded", "multihost", "all")
 
 
 def _fmt_e2e(rows) -> str:
@@ -94,6 +100,21 @@ def _fmt_batched(rows) -> str:
     )
 
 
+def _fmt_sharded(rows) -> str:
+    return "\n".join(
+        f"[{r['bench']}] exchange {r['dim']} / {r['shards']} floats on {r['shards']} shards: "
+        + ", ".join(f"{k} {v:.1f} us" for k, v in r["exchange_us"].items())
+        if "exchange_us" in r else
+        f"[{r['bench']}] {r['solver']:<14} {r['dim']:<5} x {r['dim']:>5}\t"
+        f"{r.get('shards', r.get('processes'))} {'shards' if 'shards' in r else 'processes'} "
+        f"({r['mesh']})\t{r['ms']:>10.3f} ms\t{r['rounds']:>4} round(s)"
+        + ("" if r.get("rounds_ok", True) else "   [PARITY BREAK]")
+        + ("" if r.get("scaling_efficiency") is None
+           else f"\tefficiency {r['scaling_efficiency']:.3f}")
+        for r in rows
+    )
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="eigen_value_tpu_torch.bench")
     p.add_argument("--suite", choices=SUITES, default="kernels")
@@ -139,6 +160,19 @@ def main(argv=None) -> int:
             kw["batch"] = args.batch
         rows = suite.bench_batched(reps=args.reps, **kw)
         tables.append((rows, _fmt_batched(rows)))
+    if args.suite == "sharded":
+        rows = suite.bench_sharded(dim=args.dims[0] if args.dims else 4096, reps=args.reps)
+        tables.append((rows, _fmt_sharded(rows)))
+    if args.suite == "multihost":
+        rows = suite.bench_multihost(dim=args.dims[0] if args.dims else 2048, reps=args.reps)
+        tables.append((rows, _fmt_sharded(rows)))
+    import torch.distributed as dist
+
+    if dist.is_initialized():  # the sharded suite's group: one table a group
+        rank = dist.get_rank()
+        dist.destroy_process_group()
+        if rank != 0:
+            return 0
     if args.json:
         for rows, _ in tables:
             for r in rows:

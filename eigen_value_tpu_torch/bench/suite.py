@@ -2,7 +2,9 @@
 end-to-end sweep over the solve forms (``bench_e2e``), the per-kernel ladder
 of the O(n²) passes (``bench_kernels``), the O(n) vector kernels
 (``bench_vector_kernels``), the matrix-free operators beside the dense
-solve (``bench_operator``) and the batched solve (``bench_batched``).
+solve (``bench_operator``), the batched solve (``bench_batched``), and the
+sharded solves in the world the process was launched in (``bench_sharded``)
+and in ``mh_worker`` groups (``bench_multihost``).
 
 Each kernel rung is timed marginally, (T(k+1 chained) − T(1)) / k with CUDA
 events (``utils.timing.time_marginal``), and reported with its achieved
@@ -595,3 +597,186 @@ def bench_batched(batch: int = 256, dim: int = 512, reps: int = 5, chain: int = 
         return r.eigenvalue[0] + r.eigenvector[0, 0] * _BIAS_SCALE
 
     return [batched_row(As, res, time_marginal(step, 0.0, k=chain, reps=reps))]
+
+
+# --- the sharded and multi-process solves ------------------------------------
+
+
+def balanced_factorization(p: int) -> tuple:
+    """(pr, pc) with pr·pc = p and pr the largest divisor ≤ √p: the
+    squarest mesh shape (the JAX package's ``utils.scaling_model``)."""
+    pr = 1
+    for cand in range(1, int(p**0.5) + 1):
+        if p % cand == 0:
+            pr = cand
+    return pr, p // pr
+
+
+def exchange_times(group, n: int, device, blocks: int = 15, calls: int = 40) -> dict:
+    """Host µs a call of each exchange of a round on ``group`` (the process
+    group of one mesh dimension), each call followed by the read of one
+    element, as the loops read a flag every round: an all-gather of ``n``
+    floats (the gathered body's v), a MAX all-reduce of 3 floats (the
+    ring's stop, max and λ), the ring's hop of ``n`` floats to the next
+    rank, and, as the baseline, a sum of the ``n`` floats.  The median over
+    ``blocks`` blocks of ``calls`` calls, the arms in turn within a block;
+    one block first, untimed."""
+    import statistics
+    import time
+
+    import torch.distributed as dist
+
+    from ..parallel._collectives import all_gather, all_reduce_max, ppermute
+
+    size = dist.get_world_size(group)
+    x, three = torch.ones(n, device=device), torch.ones(3, device=device)
+    fns = {
+        "sum (baseline)": lambda: x.sum(),
+        "all_gather": lambda: all_gather(x, group),
+        "max_all_reduce": lambda: all_reduce_max(three, group),
+        "ring_hop": lambda: ppermute(x, [(i, (i + 1) % size) for i in range(size)], group),
+    }
+    samples = {k: [] for k in fns}
+    for b in range(blocks + 1):
+        for k, fn in fns.items():
+            dist.barrier(group)
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                bool(fn().reshape(-1)[0] > 0)
+            if b:
+                samples[k].append((time.perf_counter() - t0) / calls * 1e6)
+    return {k: statistics.median(v) for k, v in samples.items()}
+
+
+def bench_sharded(dim: int = 4096, reps: int = 5) -> List[dict]:
+    """The sharded solves of Hilbert ``dim``² in the world this process was
+    launched in: P is the process group's size (``torchrun
+    --nproc_per_node=K``), or 1 with a one-rank NCCL group started here.
+    The gathered, ring and 2-D solves (the 2-D one on the squarest pr × pc
+    mesh of P); ms per solve with CUDA events on this rank after a barrier
+    (a solve ends on every rank together: its loop runs in lockstep),
+    rounds against the table, elements/s per card; then one ``exchange``
+    row: the host µs of each exchange of a round alone, on the rows group
+    (:func:`exchange_times`, vectors of ``dim / P`` floats).  One P per
+    launch: the rows carry P and claim no scaling."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_sharded measures CUDA devices; none is available")
+    import os
+
+    import torch.distributed as dist
+
+    from ..parallel import (
+        make_mesh2d,
+        make_row_mesh,
+        multihost,
+        solve_sharded_2d,
+        solve_sharded_matvec,
+        solve_sharded_matvec_ring,
+    )
+
+    if not dist.is_initialized() and "WORLD_SIZE" in os.environ:
+        multihost.initialize()  # launched by torchrun: its env:// variables
+    rows_mesh = make_row_mesh()
+    p = dist.get_world_size()
+    pr, pc = balanced_factorization(p)
+    mesh2d = make_mesh2d(pr, pc)
+    A = fixtures.hilbert_matrix(dim, device=torch.device("cuda", torch.cuda.current_device()))
+    solvers = {
+        "matvec_gather": (lambda: solve_sharded_matvec(A, rows_mesh), f"{p}"),
+        "matvec_ring": (lambda: solve_sharded_matvec_ring(A, rows_mesh), f"{p}"),
+        "matvec_2d": (lambda: solve_sharded_2d(A, mesh2d), f"{pr}x{pc}"),
+    }
+    out = []
+    for name, (fn, shape) in solvers.items():
+        rounds = int(fn().rounds)  # also sets up the communicators
+        dist.barrier()
+        ms = time_call(fn, reps=reps).median_ms
+        out.append({
+            "bench": "sharded", "solver": name, "dim": dim, "shards": p, "mesh": shape,
+            "ms": ms, "rounds": rounds,
+            "rounds_ok": rounds == fixtures.HILBERT_ROUNDS.get(dim, rounds),
+            "elems_per_s_per_chip": rounds * dim * dim / (ms * 1e-3) / p,
+            "card": torch.cuda.get_device_name(), "transport": "nccl",
+        })
+    ex = exchange_times(rows_mesh.get_group("rows"), dim // p, A.device)
+    out.append({"bench": "sharded", "solver": "exchange", "dim": dim, "shards": p,
+                "mesh": f"{p}", "exchange_us": ex, "card": torch.cuda.get_device_name(),
+                "transport": "nccl"})
+    return out
+
+
+def run_mh_workers(nprocs: int, dim: int, reps: int, solvers=("gather",), device: str = "cuda",
+                   nodes: Optional[int] = None, timeout_s: float = 600.0) -> List[dict]:
+    """Start ``nprocs`` processes of ``bench/mh_worker.py`` as one group
+    (rank 0 at a free port of localhost) and return each one's JSON record.
+    A failed or timed-out worker raises, and its siblings are killed rather
+    than left waiting in the group's rendezvous."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [root, env.get("PYTHONPATH")]))
+    if device == "cpu":
+        env["OMP_NUM_THREADS"] = "1"
+    cmd = [sys.executable, "-m", "eigen_value_tpu_torch.bench.mh_worker", "--device", device,
+           "--num-processes", str(nprocs), "--coordinator", f"localhost:{port}",
+           "--dim", str(dim), "--reps", str(reps), "--solver", *solvers]
+    if nodes:
+        cmd += ["--nodes", str(nodes)]
+    procs = [subprocess.Popen(cmd + ["--process-id", str(r)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True, env=env, cwd=root)
+             for r in range(nprocs)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=timeout_s)
+            if p.returncode != 0:
+                raise RuntimeError(f"mh_worker failed:\n{err[-3000:]}")
+            lines = [line for line in out.splitlines() if line.startswith("{")]
+            if not lines:
+                raise RuntimeError(f"mh_worker printed no JSON line:\n{out[-2000:]}")
+            outs.append(json.loads(lines[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return outs
+
+
+def bench_multihost(dim: int = 2048, reps: int = 3) -> List[dict]:
+    """The multi-process flow on this host's cards: ``mh_worker`` groups of
+    one process, and of two where the host has two cards, each process on
+    its own card with NCCL.  Per solver (gathered, ring, 2-D) the least ms
+    of ``reps`` solves, rounds and elements/s; ``scaling_efficiency``
+    against the one-process row only where a group of two ran (null
+    otherwise: one card claims no scaling)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_multihost measures CUDA devices; none is available")
+    solvers = ("gather", "ring", "2d")
+    groups = [1] + ([2] if torch.cuda.device_count() >= 2 else [])
+    base = {}
+    rows = []
+    for nprocs in groups:
+        rec = run_mh_workers(nprocs, dim, reps, solvers)[0]
+        for solver in solvers:
+            r = rec["results"][solver]
+            if nprocs == 1:
+                base[solver] = r["elems_per_s"]
+            rows.append({
+                "bench": "multihost", "solver": solver, "processes": rec["num_processes"],
+                "global_devices": rec["global_devices"], "dim": dim, "mesh": r["mesh"],
+                "ms": r["ms"], "rounds": r["rounds"], "elems_per_s": r["elems_per_s"],
+                "scaling_efficiency": (r["elems_per_s"] / (nprocs * base[solver])
+                                       if nprocs > 1 else None),
+                "card": rec["card"], "transport": "nccl",
+            })
+    return rows

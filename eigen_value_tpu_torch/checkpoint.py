@@ -25,14 +25,18 @@ by a quantized ev instead; the port does not copy it.
 The snapshot is an ``.npz`` with the JAX package's fields, so an f32 or f64
 snapshot written by either package loads in the other.  numpy has no
 bfloat16, so a 2-byte A is written as its raw uint16 bits with its dtype
-name beside them: such a snapshot is the port's own.  Orbax (JAX's sharded
-multi-host snapshots) has no counterpart yet: it arrives with the sharded
-solves.
+name beside them: such a snapshot is the port's own.  JAX's Orbax snapshots
+(sharded, multi-host state) have their counterpart in
+``torch.distributed.checkpoint`` (:func:`save_state_orbax`,
+:func:`load_state_orbax`, the JAX names): a directory in which each rank
+writes its own shards.  The two formats do not read each other.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -309,15 +313,36 @@ def load_state(path: str, with_eps: bool = False, device=None):
 
 
 def save_state_orbax(path: str, state: SolverState) -> None:
-    """Orbax snapshots (sharded, multi-host state) are not ported: they come
-    with the sharded solves, on ``torch.distributed.checkpoint``."""
-    from .api import _not_ported
+    """Snapshot through ``torch.distributed.checkpoint`` (the counterpart of
+    JAX's Orbax snapshot): ``path`` becomes a directory in which every rank
+    writes its own shards of the state's tensors, DTensors included, and
+    nothing is gathered.  With no process group running, one process
+    writes it all.  An existing snapshot at ``path`` is overwritten."""
+    import torch.distributed.checkpoint as dcp
 
-    raise _not_ported("save_state_orbax (sharded snapshots)", "Queue 1 item 10")
+    with _one_process_ok():
+        dcp.save(dict(state._asdict()),
+                 storage_writer=dcp.FileSystemWriter(os.path.abspath(path), overwrite=True))
 
 
 def load_state_orbax(path: str, template: SolverState) -> SolverState:
-    """See :func:`save_state_orbax`."""
-    from .api import _not_ported
+    """Restore a :func:`save_state_orbax` snapshot.  ``template`` gives the
+    shapes, dtypes, devices and placements (a freshly built state, e.g.
+    ``init_state`` of the same matrix); it is not written."""
+    import torch.distributed.checkpoint as dcp
 
-    raise _not_ported("load_state_orbax (sharded snapshots)", "Queue 1 item 10")
+    target = {k: v.clone() for k, v in template._asdict().items()}
+    with _one_process_ok():
+        dcp.load(target, checkpoint_id=os.path.abspath(path))
+    return SolverState(**target)
+
+
+@contextlib.contextmanager
+def _one_process_ok():
+    """Silence ``torch.distributed.checkpoint``'s notices that it runs in
+    one process when no group is running and that it overwrites an
+    existing snapshot: both are the intended use here."""
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="torch.distributed is disabled")
+        warnings.filterwarnings("ignore", message="Detected an existing checkpoint")
+        yield

@@ -35,8 +35,8 @@ NVCC_FLAGS = (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # A, x, y, n, m, elem, stream (elem: A's element type, kernels._ELEM)
-    "evt_matvec": (_P, _P, _P, _I, _I, _I, _P),
+    # A, x, y, n, m, ld, elem, stream (elem: A's element type, kernels._ELEM)
+    "evt_matvec": (_P, _P, _P, _I, _I, ctypes.c_longlong, _I, _P),
     # A, ev_in, v_in, lam_in, budget, ev_out, v_out, adv_out, lam_out, raw,
     # n, chunk, eps, init, rel, resident, l2_rows, ring, stamps, elem, grid, stream
     "evt_multiround": (

@@ -139,25 +139,49 @@ def matvec_plain(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.mv(_up(A[r:r + rows]), x) for r in range(0, A.shape[0], rows)])
 
 
+def _leading_dim(A: torch.Tensor) -> int:
+    """The distance in elements between the rows of a 2-D A whose rows are
+    contiguous (``stride(1) == 1``): ``A.stride(0)``, at least the row
+    length.  Raises on any other layout."""
+    if A.dtype not in _ELEM:
+        raise ValueError(f"A must be float32 or bfloat16 or float16, got {A.dtype}")
+    n, m = A.shape
+    if m > 1 and A.stride(1) != 1:
+        raise ValueError(f"A's rows must be contiguous (stride(1) == 1), got strides {A.stride()}")
+    ld = A.stride(0) if n > 1 else m
+    if ld < m:
+        raise ValueError(f"A's rows overlap: stride(0) = {ld} < {m} columns")
+    return ld
+
+
 def matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` for A (n, m) float32, bfloat16 or float16 and x (m,)
-    float32; the result is float32."""
+    float32; the result is float32.  A may be a view whose rows are
+    contiguous and ``ld = A.stride(0)`` elements apart (a column block of a
+    larger matrix, as the sharded solves multiply): the kernel reads row r
+    at ``A + r·ld`` and gives the bits of ``A.contiguous()``.  With m % 4
+    == 0 the base address and ld must keep every row aligned to four
+    elements (16 bytes of f32, 8 of bf16 / f16): the kernel reads rows in
+    chunks of four."""
     if A.dim() != 2:
         raise ValueError(f"A must be 2-D, got shape {tuple(A.shape)}")
     n, m = A.shape
-    _check_stored("A", A, (n, m))
+    ld = _leading_dim(A)
     _check_f32("x", x, (m,))
     dev = tensor_device(A, x)
     if dev.type == "cpu":
         return matvec_plain(A, x)
     _check_aligned(m, A, x)
+    if m % 4 == 0 and ld % 4:
+        raise ValueError(f"A's rows are {ld} elements apart: the chunked kernel needs a "
+                         f"multiple of 4")
     from . import build
 
     y = torch.empty(n, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         _launch(
-            build.load().evt_matvec(A.data_ptr(), x.data_ptr(), y.data_ptr(), n, m,
+            build.load().evt_matvec(A.data_ptr(), x.data_ptr(), y.data_ptr(), n, m, ld,
                                     _ELEM[A.dtype], stream),
             "matvec",
         )

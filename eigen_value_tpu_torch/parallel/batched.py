@@ -1,5 +1,5 @@
-"""Batched solves over (B, n, n) (counterpart of
-``eigen_value_tpu.parallel.batched``).
+"""Batched solves over (B, n, n), optionally sharded over a mesh
+(counterpart of ``eigen_value_tpu.parallel.batched``).
 
 The reference's Python test loops over independent random matrices; the
 batched mode solves them together (BASELINE.json config 4: 256 independent
@@ -10,16 +10,24 @@ ones, which keeps each matrix's own round count: the semantics of JAX's
 still running" and select-freezes each carry.  ``torch.vmap`` cannot run a
 loop whose length depends on the data, so the mask is written out here; the
 host reads one flag a round.
+
+:func:`solve_batched_sharded` shards the batch over a mesh dimension: each
+rank runs :func:`solve_batched` on its slice, and the slices never
+exchange, so each rank stops when its own matrices have (JAX's globally
+masked loop gives the same per-matrix results and runs every device to the
+slowest matrix anywhere).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..config import DEFAULT_CONFIG, SolverConfig
 from ..ops.cuda import kernels
 from ..ops.solver import SolveResult, stop_check
 from ..ops.solver_matvec import _stored
 from ..ops.structured import _matmul_f32
+from .sharded import _as_tensor, _batch_result, _local, require_axis
 
 
 def solve_batched(
@@ -52,8 +60,19 @@ def solve_batched(
     """
     if As.dim() != 3 or As.shape[1] != As.shape[2]:
         raise ValueError(f"expected (B, n, n), got {tuple(As.shape)}")
+    return _solve_masked(As, As.shape[2], eps, max_itr, storage_dtype, eps_mode, ev0=ev0)
+
+
+def _solve_masked(As: torch.Tensor, n: int, eps: float, max_itr: int, storage_dtype=None,
+                  eps_mode: str = "absolute", ev0=None, gathered=None) -> SolveResult:
+    """The masked loop of :func:`solve_batched` over ``As`` of shape
+    (B, rows, n): all of each matrix's rows, or, with ``gathered``, this
+    rank's block of them, whose products ``gathered`` completes to (B, n)
+    (the row-sharded batch: an all-gather along the rows).  The live mask
+    is computed from the full v, so every rank of a row group keeps the
+    same matrices live."""
     As, dtype = _stored(As, storage_dtype)
-    B, n, _ = As.shape
+    B = As.shape[0]
     dev = As.device
     per_matrix = As.element_size() < 4
     if ev0 is None:
@@ -68,11 +87,12 @@ def solve_batched(
         """``As @ ev`` a row per matrix; on the 2-byte route only the live
         matrices' rows are computed (the others are masked out anyway)."""
         if not per_matrix:
-            return _matmul_f32(As, ev[:, :, None])[:, :, 0]
-        out = torch.zeros_like(ev)
-        for b in range(B) if live is None else live:
-            out[b] = kernels.matvec(As[b], ev[b])
-        return out
+            y = _matmul_f32(As, ev[:, :, None])[:, :, 0]
+        else:
+            y = torch.zeros(B, As.shape[1], dtype=dtype, device=dev)
+            for b in range(B) if live is None else live:
+                y[b] = kernels.matvec(As[b], ev[b])
+        return y if gathered is None else gathered(y)
 
     v = products(ev, None) / ev
     lam = torch.zeros(B, dtype=dtype, device=dev)
@@ -104,3 +124,28 @@ def solve_batched(
     ev = torch.where(converged[:, None], ev * (v / m), ev)
     lam = torch.where(converged, v[:, 0], lam)
     return SolveResult(lam, ev, rounds, converged)
+
+
+def solve_batched_sharded(
+    As,
+    mesh,
+    axis_name: str = "batch",
+    config: SolverConfig = DEFAULT_CONFIG,
+) -> SolveResult:
+    """Batched solve with the batch sharded over ``axis_name`` of ``mesh``
+    (a ``DeviceMesh``): each rank solves its slice with
+    :func:`solve_batched`.  ``As`` is the whole batch on every rank (each
+    rank takes its slice) or a DTensor sharded over the batch.  Per-matrix
+    rounds, flags and values are those of the unsharded batch.  Every
+    result is a DTensor whose leading dim is sharded over ``axis_name``."""
+    As = _as_tensor(As)
+    B = As.shape[0]
+    n_shards = require_axis(mesh, axis_name)
+    if B % n_shards != 0:
+        raise ValueError(f"batch {B} not divisible by {n_shards} shards")
+    b_loc = B // n_shards
+    b0 = mesh.get_local_rank(axis_name) * b_loc
+    local = _local(As, mesh, {axis_name: 0}, (slice(b0, b0 + b_loc),))
+    res = solve_batched(local, config.eps, config.max_itr, storage_dtype=config.storage_dtype,
+                        eps_mode=config.eps_mode)
+    return _batch_result(res, mesh, axis_name)

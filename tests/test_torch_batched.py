@@ -10,7 +10,7 @@ and convergence flags are exact per matrix; λ within rel 1e-6 and ev within
 1e-5 (the JAX tests' own bounds; the batched product sums in another order
 than JAX's).  A 2-byte batch follows the port's storage contract and is held
 bit for bit to ``solve_matvec_kernel`` of each stored matrix; the sharded
-batch waits for ROADMAP Queue 1 item 10.
+batch is tests/test_torch_sharded.py's.
 """
 
 import numpy as np
@@ -212,7 +212,9 @@ def test_max_eigenvalue_batch_rejects_what_jax_rejects_in_its_words(knob):
 
 
 def test_a_mesh_is_not_ported_yet():
-    with pytest.raises(ValueError, match="Queue 1 item 10"):
+    # the mesh door is ported (tests/test_torch_sharded.py); what is no mesh
+    # with a 'batch' dimension is rejected with the JAX package's words
+    with pytest.raises(ValueError, match="a batched mesh needs a 'batch' axis"):
         evt.max_eigenvalue_batch(torch.ones(2, 8, 8), mesh=object())
 
 

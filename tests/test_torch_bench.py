@@ -99,10 +99,15 @@ def _no_card():
         lambda: cli.main(["--suite", "operator", "--dims", str(N)]),
         lambda: bench.bench_batched(batch=2, dim=N),
         lambda: cli.main(["--suite", "batched", "--dims", str(N), "--batch", "2"]),
+        lambda: bench.bench_sharded(dim=N),
+        lambda: cli.main(["--suite", "sharded", "--dims", str(N)]),
+        lambda: bench.bench_multihost(dim=N),
+        lambda: cli.main(["--suite", "multihost", "--dims", str(N), "--json"]),
     ],
     ids=["time_marginal", "bench_kernels", "cli", "cli-default-suite", "bench_vector_kernels",
          "bench_e2e", "cli-vector", "cli-e2e", "bench_operator", "cli-operator",
-         "bench_batched", "cli-batched"],
+         "bench_batched", "cli-batched", "bench_sharded", "cli-sharded", "bench_multihost",
+         "cli-multihost"],
 )
 def test_no_cpu_time_is_reported_as_a_device_time(call):
     _no_card()
@@ -123,7 +128,8 @@ def test_cli_rejects_the_unported_suites_by_name(suite):
 
 
 def test_cli_runs_the_jax_clis_all_and_names_unknown_backends():
-    assert cli.PORTED == ("e2e", "kernels", "vector", "operator", "batched", "all")
+    assert cli.PORTED == ("e2e", "kernels", "vector", "operator", "batched", "sharded",
+                          "multihost", "all")
     with pytest.raises(SystemExit, match="unknown e2e backends .*'nope'"):
         cli.main(["--suite", "e2e", "--backends", "nope"])
 
@@ -503,3 +509,24 @@ def test_batched_rows_print_in_the_jax_clis_format(monkeypatch, capsys):
     assert got == {"dim": 64, "batch": 8, "reps": 5}
     lines = capsys.readouterr().out.splitlines()
     assert [json.loads(line) for line in lines] == json.loads(json.dumps(BATCHED_ROWS))
+
+
+def test_the_squarest_mesh_shape_is_jaxs():
+    from eigen_value_tpu.utils.scaling_model import balanced_factorization
+
+    for p in range(1, 65):
+        assert tsuite.balanced_factorization(p) == balanced_factorization(p)
+
+
+def test_the_sharded_tables_name_p_and_claim_no_scaling_from_one_card():
+    rows = [{"bench": "sharded", "solver": "matvec_ring", "dim": 4096, "shards": 1, "mesh": "1",
+             "ms": 2.5, "rounds": 15, "rounds_ok": True},
+            {"bench": "multihost", "solver": "2d", "dim": 2048, "processes": 1,
+             "mesh": {"rows": 1, "cols": 1}, "ms": 1.25, "rounds": 3, "scaling_efficiency": None}]
+    rows.append({"bench": "sharded", "solver": "exchange", "dim": 4096, "shards": 1, "mesh": "1",
+                 "exchange_us": {"sum (baseline)": 40.0, "all_gather": 300.5}})
+    text = cli._fmt_sharded(rows).splitlines()
+    assert "1 shards (1)" in text[0] and "15 round(s)" in text[0] and "efficiency" not in text[0]
+    assert "1 processes" in text[1] and "efficiency" not in text[1]
+    assert text[2] == ("[sharded] exchange 4096 / 1 floats on 1 shards: sum (baseline) 40.0 us, "
+                       "all_gather 300.5 us")

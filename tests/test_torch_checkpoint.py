@@ -298,12 +298,20 @@ def test_a_float64_matrix_steps_the_torch_mv_loop():
     assert res.eigenvector.dtype == torch.float64
 
 
-def test_orbax_is_not_ported_and_says_where_it_goes(hilbert):
-    state = cp.init_state(hilbert)
-    with pytest.raises(ValueError, match="save_state_orbax .*Queue 1 item 10"):
-        cp.save_state_orbax("x", state)
-    with pytest.raises(ValueError, match="load_state_orbax .*Queue 1 item 10"):
-        cp.load_state_orbax("x", state)
+def test_orbax_is_not_ported_and_says_where_it_goes(hilbert, tmp_path):
+    # the Orbax snapshots are ported onto torch.distributed.checkpoint: a
+    # mid-solve state written and read back is bit for bit the state, and
+    # the resumed solve the one-launch solve
+    state = cp.step(cp.init_state(hilbert), 3)
+    path = str(tmp_path / "snap")
+    cp.save_state_orbax(path, state)
+    template = cp.init_state(hilbert)
+    keep = [t.clone() for t in template]
+    back = cp.load_state_orbax(path, template)
+    assert all(torch.equal(a, b) and a.dtype == b.dtype for a, b in zip(back, state))
+    assert all(torch.equal(a, b) for a, b in zip(template, keep))  # not written
+    cp.save_state_orbax(path, back)  # an existing snapshot is overwritten
+    assert bitwise(cp.to_result(cp.step(back, 1000)), solve_multiround(hilbert, EPS, MAX_ITR))
 
 
 def test_a_snapshot_goes_to_the_card_unless_the_cpu_is_asked(tmp_path, hilbert, monkeypatch):

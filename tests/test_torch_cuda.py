@@ -1046,3 +1046,113 @@ def test_a_gradient_on_the_card_is_the_cpus(cuda):
         return dp
 
     torch.testing.assert_close(hgrad(h.to(cuda)).cpu(), hgrad(h), rtol=1e-3, atol=1e-6)
+
+
+# --- the matvec kernel's leading dimension, and the sharded solves on a
+# one-rank NCCL mesh (this card; several cards are not in this file) ---
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("parts", [2, 4, 8])
+def test_matvec_reads_a_column_block_in_place(cuda, dtype, parts):
+    n = 2048
+    A = tfx.hilbert_matrix(n, device=cuda).to(dtype)
+    w = n // parts
+    x = (torch.rand(w, generator=torch.Generator().manual_seed(parts)) + 0.5).to(cuda)
+    for s in range(parts):
+        for view in (A[:, s * w:(s + 1) * w], A[w:2 * w, s * w:(s + 1) * w]):
+            assert view.stride() == (n, 1)
+            got = tk.matvec(view, x)
+            assert torch.equal(got, tk.matvec(view.contiguous(), x))
+            want = view.double() @ x.double()
+            assert float(((got.double() - want).abs() / want).max()) < 2e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_matvec_refuses_a_view_whose_rows_are_not_aligned(cuda, dtype):
+    x = torch.ones(64, device=cuda)
+    A = torch.ones(64, 65, device=cuda, dtype=dtype)
+    before = tk.matvec.launches
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tk.matvec(A[:, :64], x)  # rows 65 elements apart
+    B = torch.ones(64, 72, device=cuda, dtype=dtype)
+    with pytest.raises(ValueError, match="aligned"):
+        tk.matvec(B[:, 1:65], x)  # the first row one element off its chunk
+    assert tk.matvec.launches == before
+    C = torch.rand(64, 67, device=cuda).to(dtype)
+    y = torch.ones(63, device=cuda)  # 63 columns: the scalar path takes any ld
+    assert torch.equal(tk.matvec(C[:, 1:64], y), tk.matvec(C[:, 1:64].contiguous(), y))
+
+
+@pytest.fixture(scope="module")
+def nccl():
+    """A one-rank NCCL group on this card (``make_row_mesh(1)`` starts it)
+    and its meshes; the group is destroyed after the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    import torch.distributed as dist
+
+    from eigen_value_tpu_torch.parallel import make_mesh2d, make_row_mesh
+
+    started = not dist.is_initialized()
+    meshes = {"rows": make_row_mesh(1), "2d": make_mesh2d(1, 1),
+              "batch": make_row_mesh(1, "batch"), "batch_rows": make_mesh2d(1, 1, "batch", "rows")}
+    yield meshes
+    if started:
+        dist.destroy_process_group()
+
+
+def _local(res):
+    return [x.to_local() if hasattr(x, "to_local") else x for x in res]
+
+
+@pytest.mark.parametrize("storage", [None, torch.bfloat16])
+@pytest.mark.parametrize("body", ["gather", "ring", "2d", "door"])
+def test_one_rank_mesh_solves_are_the_kernel_loop_bit_for_bit(cuda, nccl, body, storage):
+    from eigen_value_tpu_torch.parallel import (
+        solve_sharded_2d,
+        solve_sharded_matvec,
+        solve_sharded_matvec_ring,
+    )
+
+    H = tfx.hilbert_matrix(1024, device=cuda)
+    cfg = evt.SolverConfig(storage_dtype=storage)
+    want = solve_matvec_kernel(H, EPS, MAX_ITR, storage_dtype=storage)
+    before = tk.matvec.launches
+    got = {
+        "gather": lambda: solve_sharded_matvec(H, nccl["rows"], config=cfg),
+        "ring": lambda: solve_sharded_matvec_ring(H, nccl["rows"], config=cfg),
+        "2d": lambda: solve_sharded_2d(H, nccl["2d"], config=cfg),
+        "door": lambda: evt.max_eigenvalue(H, cfg, mesh=nccl["rows"]),
+    }[body]()
+    torch.cuda.synchronize()
+    assert tk.matvec.launches - before == int(want.rounds) + 1
+    assert all(torch.equal(g, w) for g, w in zip(_local(got), want))
+    assert int(got.rounds) == tfx.HILBERT_ROUNDS[1024] or storage is not None
+
+
+def test_one_rank_iterated_and_batched_mesh_solves(cuda, nccl):
+    from eigen_value_tpu_torch.parallel import solve_sharded
+
+    H = tfx.hilbert_matrix(1024, device=cuda)
+    got = solve_sharded(H, nccl["rows"])
+    assert all(torch.equal(g, w) for g, w in zip(_local(got), solve_xla(H, EPS, MAX_ITR)))
+    g = torch.Generator().manual_seed(11)
+    mats = (torch.rand(8, 256, 256, generator=g) + 1e-4).to(cuda)
+    want = evt.max_eigenvalue_batch(mats)
+    for mesh in (nccl["batch"], nccl["batch_rows"]):
+        got = evt.max_eigenvalue_batch(mats, mesh=mesh)
+        assert all(torch.equal(g, w) for g, w in zip(_local(got), want))
+
+
+def test_a_cuda_exchange_over_gloo_raises(cuda, nccl):
+    import torch.distributed as dist
+
+    from eigen_value_tpu_torch.parallel import _collectives as col
+
+    gloo = dist.new_group([0], backend="gloo")
+    x = torch.ones(4, device=cuda)
+    for fn in (lambda: col.ppermute(x, [(0, 0)], gloo), lambda: col.all_gather(x, gloo),
+               lambda: col.all_reduce_max(x, gloo)):
+        with pytest.raises(ValueError, match="NCCL"):
+            fn()
