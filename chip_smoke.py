@@ -120,6 +120,19 @@ the unsharded batch; ``bench/mh_worker.py`` as a process of its own at
 8192² (and a 2-process NCCL group where the host has two cards); and the
 P = 1 mesh solves timed beside the single-card loop.
 
+The headline and the tools (``tools_phase``, step 9): the port of the root
+bench.py (``python -m eigen_value_tpu_torch.bench.headline``) in a process
+of its own at 8192² with 3 windows, its record printed on a line of its own
+and held to 17 rounds on the cached triangle, every window at or above the
+physical floor, the root script's keys and the four secondaries; then, with
+the launch counters read around exactly these calls, the bench suites
+``large`` (32768² f32 dense and symmetric, 65536² bf16 on the matvec kernel
+loop: 21 rounds, λ within 1e-5 of a float64 loop), ``drift`` (3 windows with
+the card's clocks), ``calibrate`` (gloo groups of 2 and 4 CPU processes),
+``model`` and ``native``; every ported example's ``main()`` on the card; and
+one symmetric solve under ``utils.profiling.trace``, whose chrome trace must
+hold the triangle kernel's device time.
+
 Uses torch only (no jax).  Exits non-zero, without the final result line,
 on any failed check or when there is no CUDA device.
 
@@ -950,6 +963,171 @@ def mesh_phase(dev, mats, reset_counts, read_counts, card) -> dict:
     dist.destroy_process_group()
     return {"launches": total, "strided_max_abs_err": strided_err, "views": views, "ms": ms,
             "added_us_per_round": added, "exchange_us": exch_us}
+
+
+#: The keys of the root bench.py's record (its ``summarize``, with suspect
+#: windows): the port's headline keeps each of them.
+JAX_RECORD_KEYS = ("metric", "value", "unit", "vs_baseline", "wall_chain_ms", "wall_single_ms",
+                   "chain", "rounds", "backend", "windows_ms", "median_ms", "floor_ms",
+                   "traffic_frac", "cache_tiles", "compute_bound")
+#: What tests/test_examples.py reads in the JAX examples' output, by example.
+EXAMPLE_LINES = {
+    "quickstart": ("round(s)", "functional: λ", "bf16 fast mode"),
+    "matrix_free": ("operator solve (FFT Hankel", "matches dense within 1e-3",
+                    "convergence: rate", "f64 polish: λ"),
+    "pagerank": ("exact answer: λ = 1", "dense cross-check", "top-5 nodes:"),
+    "autodiff": ("target 40.0", "∂v[0]/∂A"),
+    "distributed": ("sharded (1 devices)", "rounds = 13 (expect 13)", "ring:", "checkpointed"),
+    "large_scale": ("32768² Hilbert (float32)", "65536² Hilbert (bf16 storage)"),
+    "serving": ("served solve", "rounds = 13", "residual check passed"),
+}
+
+
+def tools_phase(dev, here, reset_counts, read_counts, card) -> dict:
+    """The headline and the tools (step 9).
+
+    9a: ``python -m eigen_value_tpu_torch.bench.headline`` in a process of
+    its own at 8192² with 3 windows a second apart: its last line is the
+    record (printed here on a line of its own), held to 17 rounds on the
+    cached triangle, every window at or above ``floor_ms``, the root
+    bench.py's keys, ``call_ms``, the card from ``nvidia-smi``, the four
+    secondaries and the Hankel operator's rounds; the record's ``launches``
+    are the kernels that process ran.  Then, with the launch counters read
+    around exactly these calls: 9b the bench suites ``large`` (λ against a
+    float64 loop, rounds against the port's table), ``drift`` (3 windows a
+    second apart), ``calibrate`` (gloo groups of 2 and 4 CPU processes),
+    ``model`` and ``native`` (128…1024) through the CLI's code; 9c every
+    ported example's ``main()`` on the card, its lines held to what
+    tests/test_examples.py reads; 9d one symmetric solve under
+    ``utils.profiling.trace``, whose chrome trace must hold the triangle
+    kernel's device time.  Returns the counts, the headline's added in."""
+    import contextlib
+    import importlib
+    import io
+    import tempfile
+
+    import torch
+
+    import eigen_value_tpu_torch as evt
+    from eigen_value_tpu_torch import fixtures
+    from eigen_value_tpu_torch.bench import suite
+    from eigen_value_tpu_torch.bench.__main__ import (
+        _fmt_calibrate,
+        _fmt_drift,
+        _fmt_large,
+        _fmt_native,
+    )
+    from eigen_value_tpu_torch.bench.__main__ import main as cli_main
+    from eigen_value_tpu_torch.examples import EXAMPLES
+    from eigen_value_tpu_torch.utils import profiling
+
+    # --- 9a. the headline, a process of its own ---
+    t0 = time.perf_counter()
+    env = dict(os.environ, BENCH_WINDOWS="3", BENCH_WINDOW_GAP_S="1")
+    env.pop("BENCH_DIM", None)
+    env.pop("BENCH_DEVICE", None)
+    proc = subprocess.run([sys.executable, "-m", "eigen_value_tpu_torch.bench.headline"],
+                          cwd=here, env=env, capture_output=True, text=True, timeout=900)
+    for line in proc.stderr.splitlines()[-12:]:
+        say("  headline:", line)
+    check(proc.returncode == 0, f"the headline exited {proc.returncode}")
+    rec = json.loads(proc.stdout.strip().splitlines()[-1])
+    say(json.dumps(rec, allow_nan=False))
+    missing = [k for k in JAX_RECORD_KEYS + ("call_ms", "call_ms_min", "device", "clocks",
+                                             "bf16_ms", "dense_f32_ms", "sym_stream_ms",
+                                             "hankel_fft_ms", "hankel_fft_rounds", "launches")
+               if k not in rec]
+    check(not missing, f"the headline record lacks {missing}")
+    check(rec["metric"] == "hilbert_8192_e2e_device" and rec["rounds"] == 17
+          and rec["backend"] == "multiround_sym_cached_pallas",
+          f"headline: {rec['metric']}, {rec['rounds']} rounds, {rec['backend']}")
+    check(rec["value"] >= rec["floor_ms"] and all(w >= rec["floor_ms"] for w in rec["windows_ms"])
+          and not rec.get("suspect"), "a headline window below the physical floor")
+    check(rec["hankel_fft_rounds"] == rec["rounds"], "the Hankel operator's rounds")
+    check(all(rec[k] > 0 for k in ("bf16_ms", "dense_f32_ms", "sym_stream_ms", "hankel_fft_ms",
+                                   "call_ms")), "a headline time is not positive")
+    check(rec["device"]["name"] in card and rec["device"]["power_limit_w"] is not None,
+          f"the headline's card {rec['device']} against nvidia-smi's {card}")
+    check(rec["launches"]["multiround_sym"] > 0 and rec["launches"]["multiround"] > 0,
+          f"the headline's launches {rec['launches']}")
+    say(f"headline: {time.perf_counter() - t0:.1f} s in its own process")
+
+    reset_counts()
+    # --- 9b. the bench suites ---
+    t0 = time.perf_counter()
+    large = suite.bench_large()
+    say(_fmt_large(large))
+    for r in large:
+        say(json.dumps(r, allow_nan=False))
+        check("error" not in r, f"large {r['backend']}: {r.get('error')}")
+        check("skipped" in r or r["rounds_ok"], f"large {r['backend']}: rounds or λ")
+    by_name = {r["backend"]: r for r in large}
+    big = by_name["bf16_65536"]
+    check(big["rounds"] == 21 and big["rel_err"] <= 1e-5,
+          f"large bf16_65536: {big['rounds']} rounds, rel {big['rel_err']}")
+    check("skipped" in by_name["sym_bf16_65536"] and "skipped" not in by_name["sym_f32_32768"],
+          "the large rows' routes")
+    drift = suite.bench_drift(dim=8192, windows=3, gap_s=1.0)
+    say(_fmt_drift(drift))
+    say(json.dumps(drift[-1], allow_nan=False))
+    check(len(drift) == 4 and not any(r.get("suspect") for r in drift[:-1])
+          and all(r["sm_mhz"] is not None for r in drift[:-1]), "the drift windows")
+    calib = suite.bench_exchange_calibration(dim=8192, reps=3)
+    say(_fmt_calibrate(calib))
+    check(any(r["bench"] == "model_calibration_fit" for r in calib)
+          and all(r["measured_us"] > 0 for r in calib if "measured_us" in r), "the calibration")
+    native = suite.bench_native([128, 256, 512, 1024])
+    say(_fmt_native(native))
+    check(native and all(r["rounds_ok"] for r in native if r["bench"] == "native"),
+          "the native runtime's rows")
+    for args in (["--suite", "model"], ["--suite", "model", "--json"]):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            check(cli_main(args) == 0, f"cli {args}")
+        text = out.getvalue()
+        if "--json" in args:
+            rows = [json.loads(line) for line in text.splitlines()]
+            check(len(rows) > 50 and any(r["efficiency"] is None for r in rows), "model --json")
+        else:
+            say("\n".join(text.splitlines()[:12]))
+    say(f"suites: {time.perf_counter() - t0:.1f} s")
+
+    # --- 9c. the examples on the card ---
+    for name in EXAMPLES:
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            importlib.import_module(f"eigen_value_tpu_torch.examples.{name}").main()
+        text = out.getvalue()
+        say(f"example {name} ({time.perf_counter() - t0:.1f} s):")
+        say("\n".join("  " + line for line in text.splitlines()))
+        lost = [want for want in EXAMPLE_LINES[name] if want not in text]
+        check(not lost, f"example {name} did not print {lost}")
+
+    # --- 9d. a solve under the profiler ---
+    H = fixtures.hilbert_matrix(8192, device=dev)
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d):
+            with profiling.annotate("headline solve"):
+                res = evt.max_eigenvalue(H, evt.SolverConfig(symmetric=True))
+        with open(os.path.join(d, profiling.TRACE_FILE)) as f:
+            events = json.load(f)["traceEvents"]
+    kernel_us = sum(e.get("dur", 0) for e in events
+                    if e.get("cat") == "kernel" and "multiround_sym_kernel" in e.get("name", ""))
+    annotated = any(e.get("name") == "headline solve" for e in events)
+    say(f"profiled solve: rounds {int(res.rounds)}, multiround_sym_kernel {kernel_us:.1f} µs of "
+        f"device time in its chrome trace, annotation {annotated}; memory stats "
+        f"{len(profiling.device_memory_stats())} keys")
+    check(int(res.rounds) == 17 and kernel_us > 0 and annotated, "the profiled solve")
+    del H
+    torch.cuda.empty_cache()
+    counts = read_counts()
+    say(f"tools path launches (in this process): {counts}; the headline's process: "
+        f"{rec['launches']}")
+    for name in ("matvec", "multiround", "multiround_sym"):
+        check(counts[name] > 0, f"the tools path launched no {name}")
+    return {"launches": {k: c + rec["launches"].get(k, 0) for k, c in counts.items()},
+            "headline": rec}
 
 
 
@@ -2044,6 +2222,9 @@ def main() -> int:
     p8 = mesh_phase(dev, mats, reset_counts, read_counts, card)
     check(p8["launches"]["matvec"] > 0, "the mesh path launched no matvec")
 
+    # --- 9. the headline and the tools ---
+    p9 = tools_phase(dev, here, reset_counts, read_counts, card)["launches"]
+
     # The least time the card could take: each input read once and each
     # output written once at the published memory rate, against the float32
     # operations at the published rate outside the tensor cores.  The two
@@ -2083,12 +2264,13 @@ def main() -> int:
     jk = "eigen_value_tpu/ops/pallas/kernels.py"
     say(json.dumps({"kernels": [
         record("matvec", "matvec.cu", f"{jk}:227",
-               launches["matvec"] + p7["matvec"] + p8["launches"]["matvec"], mv_err,
+               launches["matvec"] + p7["matvec"] + p8["launches"]["matvec"] + p9["matvec"],
+               mv_err,
                t_mv.median_ms, t_mv_p.median_ms, t_mv_lib, bound(4 * nn + 2 * vec, 2 * nn),
-               mesh_launches=p8["launches"]["matvec"],
+               mesh_launches=p8["launches"]["matvec"], tools_launches=p9["matvec"],
                strided_max_abs_err=p8["strided_max_abs_err"], strided_views=p8["views"]),
-        record("multiround", "multiround.cu", f"{jk}:483", launches["multiround"] + p7["multiround"],
-               mr_err,
+        record("multiround", "multiround.cu", f"{jk}:483",
+               launches["multiround"] + p7["multiround"] + p9["multiround"], mr_err,
                t_mr.median_ms, t_mr_p.median_ms, None,
                bound(4 * nn + 4 * vec, passes * 2 * nn),
                passes_bound_ms=bound(passes * 4 * nn, 0)["bound_ms"],
@@ -2096,9 +2278,11 @@ def main() -> int:
                ring_stages=mr_row["ring"],
                resident_rows=mr_row["resident_rows"], l2_rows=mr_row["l2_rows"],
                streamed_mb_per_round=mr_row["streamed_mb_per_round"],
-               phases_us=mr_row["phases_us"], ms_at=at_sizes("multiround")),
+               phases_us=mr_row["phases_us"], ms_at=at_sizes("multiround"),
+               tools_launches=p9["multiround"]),
         record("multiround_sym", "multiround_sym.cu", f"{jk}:720",
-               sym_launches["multiround_sym"], sym_err, t_sym[f"cache {cache}"].median_ms,
+               sym_launches["multiround_sym"] + p9["multiround_sym"], sym_err,
+               t_sym[f"cache {cache}"].median_ms,
                t_sym_p.median_ms, None, bound(tri_bytes + 4 * vec, passes * 2 * nn),
                passes_bound_ms=bound(passes * tri_streamed + cache * tile_mb, 0)["bound_ms"],
                resident_bound_ms=resident_bound(tri_bytes, cache * tile_mb),
@@ -2106,7 +2290,8 @@ def main() -> int:
                slots=sym_row["slots"], resident_tiles=sym_row["resident_tiles"],
                l2_tiles=sym_row["l2_tiles"],
                streamed_mb_per_round=sym_row["streamed_mb_per_round"],
-               phases_us=sym_row["phases_us"], ms_at=at_sizes("multiround_sym", "cache")),
+               phases_us=sym_row["phases_us"], ms_at=at_sizes("multiround_sym", "cache"),
+               tools_launches=p9["multiround_sym"]),
         record("rowsum", "rowsum.cu", f"{jk}:58", it_launches["rowsum"], it_err["rowsum"],
                *t_it["rowsum"], bound(4 * nn + vec, nn)),
         record("rowsum_bias", "rowsum.cu", "eigen_value_tpu/bench/suite.py:694",

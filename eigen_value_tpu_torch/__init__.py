@@ -12,7 +12,7 @@ torch and numpy only, never jax: ``eigen_value_tpu`` stays the reference
 the port is tested against.
 """
 
-from . import fixtures
+from . import checkpoint, fixtures
 from .api import (
     EigenValue,
     eigen_residual,
@@ -28,6 +28,7 @@ __version__ = "0.1.0"
 __all__ = [
     "EigenValue",
     "eigen_residual",
+    "checkpoint",
     "fixtures",
     "max_eigenvalue",
     "max_eigenvalue_batch",

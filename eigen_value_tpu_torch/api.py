@@ -74,10 +74,6 @@ def resolve_backend(config: SolverConfig, n: int, device: torch.device) -> str:
     return "matvec"
 
 
-def _not_ported(knob: str, item: str) -> ValueError:
-    return ValueError(f"{knob} is not ported to eigen_value_tpu_torch yet (ROADMAP: {item})")
-
-
 def _cache_unservable(cache_tiles: int, n: int, tile: int, consequence: str) -> ValueError:
     """The honored-or-rejected error for an explicit cache request that the
     tiled kernel cannot serve at this dim and tile (JAX's

@@ -1,7 +1,9 @@
 """Benchmark suites of the port (counterpart of ``eigen_value_tpu.bench``):
 ``python -m eigen_value_tpu_torch.bench --suite
-{e2e,kernels,vector,operator,batched,sharded,multihost}``."""
+{e2e,kernels,vector,operator,batched,sharded,multihost,large,drift,calibrate,
+model,native,all}``; the headline record is ``bench/headline.py``."""
 
+from . import suite
 from .suite import (
     E2E_BACKENDS,
     MATRIX_DIMS,
@@ -22,6 +24,7 @@ from .suite import (
 )
 
 __all__ = [
+    "suite",
     "E2E_BACKENDS",
     "MATRIX_DIMS",
     "VECTOR_SIZES",

@@ -27,6 +27,14 @@ rounds, λ, converged, the global residual ``max|A·v − λ·v|`` (float64, fro
 each rank's own rows, combined by a max), and the least wall time over
 ``--reps`` solves after one untimed solve (each solve starts at a barrier
 and ends at a synchronise).
+
+With ``--measure-exchange`` it solves nothing: it times the gathered
+body's per-round exchange alone, an all-gather of n floats from n / P on
+each rank, at n = dim, 4·dim and 16·dim (the scaling model's calibration
+input, ``bench --suite calibrate``), and prints ``{"process_id",
+"num_processes", "shards", "exchange_us": {n: µs}}``.  Each µs is the
+marginal time of one gather, (T(k + 1) − T(1)) / k over chains in which
+each gather depends on the one before, least of ``--reps`` + 2 turns.
 """
 
 from __future__ import annotations
@@ -50,6 +58,48 @@ def hilbert_rows(row0: int, rows: int, n: int):
     return np.float32(1.0) / (r + c + 1).astype(np.float32)
 
 
+def measure_exchange(dim: int, reps: int, dev, sync, k: int = 16) -> dict:
+    """µs of one all-gather of n floats (n / P from each rank) over the
+    world group, at n = dim, 4·dim and 16·dim: (T(k + 1) − T(1)) / k on the
+    host's clock, each chain starting at a barrier and each gather's input
+    depending on the last gather (its first element, scaled to nothing)."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from eigen_value_tpu_torch.parallel._collectives import all_gather
+
+    world = dist.get_world_size()
+    group = dist.group.WORLD
+    tiny = 1e-38
+    # the group's first collective sets up its context while the processes
+    # are still in step (later, heavy work could skew them past a timeout)
+    all_gather(torch.ones(8, device=dev or "cpu"), group)
+
+    def chain(x, m: int) -> float:
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(m):
+            g = all_gather(x, group)
+            x = x + g[0] * tiny
+        sync()
+        return time.perf_counter() - t0
+
+    out = {}
+    for n in (dim, 4 * dim, 16 * dim):
+        x = torch.ones(n // world, device=dev or "cpu")
+        chain(x, 1)
+        chain(x, k + 1)
+        t1 = tk = float("inf")
+        for _ in range(reps + 2):
+            t1 = min(t1, chain(x, 1))
+            tk = min(tk, chain(x, k + 1))
+        out[n] = max(tk - t1, 0.0) / k * 1e6
+    return out
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="eigen_value_tpu_torch.bench.mh_worker")
     p.add_argument("--process-id", type=int, default=0)
@@ -62,6 +112,9 @@ def main(argv=None) -> int:
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--nodes", type=int, default=None,
                    help="treat each span of num_processes / nodes ranks as one host")
+    p.add_argument("--measure-exchange", action="store_true",
+                   help="instead of solving, time the bare per-round all-gather at "
+                        "several vector lengths (scaling-model calibration input)")
     args = p.parse_args(argv)
 
     if args.nodes:
@@ -93,6 +146,13 @@ def main(argv=None) -> int:
     def sync():
         if dev is not None:
             torch.cuda.synchronize(dev)
+
+    if args.measure_exchange:
+        exchange = measure_exchange(n, args.reps, dev, sync)
+        print(json.dumps({"process_id": args.process_id, "num_processes": world,
+                          "shards": world, "exchange_us": exchange}), flush=True)
+        dist.destroy_process_group()
+        return 0
 
     def residual(rows, row0, ev, lam) -> float:
         """The global max|A·v − λ·v| from this rank's ``rows`` (float64)."""

@@ -2,9 +2,12 @@
 end-to-end sweep over the solve forms (``bench_e2e``), the per-kernel ladder
 of the O(n²) passes (``bench_kernels``), the O(n) vector kernels
 (``bench_vector_kernels``), the matrix-free operators beside the dense
-solve (``bench_operator``), the batched solve (``bench_batched``), and the
+solve (``bench_operator``), the batched solve (``bench_batched``), the
 sharded solves in the world the process was launched in (``bench_sharded``)
-and in ``mh_worker`` groups (``bench_multihost``).
+and in ``mh_worker`` groups (``bench_multihost``), the max-size single-card
+rows (``bench_large``), the card's drift over time (``bench_drift``), the
+exchange calibration of the scaling model (``bench_exchange_calibration``)
+and the native C++ runtime on the CPU (``bench_native``).
 
 Each kernel rung is timed marginally, (T(k+1 chained) − T(1)) / k with CUDA
 events (``utils.timing.time_marginal``), and reported with its achieved
@@ -29,7 +32,7 @@ from ..ops.cuda import kernels
 from ..ops.solver import solve_xla, stop_check
 from ..ops.solver_kernel import solve_kernel
 from ..ops.solver_matvec import solve_matvec, solve_matvec_kernel, solve_multiround
-from ..utils.timing import detect_peak_gbps, roofline_pct, time_call, time_marginal
+from ..utils.timing import card_state, detect_peak_gbps, roofline_pct, time_call, time_marginal
 
 MATRIX_DIMS = [1 << p for p in range(7, 14)]  # 128 .. 8192
 VECTOR_SIZES = [1 << p for p in range(16, 26, 3)]  # 2^16 .. 2^25
@@ -707,11 +710,13 @@ def bench_sharded(dim: int = 4096, reps: int = 5) -> List[dict]:
 
 
 def run_mh_workers(nprocs: int, dim: int, reps: int, solvers=("gather",), device: str = "cuda",
-                   nodes: Optional[int] = None, timeout_s: float = 600.0) -> List[dict]:
+                   nodes: Optional[int] = None, timeout_s: float = 600.0,
+                   extra_args=()) -> List[dict]:
     """Start ``nprocs`` processes of ``bench/mh_worker.py`` as one group
-    (rank 0 at a free port of localhost) and return each one's JSON record.
-    A failed or timed-out worker raises, and its siblings are killed rather
-    than left waiting in the group's rendezvous."""
+    (rank 0 at a free port of localhost) and return each one's JSON record;
+    ``extra_args`` go to every worker (``--measure-exchange``).  A failed or
+    timed-out worker raises, and its siblings are killed rather than left
+    waiting in the group's rendezvous."""
     import json
     import os
     import socket
@@ -731,6 +736,7 @@ def run_mh_workers(nprocs: int, dim: int, reps: int, solvers=("gather",), device
            "--dim", str(dim), "--reps", str(reps), "--solver", *solvers]
     if nodes:
         cmd += ["--nodes", str(nodes)]
+    cmd += list(extra_args)
     procs = [subprocess.Popen(cmd + ["--process-id", str(r)], stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True, env=env, cwd=root)
              for r in range(nprocs)]
@@ -778,5 +784,345 @@ def bench_multihost(dim: int = 2048, reps: int = 3) -> List[dict]:
                 "scaling_efficiency": (r["elems_per_s"] / (nprocs * base[solver])
                                        if nprocs > 1 else None),
                 "card": rec["card"], "transport": "nccl",
+            })
+    return rows
+
+
+# --- the max-size single-card rows ----------------------------------------------
+
+#: The port's own round counts of the large rows (chip_smoke.py's 65536² bf16 solve;
+#: the float64 oracle's count at 32768²); smaller dims take the Hilbert table.
+LARGE_ROUNDS = {32768: 20, 65536: 21}
+#: λ against the float64 oracle of the stored matrix, relative (at 65536²
+#: cuBLAS's f32 gemv drifts ~3e-5, so the oracle is a float64 loop).
+LARGE_REL = 1e-5
+
+#: The JAX suite's rows, by its names: (name, n, dtype of A, symmetric).  The
+#: bf16 rows keep the port's one storage contract (A kept in bf16, ev and
+#: every sum f32), never JAX's ``solve_matvec_storage``.
+LARGE_CONFIGS = [
+    ("f32_32768", 32768, torch.float32, False),
+    ("sym_f32_32768", 32768, torch.float32, True),
+    ("bf16_65536", 65536, torch.bfloat16, False),
+    ("sym_bf16_65536", 65536, torch.bfloat16, True),
+]
+
+_SKIP_SYM_TOO_LARGE = (
+    "the triangle kernel keeps ev in one block's shared memory (n up to 57856 on "
+    "an H100); past it a symmetric declaration takes the matvec kernel loop, "
+    "which the dense row of this dim measures"
+)
+
+
+def sym_traffic_frac(n: int, bt: int, cache_tiles: int, passes: int) -> float:
+    """Bytes the triangle kernel moves in ``passes`` passes as a fraction
+    of ``passes`` dense passes: the streamed tiles (diagonal ones whole)
+    every pass, the cached tiles once a solve."""
+    streamed, cached = kernels.sym_cache_split(n, bt, cache_tiles)
+    return (passes * len(streamed) + len(cached)) * bt * bt / (passes * n * n)
+
+
+def large_row(name: str, n: int, res, oracle, device_ms: Optional[float],
+              sym_plan: Optional[Tuple[int, int]] = None) -> dict:
+    """One large row: the solve ``res`` of Hilbert n² beside the float64
+    ``oracle`` (a ``SolveResult``) of the same stored matrix.  ``rounds_ok``:
+    converged, the rounds of :data:`LARGE_ROUNDS` (the Hilbert table below
+    it) and λ within :data:`LARGE_REL` of the oracle.  ``sym_plan`` is the
+    triangle's ``(tile, cache_tiles)``, which adds ``traffic_frac``."""
+    rounds, lam = int(res.rounds), float(res.eigenvalue)
+    lam64 = float(oracle.eigenvalue)
+    want = {**fixtures.HILBERT_ROUNDS, **LARGE_ROUNDS}.get(n, int(oracle.rounds))
+    rel = abs(lam - lam64) / lam64
+    row = {
+        "bench": "large",
+        "backend": name,
+        "dim": n,
+        "device_ms": device_ms,
+        "ms_per_round": None if device_ms is None else device_ms / max(rounds, 1),
+        "rounds": rounds,
+        "eigenvalue": lam,
+        "converged": bool(res.converged),
+        "oracle_rounds": int(oracle.rounds),
+        "oracle_eigenvalue": lam64,
+        "rel_err": rel,
+        "rounds_ok": bool(res.converged) and rounds == want and rel <= LARGE_REL,
+    }
+    if sym_plan is not None:
+        bt, cache = sym_plan
+        row["cache_tiles"] = cache
+        row["traffic_frac"] = round(sym_traffic_frac(n, bt, cache, rounds + 1), 4)
+    return row
+
+
+def large_rows(device, configs=None, reps: int = 3) -> List[dict]:
+    """The rows of :func:`bench_large` for ``configs`` (default
+    :data:`LARGE_CONFIGS`) on ``device``; on the CPU the plain versions
+    run (what the tests step through at small dims)."""
+    from ..api import _takes_triangle, max_eigenvalue
+    from ..config import SolverConfig
+
+    device = torch.device(device)
+    oracles = {}
+    rows = []
+    for name, n, dtype, sym in configs or LARGE_CONFIGS:
+        storage = None if dtype == torch.float32 else dtype
+        cfg = SolverConfig(symmetric=sym, storage_dtype=storage)
+        if sym and not _takes_triangle(cfg, n, device):
+            rows.append({"bench": "large", "backend": name, "dim": n,
+                         "skipped": _SKIP_SYM_TOO_LARGE})
+            continue
+        A = None
+        try:
+            A = fixtures.hilbert_matrix(n, dtype=dtype, device=device)
+            if (n, dtype) not in oracles:  # the float64 loop on the stored values
+                oracles[(n, dtype)] = solve_matvec(A.double(), EPS, MAX_ITR)
+                if device.type == "cuda":
+                    torch.cuda.empty_cache()
+            solve = lambda M, cfg=cfg: max_eigenvalue(M, cfg)  # noqa: E731
+            res = solve(A)  # build and warm up
+            dev_ms, _, _ = _marginal_resolved(_e2e_chain_step(solve), (A, res.eigenvalue),
+                                              k=2, reps=reps)
+            plan = None
+            if sym:
+                bt = kernels.sym_tile(n, kernels.SYM_TILE)
+                plan = (bt, sym_auto_cache_tiles(n, bt, device,
+                                                 itemsize=torch.tensor([], dtype=dtype).element_size()))
+            rows.append(large_row(name, n, res, oracles[(n, dtype)], dev_ms, plan))
+        except torch.cuda.OutOfMemoryError as e:
+            rows.append({"bench": "large", "backend": name, "dim": n, "error": str(e)})
+        finally:
+            del A
+            if device.type == "cuda":
+                torch.cuda.empty_cache()  # the next row's matrix is as large
+    return rows
+
+
+def bench_large(reps: int = 3) -> List[dict]:
+    """Max-size single-card rows on the CUDA card, the JAX suite's names:
+    Hilbert 32768² in float32 (4 GiB; the stripes kernel and the triangle
+    kernel with the card's auto cache) and 65536² in bf16 (8 GiB, built on
+    the card directly in bf16; past the multiround kernels' shared-memory
+    limit at n = 57856, so the matvec kernel loop, and a skip row for the
+    symmetric declaration there).  ``device_ms`` is the marginal time of one
+    solve in a chain (:func:`_marginal_resolved`); λ is checked against a
+    float64 loop on the stored values and the rounds against
+    :data:`LARGE_ROUNDS`, where JAX pins both to its own silicon."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_large measures the CUDA device; none is available")
+    return large_rows(torch.device("cuda", torch.cuda.current_device()), reps=reps)
+
+
+# --- the card's drift over time ------------------------------------------------------
+
+#: Suspect bounds of a drift window, % of the published memory rate: above
+#: it no real reading can be (an artifact of the differencing), below it the
+#: chain was stalled (another process on the card, a host stall).
+DRIFT_FAST_OUTLIER_PCT = 120.0
+DRIFT_STALL_PCT = 20.0
+
+
+def drift_row(window: int, t_s: float, ms: float, dim: int, peak_gbps: float,
+              state: Optional[dict] = None) -> dict:
+    """One drift window: the production matvec's marginal ``ms`` per pass
+    of Hilbert ``dim``², its GB/s and % of ``peak_gbps``, the suspect flags,
+    and the card's ``state`` (``utils.timing.card_state``) after the
+    window."""
+    nbytes = dim * dim * 4
+    pct = roofline_pct(ms, nbytes, peak_gbps) if ms > 0 else None
+    pct = None if pct != pct else pct
+    reason = None
+    if pct is not None and pct > DRIFT_FAST_OUTLIER_PCT:
+        reason = "fast_outlier"
+    elif pct is not None and pct < DRIFT_STALL_PCT:
+        reason = "stall"
+    return {
+        "bench": "drift",
+        "kernel": "matvec_pallas",
+        "dim": dim,
+        "window": window,
+        "t_s": round(t_s, 1),
+        "ms": ms,
+        "gbps": nbytes / (ms * 1e-3) / 1e9 if ms > 0 else None,
+        "roofline_pct": pct,
+        "suspect": reason is not None,
+        "suspect_reason": reason,
+        **(state or {"sm_mhz": None, "power_w": None, "temp_c": None}),
+    }
+
+
+def drift_summary(rows: List[dict], dim: int, windows: int, gap_s: float) -> dict:
+    """The drift suite's summary row: the spread of the clean windows and
+    the card's clock and power range across them."""
+    clean = [r for r in rows if not r["suspect"] and r["ms"] > 0]
+    ms = [r["ms"] for r in clean]
+    spread = (max(ms) / min(ms) - 1.0) if ms else None
+
+    def span(key):
+        vals = [r[key] for r in clean if r.get(key) is not None]
+        return [min(vals), max(vals)] if vals else None
+
+    return {
+        "bench": "drift_summary",
+        "dim": dim,
+        "windows": windows,
+        "gap_s": gap_s,
+        "suspect_windows": sum(1 for r in rows if r["suspect"]),
+        "min_ms": min(ms) if ms else None,
+        "max_ms": max(ms) if ms else None,
+        "spread_pct": round(spread * 100, 1) if spread is not None else None,
+        "sm_mhz_range": span("sm_mhz"),
+        "power_w_range": span("power_w"),
+        "temp_c_range": span("temp_c"),
+        "roofline_note": (
+            "roofline_pct is against the card's published memory rate (3.35 TB/s "
+            "for an H100 SXM at its full 700 W); a clean window stays below 100"
+        ),
+    }
+
+
+def bench_drift(dim: int = 8192, windows: int = 10, gap_s: float = 20.0,
+                k: int = 64) -> List[dict]:
+    """The card's drift over time: the production matvec kernel's marginal
+    time per pass of Hilbert ``dim``² (``time_marginal``) in ``windows``
+    windows ``gap_s`` apart, one row per window with its GB/s, % of the
+    published memory rate and the card's SM clock, power draw and
+    temperature from ``nvidia-smi`` (a card under a power or heat limit
+    lowers its clocks), then a summary row with the spread (suspect windows
+    left out).  A window above 120% of the published rate is suspect
+    (``fast_outlier``: an artifact of the differencing), one below 20% too
+    (``stall``).  Use it before trusting a comparison across calls."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("bench_drift measures the CUDA device; none is available")
+    import time
+
+    device = torch.device("cuda", torch.cuda.current_device())
+    peak = detect_peak_gbps(device)
+    A = fixtures.hilbert_matrix(dim, device=device)
+    ones = torch.ones(dim, dtype=torch.float32, device=device)
+
+    def step(i, s):
+        return (s[0], kernels.matvec(s[0], s[1]) / s[1])
+
+    rows: List[dict] = []
+    t0 = None
+    for w in range(windows):
+        if w:
+            time.sleep(gap_s)
+        ms = time_marginal(step, (A, ones), k=k)
+        t0 = time.perf_counter() if t0 is None else t0
+        rows.append(drift_row(w, time.perf_counter() - t0, ms, dim, peak, card_state()))
+    return rows + [drift_summary(rows, dim, windows, gap_s)]
+
+
+# --- the scaling model's exchange calibration ------------------------------------
+
+
+def _worst_exchange(outs: List[dict]) -> Dict[int, float]:
+    """Per vector length, the slowest process's µs (a gather is done when
+    its slowest rank is)."""
+    measured: Dict[int, float] = {}
+    for o in outs:
+        for n, us in o["exchange_us"].items():
+            measured[int(n)] = max(measured.get(int(n), 0.0), float(us))
+    return measured
+
+
+def calibration_table(outs: List[dict], outs_cross: List[dict]) -> List[dict]:
+    """The calibrate suite's rows from the ``--measure-exchange`` records of
+    a group (``outs``) and of a larger one (``outs_cross``): the JAX
+    suite's fit of the scaling model's exchange to the first group, its
+    predicted-vs-measured rows, and the larger group's exchange predicted
+    by that one fit (``model_calibration_crossP``).  Every row says what it
+    fitted: gloo between CPU processes of one host, not NVLink."""
+    import dataclasses
+
+    from ..utils.scaling_model import (
+        DEFAULT_SPEC,
+        calibration_rows,
+        fit_exchange,
+        gather_exchange_us,
+    )
+
+    transport = {"transport": "gloo-loopback",
+                 "transport_note": "fits gloo between CPU processes of one host, not NVLink"}
+    shards = outs[0]["shards"]
+    measured = _worst_exchange(outs)
+    gbps, lat = fit_exchange(measured, shards, DEFAULT_SPEC.itemsize)
+    spec = dataclasses.replace(DEFAULT_SPEC, ici_gbps=gbps, ici_latency_us=lat)
+    rows = [dict(r, **transport) for r in calibration_rows(measured, shards, spec=spec)]
+    shards_x = outs_cross[0]["shards"]
+    measured_x = _worst_exchange(outs_cross)
+    for n in sorted(measured_x):
+        pred = gather_exchange_us(n, shards_x, 1, spec)
+        rows.append({
+            "bench": "model_calibration_crossP",
+            "dim": n,
+            "chips": shards_x,
+            "fitted_on_chips": shards,
+            "measured_us": measured_x[n],
+            "predicted_us": pred,
+            "ratio": measured_x[n] / pred if pred > 0 else None,
+            **transport,
+        })
+    return rows
+
+
+def bench_exchange_calibration(dim: int = 8192, reps: int = 5) -> List[dict]:
+    """Fit the scaling model's exchange (``utils.scaling_model.fit_exchange``)
+    to measured all-gathers, as the JAX suite does: ``mh_worker
+    --measure-exchange`` in a group of 2 processes on loopback gloo times
+    the gather of n floats at n = dim, 4·dim and 16·dim, the fit gives the
+    transport's bandwidth and per-step latency, and a group of 4 checks the
+    fit's dependence on P (:func:`calibration_table`).  The fit describes
+    gloo between CPU processes, not the card's NVLink: it validates the
+    model's functional form, not the H100 spec's link numbers.  It runs on
+    the card's host beside the other suites and, like every measuring
+    suite, raises where there is no card, so that no other machine's
+    numbers are filed beside the card's."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "bench_exchange_calibration runs on the CUDA device's host; no CUDA device "
+            "is available")
+    args = ["--measure-exchange"]
+    outs = run_mh_workers(2, dim, reps, device="cpu", extra_args=args)
+    outs_cross = run_mh_workers(4, dim, reps, device="cpu", extra_args=args)
+    return calibration_table(outs, outs_cross)
+
+
+# --- the native C++ runtime (CPU) ----------------------------------------------
+
+
+def bench_native(dims: List[int] = MATRIX_DIMS) -> List[dict]:
+    """End-to-end sweep through the native C++ runtime on the CPU (the
+    reference-architecture datapoint; ABI parity with the reference's
+    libsimilarity_transform.so), both solver forms, then its kernels' wall
+    µs.  Empty when the library cannot be built (no compiler).  Needs no
+    card: every time here is the host's, and the rows say ``native``."""
+    from .. import native
+
+    if not native.available():
+        return []
+    solver = native.NativeEigenValue()
+    rows = []
+    for n in dims:
+        H = fixtures.hilbert_matrix(n).numpy()
+        for form, matvec in (("cpu_native", False), ("cpu_native_matvec", True)):
+            lam, vec, ms, rounds = solver.similarity_transform(H, matvec_form=matvec)
+            rows.append({
+                "bench": "native",
+                "backend": form,
+                "dim": n,
+                "ms": float(ms),
+                "rounds": rounds,
+                "eigenvalue": float(lam),
+                "rounds_ok": rounds == fixtures.HILBERT_ROUNDS.get(n, rounds),
+            })
+    for name in ("row_sums", "next_matrix", "matvec"):
+        for n in dims:
+            rows.append({
+                "bench": "native_kernel",
+                "kernel": f"native_{name}",
+                "dim": n,
+                "ms": solver.bench_kernel_us(name, n) / 1e3,
             })
     return rows

@@ -85,11 +85,28 @@ def _one_launch(A: torch.Tensor) -> bool:
     return A.device.type != "cuda" or multiround_fits(A.shape[0], A.device)
 
 
-def _as_matrix(A) -> torch.Tensor:
+def _reject_sharded(A, where: str) -> None:
+    """Refuse a DTensor A by name: JAX steps a row-sharded A under GSPMD,
+    the port's stepping of a sharded A is still to come (ROADMAP Queue 1
+    item 16), and torch would otherwise fail deep inside the first product
+    on mixed local and distributed tensors."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(A, DTensor):
+        raise ValueError(
+            f"{where}: A is a DTensor (placements {tuple(A.placements)}); stepping a "
+            "sharded A is not ported to eigen_value_tpu_torch yet (ROADMAP: Queue 1 "
+            "item 16). Solve it with max_eigenvalue(A, mesh=...), or step A.full_tensor()"
+        )
+
+
+def _as_matrix(A, where: str) -> torch.Tensor:
     """A as a contiguous square tensor on its own device (host input goes to
     the card, as in the API).  A tensor that already is one is returned as
     it is, so ``state.A`` aliases the caller's matrix; a misaligned one is
-    cloned (the kernels read rows in aligned chunks)."""
+    cloned (the kernels read rows in aligned chunks).  A DTensor raises
+    (:func:`_reject_sharded`)."""
+    _reject_sharded(A, where)
     if not isinstance(A, torch.Tensor):
         A = torch.tensor(np.asarray(A), device=solve_device(None, A))
     if A.dim() != 2 or A.shape[0] != A.shape[1]:
@@ -106,7 +123,7 @@ def init_state(A, donate: bool = False) -> SolverState:
     ``state.A`` is the caller's tensor itself (never copied, never
     written), so a solve holds one A whatever it says."""
     del donate
-    A = _as_matrix(A)
+    A = _as_matrix(A, "init_state")
     n = A.shape[0]
     dt = _state_dtype(A)
     ev0 = torch.ones(n, dtype=dt, device=A.device)
@@ -134,6 +151,7 @@ def step(
     budget ends; a launch that advanced fewer rounds than it had, with
     budget left, found the stop, and the converging round's update is then
     applied here with ``solver._finish``'s expression (same bits)."""
+    _reject_sharded(state.A, "step")
     rounds = int(state.rounds)
     if bool(state.done) or rounds >= max_itr or num_rounds < 1:
         return state
@@ -193,7 +211,7 @@ def solve_checkpointed(
     if chunk_rounds < 1:
         # a 0-round step would be a no-op and spin this loop forever
         raise ValueError(f"chunk_rounds must be >= 1, got {chunk_rounds}")
-    A = _as_matrix(A)
+    A = _as_matrix(A, "solve_checkpointed")
     if checkpoint_path is not None and os.path.exists(checkpoint_path):
         state, saved_eps = load_state(checkpoint_path, with_eps=True, device=A.device)
         _check_same_matrix(state.A, A, checkpoint_path)

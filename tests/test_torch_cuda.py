@@ -1156,3 +1156,51 @@ def test_a_cuda_exchange_over_gloo_raises(cuda, nccl):
                lambda: col.all_reduce_max(x, gloo)):
         with pytest.raises(ValueError, match="NCCL"):
             fn()
+
+
+# --- the headline and the tools on the card -------------------------------------------
+
+
+def test_the_headline_measures_the_card(cuda):
+    import json
+
+    from eigen_value_tpu_torch.bench import headline
+
+    rec = headline.measure(headline.Settings(dim=2048, windows=2, gap_s=0.0))
+    assert rec["rounds"] == 14 and rec["backend"].startswith("multiround_sym")
+    assert rec["device"]["platform"] == "gpu" and rec["device"]["name"]
+    assert len(rec["clocks"]) == 2 and all(c["sm_mhz"] for c in rec["clocks"])
+    assert all(w >= rec["floor_ms"] for w in rec["windows_ms"]) and rec["call_ms"] > 0
+    assert rec["hankel_fft_rounds"] == 14 and rec["launches"]["multiround_sym"] > 0
+    assert json.loads(json.dumps(rec, allow_nan=False)) == rec
+
+
+def test_the_drift_rows_carry_the_cards_state(cuda):
+    from eigen_value_tpu_torch.bench.suite import bench_drift
+
+    rows = bench_drift(dim=2048, windows=2, gap_s=0.0, k=16)
+    assert [r["bench"] for r in rows] == ["drift", "drift", "drift_summary"]
+    assert all(r["sm_mhz"] and r["power_w"] and r["gbps"] > 0 for r in rows[:2])
+
+
+def test_a_profiled_solve_holds_the_kernels_device_time(cuda, tmp_path):
+    import json
+    import os
+
+    from eigen_value_tpu_torch.utils import profiling
+
+    H = tfx.hilbert_matrix(2048, device=cuda)
+    with profiling.trace(str(tmp_path)) as d:
+        evt.max_eigenvalue(H)
+    events = json.load(open(os.path.join(d, profiling.TRACE_FILE)))["traceEvents"]
+    assert any(e.get("cat") == "kernel" and "multiround_kernel" in e.get("name", "")
+               and e.get("dur", 0) > 0 for e in events)
+    assert profiling.device_memory_stats()["allocated_bytes.all.current"] > 0
+
+
+@pytest.mark.parametrize("name", ["quickstart", "serving", "pagerank"])
+def test_the_examples_run_on_the_card(cuda, name, capsys):
+    import importlib
+
+    importlib.import_module(f"eigen_value_tpu_torch.examples.{name}").main()
+    assert "λ = " in capsys.readouterr().out
