@@ -133,6 +133,22 @@ the card's clocks), ``calibrate`` (gloo groups of 2 and 4 CPU processes),
 one symmetric solve under ``utils.profiling.trace``, whose chrome trace must
 hold the triangle kernel's device time.
 
+The dot formulation (``dot_phase``, step 10): ``formulation="dot"`` of both
+persistent kernels, the row sums and transpose terms on the tensor cores by
+``mma.sync`` in 3xTF32 (csrc/mma_tf32.cuh).  The card's ``cvt.rna`` split
+against ``kernels.tf32_split`` bit for bit; one launch of each dot kernel
+at 8192² against its plain version (``formulation="dot"``: the same rounds
+over f32 products of the TF32 parts); then, with the launch counters read
+around exactly these calls, ``solve_multiround(formulation="dot")`` on
+Hilbert 8192² (the stripes, the triangle with no cache and the auto cache,
+dense tiled with the auto cache, the stripes and triangle with
+``storage_dtype=torch.bfloat16``: 17 rounds, λ within 1e-5 of a float64
+loop, residual ≤ 1e-3 in float64, rounds and λ equal to the "vpu"
+solve's) and the whole Hilbert table on both kernels; the bit identities
+(chunk 1 / 5 / whole budget, cache 0 / 7 / auto, A_q against A_q.float());
+and the median of 12 whole-budget launches of each dot instance beside its
+"vpu" instance, interleaved.
+
 Uses torch only (no jax).  Exits non-zero, without the final result line,
 on any failed check or when there is no CUDA device.
 
@@ -155,6 +171,7 @@ PLAIN_TOL = 2e-5  # matvec against an f64 product: row error ~ sqrt(terms) ulps
 PARITY_REL = 1e-5  # λ against the plain loop (float32 up to 8192², float64 at BIG_N)
 H100_SXM_GBPS = 3350.0  # NVIDIA's data sheet, at the full 700 W
 H100_SXM_F32_TFLOPS = 67.0  # the same sheet: float32 outside the tensor cores
+H100_SXM_TF32_TFLOPS = 495.0  # the same sheet: TF32 on the tensor cores, dense
 BIG_N = 65536  # beyond the multiround kernel's shared-memory limit (57856 on an H100)
 
 
@@ -1129,6 +1146,208 @@ def tools_phase(dev, here, reset_counts, read_counts, card) -> dict:
     return {"launches": {k: c + rec["launches"].get(k, 0) for k, c in counts.items()},
             "headline": rec}
 
+
+
+def dot_phase(dev, mats, same, reset_counts, read_counts, card) -> dict:
+    """The dot formulation of the two persistent kernels (step 10).  Returns
+    the numbers of their records: launches on the main path, the max abs
+    error against the plain version, and the times."""
+    import torch
+
+    import eigen_value_tpu_torch as evt
+    from eigen_value_tpu_torch import fixtures
+    from eigen_value_tpu_torch.device import sym_auto_cache_tiles
+    from eigen_value_tpu_torch.ops.cuda import build, kernels
+    from eigen_value_tpu_torch.ops.solver_matvec import solve_matvec, solve_multiround
+    from eigen_value_tpu_torch.utils.timing import time_call
+
+    n, bt = 8192, kernels.SYM_TILE
+    H = mats[n]
+    bf16 = torch.bfloat16
+
+    # --- 10a. the card's split is kernels.tf32_split, bit for bit ---
+    gen = torch.Generator().manual_seed(SEED + 13)
+    bits = torch.randint(0, 1 << 16, (1 << 20, 2), generator=gen, dtype=torch.int32)
+    words = (bits[:, 0] << 16) | bits[:, 1]
+    picked = torch.tensor([0x3F801000, -0x407FF000, 0x3F800FFF, 0x3F803000, 0x00001000,
+                           0x00000FFF, 0x007FFFFF, 0x00800000, 0x3F810000], dtype=torch.int32)
+    x = torch.cat([picked, words]).view(torch.float32)
+    x = x[torch.isfinite(x) & (x.abs() < 3.4e38)].contiguous()
+    xd = x.to(dev)
+    big = torch.empty(x.numel(), dtype=torch.int32, device=dev)
+    small = torch.empty_like(big)
+    check(build.load().evt_tf32_split(xd.data_ptr(), big.data_ptr(), small.data_ptr(),
+                                      x.numel(), torch.cuda.current_stream().cuda_stream) == 0,
+          "evt_tf32_split launch")
+    want_big, want_small = kernels.tf32_split(x)
+    ok = (torch.equal(big.cpu(), want_big.view(torch.int32))
+          and torch.equal(small.cpu(), want_small.view(torch.int32)))
+    say(f"cvt.rna on the card against kernels.tf32_split, {x.numel()} values: bit-identical {ok}")
+    check(ok, "kernels.tf32_split is not the card's cvt.rna")
+
+    # --- 10b. one launch of each dot kernel against its plain version ---
+    auto = sym_auto_cache_tiles(n, bt, dev)
+    auto_dense = sym_auto_cache_tiles(n, bt, dev, sym=False)
+    auto_q = sym_auto_cache_tiles(n, bt, dev, itemsize=2, ring=False)
+    x1 = torch.ones(n, device=dev)
+    z = torch.zeros((), device=dev)
+    err = {}
+    one = [("multiround", kernels.multiround, kernels.multiround_plain, {}, "asymmetric"),
+           ("multiround_sym", kernels.multiround_sym, kernels.multiround_sym_plain,
+            dict(cache_tiles=auto), "symmetric"),
+           ("multiround_sym dense", kernels.multiround_sym, kernels.multiround_sym_plain,
+            dict(cache_tiles=auto_dense, sym=False), "asymmetric")]
+    # Hilbert, and Hilbert scaled at random so that it is not Hankel: every
+    # 16 x 16 piece of a Hilbert tile is symmetric, so a row / column mix-up
+    # in the fragments would not show on it.  The triangle's scaling is
+    # symmetric.
+    R = 1 + 0.25 * torch.rand(n, n, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(SEED + 14))
+    scaled = {"asymmetric": H * R, "symmetric": H * ((R + R.T) / 2)}
+    del R
+    for name, run, plain, kw, scaling in one:
+        worst = 0.0
+        for label, A in (("Hilbert", H), (f"{scaling}ally scaled", scaled[scaling])):
+            state = (x1, x1, z)
+            for init in (True, False):
+                a = dict(chunk=5, eps=evt.EPS, init=init, formulation="dot", **kw)
+                got = run(A, *state, evt.MAX_ITR, **a)
+                want = plain(A, *state, evt.MAX_ITR, **a)
+                torch.cuda.synchronize()
+                check(int(got[2]) == int(want[2]), f"{name}[dot] {label} init={init}: advanced "
+                      f"{int(got[2])} != {int(want[2])}")
+                rel = max(float(((g - w).abs() / w.abs()).max())
+                          for g, w in ((got[0], want[0]), (got[1], want[1]), (got[3], want[3])))
+                e_v = float((got[1] - want[1]).abs().max())
+                e_ev = float((got[0] - want[0]).abs().max())
+                say(f"{name}[dot] {label} {n}² chunk 5 init={init}: advanced {int(got[2])}, max "
+                    f"rel diff (ev, v, λ) to the plain version {rel:.3e}, max |v - plain| "
+                    f"{e_v:.3e}, max |ev - plain| {e_ev:.3e}")
+                check(rel <= PARITY_REL,
+                      f"{name}[dot] {label} init={init}: rel diff {rel} > {PARITY_REL}")
+                worst = max(worst, e_v, e_ev)
+                state = (got[0], got[1], got[3])
+        err[name] = worst
+    del scaled
+
+    # --- 10c. the main path: the dot solves, launches counted ---
+    arms = {
+        "stripes": (H, {}),
+        "triangle, no cache": (H, dict(symmetric=True, cache_tiles=0)),
+        f"triangle, auto cache {auto}": (H, dict(symmetric=True, cache_tiles=auto)),
+        f"dense tiled, auto cache {auto_dense}": (H, dict(cache_tiles=auto_dense)),
+        "stripes, storage bf16": (H, dict(storage_dtype=bf16)),
+        f"triangle, storage bf16, auto cache {auto_q}": (
+            H, dict(symmetric=True, cache_tiles=auto_q, storage_dtype=bf16)),
+    }
+    auto_q_vpu = sym_auto_cache_tiles(n, bt, dev, itemsize=2)  # beside the vpu ring
+    refs, oracle = {}, {}
+    for k, (A, kw) in arms.items():  # "vpu", whose results no cache changes
+        vkw = dict(kw, cache_tiles=min(kw.get("cache_tiles", 0), auto_q_vpu)) if (
+            "storage_dtype" in kw and "cache_tiles" in kw) else kw
+        refs[k] = solve_multiround(A, evt.EPS, evt.MAX_ITR, **vkw)
+    oracle[torch.float32] = solve_matvec(H.double(), evt.EPS, evt.MAX_ITR)
+    oracle[bf16] = solve_matvec(H.to(bf16).double(), evt.EPS, evt.MAX_ITR)
+    table = {m: fixtures.hilbert_matrix(m, device=dev) for m in sorted(fixtures.HILBERT_ROUNDS)
+             if m != n}
+    table[n] = H
+    reset_counts()
+    runs = {k: solve_multiround(A, evt.EPS, evt.MAX_ITR, formulation="dot", **kw)
+            for k, (A, kw) in arms.items()}
+    table_runs = {(m, kind): solve_multiround(M, evt.EPS, evt.MAX_ITR, formulation="dot",
+                                              symmetric=kind == "triangle")
+                  for m, M in table.items() for kind in ("stripes", "triangle")}
+    launches = read_counts()
+    say(f"dot path launches: {launches}")
+    check(launches["multiround"] > 0 and launches["multiround_sym"] > 0,
+          "the dot path launched no multiround or multiround_sym kernel")
+    check(sum(launches.values()) == launches["multiround"] + launches["multiround_sym"],
+          "the dot path launched another kernel")
+    for k, (A, kw) in arms.items():
+        res, ref = runs[k], refs[k]
+        dt = kw.get("storage_dtype", torch.float32)
+        A_s = A.to(dt) if dt != torch.float32 else A
+        v = res.eigenvector.double()
+        resid = float((f64_matvec(A_s, v) - res.eigenvalue.double() * v).abs().max())
+        lam, lam_64, lam_v = (float(res.eigenvalue), float(oracle[dt].eigenvalue),
+                              float(ref.eigenvalue))
+        rel_64, rel_v = abs(lam - lam_64) / lam_64, abs(lam - lam_v) / lam_v
+        say(f"hilbert {n} dot, {k}: rounds {int(res.rounds)} (vpu {int(ref.rounds)}, float64 "
+            f"loop {int(oracle[dt].rounds)}), λ {lam!r} (float64 loop {lam_64!r}, rel "
+            f"{rel_64:.2e}; vpu {lam_v!r}, rel {rel_v:.2e}), residual {resid:.3e}")
+        check(bool(res.converged) and int(res.rounds) == 17, f"dot {k}: rounds {int(res.rounds)}")
+        check(int(res.rounds) == int(ref.rounds), f"dot {k}: rounds differ from vpu's")
+        check(rel_64 <= PARITY_REL and rel_v <= PARITY_REL, f"dot {k}: λ rel {rel_64}, {rel_v}")
+        check(resid <= 1e-3, f"dot {k}: residual {resid}")
+        check(bool(torch.isfinite(res.eigenvector).all()), f"dot {k}: eigenvector not finite")
+    for (m, kind), res in table_runs.items():
+        check(bool(res.converged) and int(res.rounds) == fixtures.HILBERT_ROUNDS[m],
+              f"dot {kind} hilbert {m}: rounds {int(res.rounds)}")
+    say("dot Hilbert table, stripes / triangle: " + ", ".join(
+        f"{m}: {int(table_runs[(m, 'stripes')].rounds)} / {int(table_runs[(m, 'triangle')].rounds)}"
+        for m in table))
+
+    # --- 10d. bit identities ---
+    base = runs["stripes"]
+    for chunk in (1, 5, None):
+        ok = same(solve_multiround(H, evt.EPS, evt.MAX_ITR, chunk=chunk, formulation="dot"), base)
+        say(f"dot stripes chunk={chunk or 'whole budget'} at {n}²: bit-identical {ok}")
+        check(ok, f"dot stripes chunk={chunk} changed the result")
+    tri = runs["triangle, no cache"]
+    for c in (7, auto):
+        for chunk in (1, 5, None):
+            ok = same(solve_multiround(H, evt.EPS, evt.MAX_ITR, chunk=chunk, symmetric=True,
+                                       cache_tiles=c, formulation="dot"), tri)
+            say(f"dot triangle cache {c} chunk={chunk or 'whole budget'} at {n}² vs cache 0: "
+                f"bit-identical {ok}")
+            check(ok, f"dot triangle cache {c} chunk={chunk} changed the result")
+    H_q = H.to(bf16)
+    # each at its own auto cache (the f32 tiles take twice the room; no cache
+    # changes the bits)
+    for k, kw_q, kw_f in (("stripes", {}, {}),
+                          ("triangle", dict(symmetric=True, cache_tiles=auto_q),
+                           dict(symmetric=True, cache_tiles=auto))):
+        ok = same(solve_multiround(H_q, evt.EPS, evt.MAX_ITR, formulation="dot", **kw_q),
+                  solve_multiround(H_q.float(), evt.EPS, evt.MAX_ITR, formulation="dot", **kw_f))
+        say(f"dot {k} on A_q (bf16) vs A_q.float(): bit-identical {ok}")
+        check(ok, f"dot {k}: A_q differs from A_q.float()")
+
+    # --- 10e. times: whole-budget launches, each dot instance beside its vpu one ---
+    whole = dict(chunk=evt.MAX_ITR + 1, eps=evt.EPS, init=True)
+    timed = {
+        "multiround vpu": lambda: kernels.multiround(H, x1, x1, z, evt.MAX_ITR, **whole),
+        "multiround dot": lambda: kernels.multiround(H, x1, x1, z, evt.MAX_ITR,
+                                                     formulation="dot", **whole),
+        "multiround_sym vpu": lambda: kernels.multiround_sym(H, x1, x1, z, evt.MAX_ITR,
+                                                             cache_tiles=auto, **whole),
+        "multiround_sym dot": lambda: kernels.multiround_sym(H, x1, x1, z, evt.MAX_ITR,
+                                                             cache_tiles=auto,
+                                                             formulation="dot", **whole),
+        "multiround bf16 vpu": lambda: kernels.multiround(H_q, x1, x1, z, evt.MAX_ITR, **whole),
+        "multiround bf16 dot": lambda: kernels.multiround(H_q, x1, x1, z, evt.MAX_ITR,
+                                                          formulation="dot", **whole),
+        "multiround_sym bf16 vpu": lambda: kernels.multiround_sym(
+            H_q, x1, x1, z, evt.MAX_ITR, cache_tiles=auto_q_vpu, **whole),
+        "multiround_sym bf16 dot": lambda: kernels.multiround_sym(
+            H_q, x1, x1, z, evt.MAX_ITR, cache_tiles=auto_q, formulation="dot", **whole),
+    }
+    ms = interleaved_ms(timed, reps=12)
+    passes = int(timed["multiround dot"]()[2]) + 1
+    plain = {
+        "multiround": time_call(lambda: kernels.multiround_plain(
+            H, x1, x1, z, evt.MAX_ITR, formulation="dot", **whole), reps=3).median_ms,
+        "multiround_sym": time_call(lambda: kernels.multiround_sym_plain(
+            H, x1, x1, z, evt.MAX_ITR, formulation="dot", **whole), reps=3).median_ms,
+    }
+    say(f"dot times at {n}², {passes} passes, card {card} (median of 12 whole-budget launches, "
+        f"interleaved; triangle f32 cache {auto}, bf16 vpu cache {auto_q_vpu}, bf16 dot cache "
+        f"{auto_q}):")
+    for k, v in ms.items():
+        say(f"  {k}: {v:.4f} ms")
+    say(f"  plain versions (formulation='dot', f32): multiround {plain['multiround']:.4f} ms, "
+        f"multiround_sym {plain['multiround_sym']:.4f} ms")
+    return {"launches": launches, "err": err, "ms": ms, "plain_ms": plain, "passes": passes,
+            "auto": auto, "auto_q": auto_q, "auto_q_vpu": auto_q_vpu}
 
 
 def main() -> int:
@@ -2225,6 +2444,9 @@ def main() -> int:
     # --- 9. the headline and the tools ---
     p9 = tools_phase(dev, here, reset_counts, read_counts, card)["launches"]
 
+    # --- 10. the dot formulation ---
+    p10 = dot_phase(dev, mats, same, reset_counts, read_counts, card)
+
     # The least time the card could take: each input read once and each
     # output written once at the published memory rate, against the float32
     # operations at the published rate outside the tensor cores.  The two
@@ -2234,9 +2456,9 @@ def main() -> int:
     # `resident_bound_ms` what they must stream when as much of A stays as
     # the card's shared memory (the kernel's resident set) and its whole L2
     # could hold: one read of A, then for every later pass the rest.
-    def bound(nbytes: float, ops: float) -> dict:
+    def bound(nbytes: float, ops: float, tflops: float = H100_SXM_F32_TFLOPS) -> dict:
         t_bytes = nbytes / (H100_SXM_GBPS * 1e9) * 1e3
-        t_ops = ops / (H100_SXM_F32_TFLOPS * 1e12) * 1e3
+        t_ops = ops / (tflops * 1e12) * 1e3
         return {"bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -2351,6 +2573,29 @@ def main() -> int:
                f32_ms=st_ms[f"multiround_sym f32 cache {cache}"],
                f16_ms=st_ms[f"multiround_sym f16 cache {auto2}"],
                phases_us=st_phases["multiround_sym"]),
+        # the dot formulation: the same bytes; the operations the function
+        # needs, 3 TF32 products (6 flops) an element a pass, against the TF32
+        # peak.  `issued_bound_ms` counts what the kernels issue: 8 columns of
+        # the m16n8k8 unit (7 of them zero) times 3 products, 48 flops.
+        record("multiround[dot]", "multiround.cu", f"{jk}:546-554, {jk}:631-651",
+               p10["launches"]["multiround"], p10["err"]["multiround"],
+               p10["ms"]["multiround dot"], p10["plain_ms"]["multiround"], None,
+               bound(4 * nn + 4 * vec, p10["passes"] * 6 * nn, H100_SXM_TF32_TFLOPS),
+               issued_bound_ms=bound(0, p10["passes"] * 48 * nn, H100_SXM_TF32_TFLOPS)["bound_ms"],
+               helper="eigen_value_tpu_torch/csrc/mma_tf32.cuh",
+               vpu_ms=p10["ms"]["multiround vpu"], bf16_ms=p10["ms"]["multiround bf16 dot"],
+               bf16_vpu_ms=p10["ms"]["multiround bf16 vpu"], passes=p10["passes"]),
+        record("multiround_sym[dot]", "multiround_sym.cu", f"{jk}:890-915, {jk}:948-965",
+               p10["launches"]["multiround_sym"], p10["err"]["multiround_sym"],
+               p10["ms"]["multiround_sym dot"], p10["plain_ms"]["multiround_sym"], None,
+               bound(tri_bytes + 4 * vec, p10["passes"] * 6 * nn, H100_SXM_TF32_TFLOPS),
+               issued_bound_ms=bound(0, p10["passes"] * 48 * nn, H100_SXM_TF32_TFLOPS)["bound_ms"],
+               helper="eigen_value_tpu_torch/csrc/mma_tf32.cuh", cache_tiles=p10["auto"],
+               vpu_ms=p10["ms"]["multiround_sym vpu"],
+               bf16_ms=p10["ms"]["multiround_sym bf16 dot"],
+               bf16_vpu_ms=p10["ms"]["multiround_sym bf16 vpu"],
+               bf16_cache_tiles=p10["auto_q"], bf16_vpu_cache_tiles=p10["auto_q_vpu"],
+               dense_max_abs_err=p10["err"]["multiround_sym dense"], passes=p10["passes"]),
     ]}, allow_nan=False))
     say(f"wall: {time.perf_counter() - t_start:.1f} s")
     say(smi)

@@ -78,11 +78,40 @@
 //     solve froze, or the chunk ended) waits for every copy it issued;
 //   * A must be 16-byte aligned and n * sizeof(T) a multiple of 16 (the
 //     plan gives no ring otherwise; the wrapper checks A's address).
+//
+// The "dot" formulation (kDot; `dot` = 1, the plan gives it no ring): the
+// row sums on the tensor cores in 3xTF32 (mma_tf32.cuh) instead of
+// row_dot's fmaf chains, as the TPU kernel's formulation="dot" contracts a
+// row stripe on its matrix unit (kernels.py:546-554).  It reads the same
+// resident rows, L2 band and streamed rows with the same policies, so it
+// moves the same bytes as the register path.  A work item is 16 of the
+// block's rows (k = 16 rg .. 16 rg + 15, the m16 of the unit; rows past
+// the block's last give zeros and are not read) times one of kDotSegments
+// column segments (n / 8 columns, so that at n = 8192 the 4 row groups of a
+// block give its 16 warps two items each; the dot instance runs kDotThreads
+// threads of up to 128 registers).  A lane reads four consecutive columns of
+// its rows g and g + 8 (16 bytes of f32, 8 of bf16 / f16), two f32 or four
+// 2-byte 16-column regions a batch; the warp chains the unit's
+// products over each 128 columns in four interleaved chains and adds the
+// 128-column sums in order in f32 (dot_segment says why).  Lanes 4g write the segment's
+// sums of rows g and g + 8 to `part` (kDotSegments * n floats); after a
+// block barrier the block adds the segments of each of its rows in order,
+// s = 0 .. 7, into the raw row sums, and the round goes on as in the other
+// instances.  Every row's sum is the same chain of products and the same
+// order of segments whichever block, warp or group holds it and wherever
+// its bytes lie (an output row of the unit depends on its own row of A
+// only), so the results do not depend on the plan: a launch on A_q gives
+// the bits of a launch on A_q.float(), and any chunking the bits of one
+// launch.  The unit's order of the 8 products inside a step is its own, so
+// the sums are not row_dot's: a dot solve agrees with a vpu solve in rounds
+// and within rounding (the TPU kernel's contract between its formulations).
+// n % 128 == 0 (the TPU kernel's "dot" stripe alignment; the wrapper checks).
 // No atomics anywhere: the results are bitwise reproducible.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "bulk.cuh"
+#include "mma_tf32.cuh"
 #include "prologue.cuh"
 #include "rowdot.cuh"
 
@@ -96,6 +125,88 @@ using evt::kWarps;
 constexpr int kBatch = 2;  // float4 chunks of v a thread holds in the prologue
 
 using evt::kSegChunks;
+
+constexpr int kDotSegments = 8;  // column segments of a row in the dot formulation
+constexpr int kDotRows = 16;     // rows of a work item: the unit's m16
+constexpr int kDotBlock = 128;   // columns of one chain of the unit's products
+constexpr int kDotAcc = 4;       // chains in flight: a 128-column block's region r goes to r % 4
+// The dot instance's block: sixteen warps of up to 128 registers (its loads
+// in flight, four accumulators and the splits do not fit 64 without spills)
+constexpr int kDotThreads = 512;
+
+// Where a row of a dot work item comes from: nowhere (past the block's
+// rows: zeros), the block's shared memory, or device memory with an L2
+// policy.
+template <class T>
+struct DotRow {
+  using Chunk = typename evt::Elem<T>::Chunk;
+  const Chunk* p;  // the row's chunks
+  int where;       // 0 none, 1 shared, 2 device memory
+  unsigned long long policy;
+
+  __device__ __forceinline__ Chunk operator()(int c) const {
+    if (where == 0) return Chunk{};
+    return where == 1 ? p[c] : evt::FromGlobalHinted{policy}(p + c);
+  }
+};
+
+// The dot formulation's work item: rows k = 16 rg + g and 16 rg + g + 8 of
+// the block (lane (g, t)), columns [c0, c1) (a segment; c1 - c0 a multiple
+// of 16); the segment's sums of the two rows land in s[0] and s[1] of lane
+// 4g.  The unit's accumulator truncates where a rounding adder would round
+// (on the H100 one chain over 1024 columns put the stripes' λ outside 1e-5
+// of a float64 loop at 8192^2), so each kDotBlock columns start fresh
+// chains, and the blocks are added in order in f32, as the triangle's
+// 128-column tiles are.
+// In a block, 16-column region r goes to chain r % kDotAcc (independent
+// chains keep the unit busy while one product waits for the last), and the
+// chains are added as (0 + 1) + (2 + 3).
+template <class T>
+__device__ __forceinline__ void dot_segment(const DotRow<T>& lo, const DotRow<T>& hi,
+                                            const float* ev_s, int c0, int c1, int lane,
+                                            float (&s)[2]) {
+  using E = evt::Elem<T>;
+  using Chunk = typename E::Chunk;
+  constexpr int kRegions = kDotBlock / 16;
+  // 16-column regions whose loads are issued together: two f32 ones (16
+  // registers a lane) or four 2-byte ones; a whole block is unrolled, so the
+  // compiler may issue the next regions' loads before this one's products
+  constexpr int kB = sizeof(Chunk) == sizeof(float4) ? 2 : 4;
+  const int t = lane & 3;
+  const float4* e4 = reinterpret_cast<const float4*>(ev_s);
+  s[0] = s[1] = 0.0f;
+  for (int b0 = c0; b0 < c1; b0 += kDotBlock) {
+    float d[kDotAcc][4];
+#pragma unroll
+    for (int a = 0; a < kDotAcc; ++a) d[a][0] = d[a][1] = d[a][2] = d[a][3] = 0.0f;
+    if (b0 + kDotBlock <= c1) {
+#pragma unroll
+      for (int u0 = 0; u0 < kRegions; u0 += kB) {
+        Chunk x[kB], y[kB];
+#pragma unroll
+        for (int u = 0; u < kB; ++u) {
+          const int q = (b0 >> 2) + 4 * (u0 + u) + t;
+          x[u] = lo(q);
+          y[u] = hi(q);
+        }
+#pragma unroll
+        for (int u = 0; u < kB; ++u)
+          evt::mma_rows16(d[(u0 + u) % kDotAcc], E::up(x[u]), E::up(y[u]),
+                          e4[(b0 >> 2) + 4 * (u0 + u) + t], lane);
+      }
+    } else {  // a segment shorter than a block (n < 1024)
+#pragma unroll
+      for (int u = 0; u < kRegions; ++u) {
+        if (b0 + 16 * u < c1) {
+          const int q = (b0 >> 2) + 4 * u + t;
+          evt::mma_rows16(d[u % kDotAcc], E::up(lo(q)), E::up(hi(q)), e4[q], lane);
+        }
+      }
+    }
+    s[0] += (d[0][0] + d[1][0]) + (d[2][0] + d[3][0]);
+    s[1] += (d[0][2] + d[1][2]) + (d[2][2] + d[3][2]);
+  }
+}
 
 // Dynamic shared memory: ev (n floats) | resident rows (resident * n
 // elements of T) | ring stages (kWarps * ring, kSegChunks chunks each) |
@@ -162,15 +273,19 @@ struct StripeRing {
 
 // kRing: the instance with the ring (a launch whose plan has `ring` > 0);
 // the other is the register path alone, so the ring's code costs it no
-// register.
-template <class T, bool kRing>
-__global__ void __launch_bounds__(kThreads) multiround_kernel(
+// register.  kDot: the dot formulation (register path, no ring, kDotThreads
+// threads).
+template <class T, bool kRing, bool kDot = false>
+__global__ void __launch_bounds__(kDot ? kDotThreads : kThreads) multiround_kernel(
     const T* __restrict__ A, const float* __restrict__ ev_in,
     const float* __restrict__ v_in, const float* __restrict__ lam_in,
     int budget, float* __restrict__ ev_out, float* __restrict__ v_out,
     int* __restrict__ adv_out, float* __restrict__ lam_out,
     float* __restrict__ raw, int n, int chunk, float eps, int init, int rel,
-    int resident, int l2_rows, int ring, unsigned long long* stamps) {
+    int resident, int l2_rows, int ring, float* __restrict__ part,
+    unsigned long long* stamps) {
+  static_assert(!(kRing && kDot), "the dot formulation has no ring");
+  constexpr int kT = kDot ? kDotThreads : kThreads, kW = kT / 32;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float4 smem4[];
   using Chunk = typename evt::Elem<T>::Chunk;
@@ -218,20 +333,20 @@ __global__ void __launch_bounds__(kThreads) multiround_kernel(
     evt::mbar_init_fence();
   }
 
-  for (int j = tid; j < n; j += kThreads) ev_s[j] = ev_in[j];
+  for (int j = tid; j < n; j += kT) ev_s[j] = ev_in[j];
   // fill the resident rows, once per launch
   if ((n & 3) == 0) {
     const int n4 = n >> 2;
     Chunk* dst = reinterpret_cast<Chunk*>(rows_s);
 #pragma unroll 4
-    for (int e = tid; e < nres * n4; e += kThreads) {
+    for (int e = tid; e < nres * n4; e += kT) {
       const int k = e / n4;
       dst[e] = pass(reinterpret_cast<const Chunk*>(
                         A + static_cast<size_t>(b + k * G) * n) + (e - k * n4));
     }
   } else {
     Bits* dst = reinterpret_cast<Bits*>(rows_s);
-    for (int e = tid; e < nres * n; e += kThreads) {
+    for (int e = tid; e < nres * n; e += kT) {
       const int k = e / n;
       dst[e] = pass(reinterpret_cast<const Bits*>(A + static_cast<size_t>(b + k * G) * n) +
                     (e - k * n));
@@ -248,39 +363,75 @@ __global__ void __launch_bounds__(kThreads) multiround_kernel(
     // this round's v: the input at r == 0, else the previous matvec / ev
     const float* prev = raw + static_cast<size_t>((r + 1) & 1) * n;
     if (!init || r != 0) {
-      if (evt::round_prologue<kThreads, kBatch>(v_in, prev, r == 0, ev_s, n, eps, rel,
-                                                budget, adv, lam, red, stats))
+      // half the threads take twice the chunks of v in the dot instance
+      if (evt::round_prologue<kT, kBatch * kThreads / kT>(v_in, prev, r == 0, ev_s, n, eps,
+                                                          rel, budget, adv, lam, red, stats))
         break;  // same decision in every block
     }
     evt::stamp(stamps, r, 1, false);
     float* out = raw + static_cast<size_t>(r & 1) * n;
-    for (int m = warp; m < nrows; m += kWarps) {
-      float s;
-      int row;
-      if (m < nstream && rg.nq) {
-        row = b + (nres + m) * G;
-        const float4* x4 = reinterpret_cast<const float4*>(ev_s);
-        float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-        for (int j = 0; j < rg.nseg; ++j) {
-          const int base = j * kSegChunks;
-          evt::seg_dot<T>(rg.take(), x4 + base, min(kSegChunks, n / 4 - base), lane, s0, s1,
-                          s2, s3);
-          ++rg.used;
-          __syncwarp();  // every lane has read the stage before it is refilled
-          rg.issue(lane);
+    if constexpr (kDot) {
+      const int seg = n / kDotSegments, g8 = lane >> 2;
+      for (int e = warp; e < (nrows + kDotRows - 1) / kDotRows * kDotSegments; e += kW) {
+        const int rg = e / kDotSegments, s = e - rg * kDotSegments;
+        DotRow<T> rows2[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int k = rg * kDotRows + g8 + 8 * h;
+          const int row = b + k * G;
+          DotRow<T>& w = rows2[h];
+          w.where = k >= nrows ? 0 : k < nres ? 1 : 2;
+          w.p = reinterpret_cast<const Chunk*>(
+              k < nres ? rows_s + static_cast<size_t>(k) * n
+                       : A + static_cast<size_t>(k < nrows ? row : b) * n);
+          w.policy = k - nres < l2_rows ? keep.policy : pass.policy;
         }
-        s = evt::row_finish(s0, s1, s2, s3);
-      } else if (m < nstream) {
-        row = b + (nres + m) * G;
-        s = evt::row_dot(A + static_cast<size_t>(row) * n, ev_s, n, lane,
-                         m < l2_rows ? keep : pass);
-      } else {
-        const int k = m - nstream;
-        row = b + k * G;
-        s = evt::row_dot(rows_s + static_cast<size_t>(k) * n, ev_s, n, lane,
-                         evt::FromShared());
+        float sums[2];
+        dot_segment<T>(rows2[0], rows2[1], ev_s, s * seg, (s + 1) * seg, lane, sums);
+        if ((lane & 3) == 0) {
+          float* dst = part + static_cast<size_t>(s) * n + b;
+          const int k = rg * kDotRows + g8;
+          if (k < nrows) __stcg(dst + static_cast<size_t>(k) * G, sums[0]);
+          if (k + 8 < nrows) __stcg(dst + static_cast<size_t>(k + 8) * G, sums[1]);
+        }
       }
-      if (lane == 0) __stcg(out + row, s);
+      __syncthreads();  // the block's segments are written (read back through L2)
+      for (int k = tid; k < nrows; k += kT) {
+        const int row = b + k * G;
+        float acc = __ldcg(part + row);
+#pragma unroll
+        for (int s = 1; s < kDotSegments; ++s) acc += __ldcg(part + static_cast<size_t>(s) * n + row);
+        __stcg(out + row, acc);
+      }
+    } else {
+      for (int m = warp; m < nrows; m += kW) {
+        float s;
+        int row;
+        if (m < nstream && rg.nq) {
+          row = b + (nres + m) * G;
+          const float4* x4 = reinterpret_cast<const float4*>(ev_s);
+          float s0 = 0.0f, s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
+          for (int j = 0; j < rg.nseg; ++j) {
+            const int base = j * kSegChunks;
+            evt::seg_dot<T>(rg.take(), x4 + base, min(kSegChunks, n / 4 - base), lane, s0, s1,
+                            s2, s3);
+            ++rg.used;
+            __syncwarp();  // every lane has read the stage before it is refilled
+            rg.issue(lane);
+          }
+          s = evt::row_finish(s0, s1, s2, s3);
+        } else if (m < nstream) {
+          row = b + (nres + m) * G;
+          s = evt::row_dot(A + static_cast<size_t>(row) * n, ev_s, n, lane,
+                           m < l2_rows ? keep : pass);
+        } else {
+          const int k = m - nstream;
+          row = b + k * G;
+          s = evt::row_dot(rows_s + static_cast<size_t>(k) * n, ev_s, n, lane,
+                           evt::FromShared());
+        }
+        if (lane == 0) __stcg(out + row, s);
+      }
     }
     last = r & 1;
     evt::stamp(stamps, r, 2, true);
@@ -293,7 +444,7 @@ __global__ void __launch_bounds__(kThreads) multiround_kernel(
   // the input if it stopped at r == 0); a running one leaves the division
   // of its last matvec to this epilogue.
   const float* fin = last < 0 ? nullptr : raw + static_cast<size_t>(last) * n;
-  for (int j = blockIdx.x * kThreads + tid; j < n; j += gridDim.x * kThreads) {
+  for (int j = blockIdx.x * kT + tid; j < n; j += gridDim.x * kT) {
     ev_out[j] = ev_s[j];
     v_out[j] = fin ? __ldcg(fin + j) / ev_s[j] : v_in[j];
   }
@@ -303,12 +454,19 @@ __global__ void __launch_bounds__(kThreads) multiround_kernel(
   }
 }
 
+// The instance a launch runs: dot, ring or register path.
 template <class T>
-int blocks(int n, int resident, int ring) {
+auto instance(int ring, int dot) {
+  return dot ? multiround_kernel<T, false, true>
+             : ring ? multiround_kernel<T, true> : multiround_kernel<T, false>;
+}
+
+template <class T>
+int blocks(int n, int resident, int ring, int dot) {
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
   cudaFuncAttributes attr;
   const size_t smem = smem_bytes<T>(n, resident, ring);
-  const auto kernel = ring ? multiround_kernel<T, true> : multiround_kernel<T, false>;
+  const auto kernel = instance<T>(ring, dot);
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -322,22 +480,45 @@ int blocks(int n, int resident, int ring) {
   e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(limit));
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      dot ? kDotThreads : kThreads, smem);
   if (e != cudaSuccess) return -static_cast<int>(e);
   return per_sm * sms;
 }
 
+// The dot formulation's split of x[0 .. n - 1] as the card makes it (a test
+// of kernels.tf32_split, its plain version).
+__global__ void tf32_split_kernel(const float* __restrict__ x, unsigned* __restrict__ big,
+                                  unsigned* __restrict__ small, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const evt::Tf32Pair p = evt::tf32_split(x[i]);
+    big[i] = p.big;
+    small[i] = p.small;
+  }
+}
+
 }  // namespace
+
+// x (n,) float32; big, small (n,) 32-bit words: cvt.rna's TF32 parts of x.
+// Launches on `stream`; returns the launch's cudaError_t.
+extern "C" int evt_tf32_split(const float* x, unsigned* big, unsigned* small, int n,
+                              void* stream) {
+  if (n <= 0) return 0;
+  const int nb = n < 1024 * 256 ? (n + 255) / 256 : 1024;
+  tf32_split_kernel<<<nb, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, big, small, n);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Co-resident blocks of the kernel at dimension n with `resident` rows of
 // element type `elem` (0 float32, 1 bfloat16, 2 float16) and `ring` ring
-// stages a warp per block on the current device, 0 if one block does not
-// fit, or a negated cudaError_t.  Also raises the kernel's dynamic
-// shared-memory limit to the most the card allows.
-extern "C" int evt_multiround_blocks(int n, int resident, int ring, int elem) {
-  if (elem < 0 || elem > 2) return -static_cast<int>(cudaErrorInvalidValue);
+// stages a warp per block on the current device (`dot`: the dot
+// formulation's instance, ring 0), 0 if one block does not fit, or a negated
+// cudaError_t.  Also raises the kernel's dynamic shared-memory limit to the
+// most the card allows.
+extern "C" int evt_multiround_blocks(int n, int resident, int ring, int elem, int dot) {
+  if (elem < 0 || elem > 2 || (dot && ring)) return -static_cast<int>(cudaErrorInvalidValue);
   return evt::with_elem(elem, [&](auto tag) {
-    return blocks<typename decltype(tag)::type>(n, resident, ring);
+    return blocks<typename decltype(tag)::type>(n, resident, ring, dot);
   });
 }
 
@@ -348,8 +529,10 @@ extern "C" int evt_multiround_blocks(int n, int resident, int ring, int elem) {
 // (evt_multiround_blocks); the first `l2_rows` streamed rows of a block are
 // kept in L2.  `ring` > 0 streams the other rows through that many
 // bulk-copy stages a warp (A 16-byte aligned, n * sizeof(T) % 16 == 0);
-// 0 reads them into registers.  `stamps` is null, or kStampRounds *
-// kStampPhases * grid words for the phase stamps.  Launches on `stream` and does not
+// 0 reads them into registers.  `dot` = 1 runs the dot formulation (ring 0,
+// n % 128 == 0) with `part` (kDotSegments * n floats) as scratch; `part` is
+// null otherwise.  `stamps` is null, or kStampRounds * kStampPhases *
+// grid words for the phase stamps.  Launches on `stream` and does not
 // synchronise.  Returns the launch's cudaError_t (0 on success; a card
 // without cooperative launch fails here).
 extern "C" int evt_multiround(const void* A, const float* ev_in,
@@ -357,19 +540,20 @@ extern "C" int evt_multiround(const void* A, const float* ev_in,
                               int budget, float* ev_out, float* v_out,
                               int* adv_out, float* lam_out, float* raw, int n,
                               int chunk, float eps, int init, int rel,
-                              int resident, int l2_rows, int ring, void* stamps,
-                              int elem, int grid, void* stream) {
+                              int resident, int l2_rows, int ring, int dot, float* part,
+                              void* stamps, int elem, int grid, void* stream) {
+  if (dot && (ring || n % 128 || !part)) return static_cast<int>(cudaErrorInvalidValue);
   return evt::with_elem(elem, [&](auto tag) {
     using T = typename decltype(tag)::type;
     const size_t smem = smem_bytes<T>(n, resident, ring);
     void* args[] = {&A,      &ev_in,   &v_in,    &lam_in,   &budget,  &ev_out,
                     &v_out,  &adv_out, &lam_out, &raw,      &n,       &chunk,
                     &eps,    &init,    &rel,     &resident, &l2_rows, &ring,
-                    &stamps};
+                    &part,   &stamps};
     const cudaError_t e = cudaLaunchCooperativeKernel(
-        ring ? (const void*)multiround_kernel<T, true> : (const void*)multiround_kernel<T, false>,
+        (const void*)instance<T>(ring, dot),
         dim3(grid),
-        dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
+        dim3(dot ? kDotThreads : kThreads), args, smem, static_cast<cudaStream_t>(stream));
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
   });

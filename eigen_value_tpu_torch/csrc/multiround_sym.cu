@@ -129,6 +129,24 @@
 //     for every copy it issued;
 //   * A must be 16-byte aligned (the wrapper checks; n % 128 == 0 makes
 //     its row pitch a multiple of 16 bytes, as a tensor map needs).
+//
+// The "dot" formulation (kDot; `dot` = 1, the plan gives it no ring): each
+// tile's row term and transpose term on the tensor cores in 3xTF32
+// (mma_tf32.cuh), as the TPU kernel's formulation="dot" contracts each tile
+// on its matrix unit (kernels.py:890-915, :948-965).  The work items, the
+// tiles' places (streamed with their L2 policy, or resident, read from
+// shared memory by the same helper), the slots and slot_sum are the vpu
+// formulation's; only tile_terms changes, to tile_terms_dot.  A warp takes
+// its rows 16 at a time (the unit's m16) and a 128-column chunk 16 columns
+// at a time: lane (g, t) reads columns 4t .. 4t + 3 of rows g and g + 8 (the
+// vpu path's loads, two of them), the row term chains over the columns and
+// the transpose term over the rows, one accumulator per 16 columns of the
+// chunk (32 registers).  The transpose term's fragments are the row
+// fragments transposed by shuffles (transpose8).  Each slot holds what the
+// vpu formulation's holds, the sum of its own products in a fixed order, so
+// a dot launch is bit-identical for every cache size, every chunking, the
+// lower block triangle's contents and A_q against A_q.float(); it agrees
+// with a vpu launch in rounds and within rounding.
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
 #include <cuda_runtime.h>
@@ -136,6 +154,7 @@
 #include <type_traits>
 
 #include "bulk.cuh"
+#include "mma_tf32.cuh"
 #include "prologue.cuh"
 #include "rowdot.cuh"
 
@@ -347,6 +366,71 @@ __device__ __forceinline__ void tile_terms(const S* src, size_t stride, int bt,
   }
 }
 
+// tile_terms in the dot formulation: the same pass, rows and outputs, on the
+// tensor cores.  Rows r_lo .. r_hi - 1 (a multiple of 16 of them) go 16 at a
+// time; row r's term is two chains of the unit's products over each
+// 128-column chunk (the even and the odd 16-column regions, in order), added,
+// the chunks added in order in f32 (as tile_terms adds them), and column c's
+// transpose term one chain over the rows in order.  (The unit's accumulator
+// truncates: chains of 128 columns or rows keep λ within 1e-6 of a float64
+// loop at 8192^2, where one over 1024 columns did not keep it within 1e-5.)
+template <class S, class Load>
+__device__ __forceinline__ void tile_terms_dot(const S* src, size_t stride, int bt, int r_lo,
+                                               int r_hi, bool trans, const float* evi,
+                                               const float* evj, float* row_out,
+                                               float* col_out, int lane, Load load) {
+  using E = evt::Elem<S>;
+  using Chunk = typename E::Chunk;
+  // 16-column steps whose loads go together: two f32 ones, four 2-byte ones
+  constexpr int kB = sizeof(Chunk) == sizeof(float4) ? 2 : 4;
+  constexpr int kSteps = kChunk / 16;
+  const int g = lane >> 2, t = lane & 3;
+  const size_t stride4 = stride >> 2;
+  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  for (int q = 0; q < bt; q += kChunk) {
+    float tacc[kSteps][4];  // the transpose term of columns q + 16u ..
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) tacc[u][0] = tacc[u][1] = tacc[u][2] = tacc[u][3] = 0.0f;
+    const float4* e4 = reinterpret_cast<const float4*>(evj + q);
+    for (int r0 = r_lo; r0 < r_hi; r0 += 16) {
+      // the row term in two chains, the even and the odd 16-column regions
+      float d[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
+      const float4 f = trans && lane < 4 ? make_float4(evi[r0 + 2 * t], evi[r0 + 2 * t + 1],
+                                                       evi[r0 + 8 + 2 * t], evi[r0 + 9 + 2 * t])
+                                         : zero;
+      const Chunk* p = reinterpret_cast<const Chunk*>(src + q) + (r0 + g) * stride4 + t;
+#pragma unroll
+      for (int u0 = 0; u0 < kSteps; u0 += kB) {
+        float4 x[kB], y[kB];
+#pragma unroll
+        for (int u = 0; u < kB; ++u) {
+          x[u] = E::up(load(p + 4 * (u0 + u)));
+          y[u] = E::up(load(p + 8 * stride4 + 4 * (u0 + u)));
+        }
+#pragma unroll
+        for (int u = 0; u < kB; ++u) {
+          evt::mma_rows16(d[(u0 + u) & 1], x[u], y[u], e4[4 * (u0 + u) + t], lane);
+          if (trans) evt::mma_cols16(tacc[u0 + u], x[u], y[u], f, lane);
+        }
+      }
+      if (t == 0) {  // chunks in order; the same lane wrote the earlier ones
+        float* out = row_out + r0 + g;
+        const float lo = d[0][0] + d[1][0], hi = d[0][2] + d[1][2];
+        __stcg(out, q == 0 ? lo : __ldcg(out) + lo);
+        __stcg(out + 8, q == 0 ? hi : __ldcg(out + 8) + hi);
+      }
+    }
+    if (trans && t == 0) {
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        float* out = col_out + q + 16 * u + 4 * (g >> 1) + (g & 1);
+        __stcg(out, tacc[u][0]);
+        __stcg(out + 2, tacc[u][2]);
+      }
+    }
+  }
+}
+
 // One row's sum over the column blocks k = k0, k0 + kClasses, ... in that order.
 // A slot below `below` is a transpose term, its `split` groups added left to
 // right (kSplit: `split` at compile time, or 0 for any); the others are row
@@ -380,8 +464,9 @@ __device__ __forceinline__ float slot_sum(const float* p, const float* pt, int k
 // part_t: g * n * split floats (sym only).  split: 1 (an item is a tile) or
 // bt / 32 (an item is a 32-row group).
 // kRing: the instance with the ring (a launch whose plan has `ring` > 0);
-// the other is the register path alone.
-template <class S, bool kRing>
+// the other is the register path alone.  kDot: the dot formulation
+// (register path, no ring).
+template <class S, bool kRing, bool kDot = false>
 __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
     const S* __restrict__ A, const int2* __restrict__ tiles, int T, int C,
     int slots, const float* __restrict__ ev_in, const float* __restrict__ v_in,
@@ -391,6 +476,7 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
     int bt, int chunk, float eps, int init, int rel, int sym, int split,
     int l2_tiles, int ring, const __grid_constant__ CUtensorMap tmap,
     unsigned long long* stamps) {
+  static_assert(!(kRing && kDot), "the dot formulation has no ring");
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float4 smem4[];
   float* ev_s = reinterpret_cast<float*>(smem4);
@@ -483,7 +569,16 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
       float* row_out = part + (static_cast<size_t>(ij.x) * g + ij.y) * bt;
       float* col_out =
           part_t + ((static_cast<size_t>(ij.y) * g + ij.x) * split + lo / span) * bt;
-      if (streamed && rg.nk) {
+      if constexpr (kDot) {
+        if (streamed) {
+          tile_terms_dot(A + static_cast<size_t>(ij.x) * bt * n + static_cast<size_t>(ij.y) * bt,
+                         n, bt, lo, lo + span, trans, evi, evj, row_out, col_out, lane,
+                         t < l2_tiles ? keep : pass);
+        } else {
+          tile_terms_dot(cache + (m - nstream) * tile_elems, bt, bt, lo, lo + span, trans, evi,
+                         evj, row_out, col_out, lane, evt::FromShared());
+        }
+      } else if (streamed && rg.nk) {
         tile_terms(A, n, bt, lo, lo + span, trans, evi, evj, row_out, col_out, lane,
                    evt::FromShared(), &rg);
       } else if (streamed) {
@@ -543,12 +638,19 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
   }
 }
 
+// The instance a launch runs: dot, ring or register path.
 template <class S>
-int grid_of(int n, int bt, int slots, int ring) {
+auto instance(int ring, int dot) {
+  return dot ? multiround_sym_kernel<S, false, true>
+             : ring ? multiround_sym_kernel<S, true> : multiround_sym_kernel<S, false>;
+}
+
+template <class S>
+int grid_of(int n, int bt, int slots, int ring, int dot) {
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
   cudaFuncAttributes attr;
   const size_t smem = smem_bytes<S>(n, bt, slots, ring);
-  const auto kernel = ring ? multiround_sym_kernel<S, true> : multiround_sym_kernel<S, false>;
+  const auto kernel = instance<S>(ring, dot);
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -616,13 +718,14 @@ int tile_map(CUtensorMap* map, const void* A, int n) {
 
 // Co-resident blocks of the kernel at (n, bt, slots resident tiles per
 // block, ring stages a warp, element type `elem`: 0 float32, 1 bfloat16, 2
-// float16) on the current device, 0 if one block does not fit, or a negated
-// cudaError_t.  Also raises the kernel's dynamic shared-memory limit to the
-// most the card allows.
-extern "C" int evt_multiround_sym_grid(int n, int bt, int slots, int ring, int elem) {
-  if (elem < 0 || elem > 2) return -static_cast<int>(cudaErrorInvalidValue);
+// float16; `dot`: the dot formulation's instance, ring 0) on the current
+// device, 0 if one block does not fit, or a negated cudaError_t.  Also
+// raises the kernel's dynamic shared-memory limit to the most the card
+// allows.
+extern "C" int evt_multiround_sym_grid(int n, int bt, int slots, int ring, int elem, int dot) {
+  if (elem < 0 || elem > 2 || (dot && ring)) return -static_cast<int>(cudaErrorInvalidValue);
   return evt::with_elem(elem, [&](auto tag) {
-    return grid_of<typename decltype(tag)::type>(n, bt, slots, ring);
+    return grid_of<typename decltype(tag)::type>(n, bt, slots, ring, dot);
   });
 }
 
@@ -634,7 +737,8 @@ extern "C" int evt_multiround_sym_grid(int n, int bt, int slots, int ring, int e
 // tiles each (evt_multiround_sym_grid) and grid * slots >= C.  `split` is 1
 // or bt / 32; the first `l2_tiles` streamed tiles are kept in L2.  `ring`
 // > 0 streams tiles through that many bulk-copy stages a warp (A 16-byte
-// aligned), 0 through registers.  `stamps`
+// aligned), 0 through registers; `dot` = 1 runs the dot formulation (ring
+// 0).  `stamps`
 // is null, or kStampRounds * kStampPhases * grid words for the phase
 // stamps.  Launches on `stream` and does not synchronise.  Returns the
 // launch's cudaError_t (0 on success).
@@ -645,8 +749,9 @@ extern "C" int evt_multiround_sym(const void* A, const int* tiles, int T,
                                   int* adv_out, float* lam_out, float* raw,
                                   float* part, float* part_t, int n, int bt,
                                   int chunk, float eps, int init, int rel,
-                                  int sym, int split, int l2_tiles, int ring,
+                                  int sym, int split, int l2_tiles, int ring, int dot,
                                   void* stamps, int elem, int grid, void* stream) {
+  if (dot && ring) return static_cast<int>(cudaErrorInvalidValue);
   const int2* tiles2 = reinterpret_cast<const int2*>(tiles);
   CUtensorMap tmap = {};  // read only by a launch with a ring
   void* args[] = {&A,       &tiles2,   &T,        &C,      &slots,  &ev_in,
@@ -661,9 +766,7 @@ extern "C" int evt_multiround_sym(const void* A, const int* tiles, int T,
       if (rc != 0) return rc;
     }
     const cudaError_t e = cudaLaunchCooperativeKernel(
-        ring ? (const void*)multiround_sym_kernel<E, true>
-             : (const void*)multiround_sym_kernel<E, false>,
-        dim3(grid), dim3(kThreads), args,
+        (const void*)instance<E>(ring, dot), dim3(grid), dim3(kThreads), args,
         smem_bytes<E>(n, bt, slots, ring), static_cast<cudaStream_t>(stream));
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());

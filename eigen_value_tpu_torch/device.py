@@ -153,7 +153,9 @@ def _stripes(n: int, device: torch.device, itemsize: int, ring: int) -> StripesP
     return StripesPlan(grid, resident, l2_rows, ring)
 
 
-def multiround_plan(n: int, device: torch.device, itemsize: int = 4) -> StripesPlan:
+def multiround_plan(
+    n: int, device: torch.device, itemsize: int = 4, ring: bool = True
+) -> StripesPlan:
     """How the stripes kernel spends the card at dimension n, for A stored
     in ``itemsize`` bytes an element.  Block b owns rows b, b + grid, ...;
     it keeps in shared memory as many of them as fit beside ev and the ring
@@ -166,11 +168,12 @@ def multiround_plan(n: int, device: torch.device, itemsize: int = 4) -> StripesP
     :func:`stripes_ring` stages a warp, whose bytes are taken from the
     resident rows; where every row stays on the chip there is no ring (one
     stage a warp cost 15% at 4096² in bf16, where the ring only re-reads
-    the L2)."""
+    the L2).  ``ring=False`` plans the register path alone (the dot
+    formulation has no ring instance): its rows take the ring's bytes."""
     plan = _stripes(n, device, itemsize, 0)
-    ring = stripes_ring(n, device, itemsize)
-    if ring and plan.grid * (plan.resident + plan.l2_rows) < n:
-        plan = _stripes(n, device, itemsize, ring)
+    depth = stripes_ring(n, device, itemsize) if ring else 0
+    if depth and plan.grid * (plan.resident + plan.l2_rows) < n:
+        plan = _stripes(n, device, itemsize, depth)
     return plan
 
 
@@ -208,7 +211,8 @@ def sym_ring(n: int, bt: int, device: torch.device, itemsize: int = 4) -> int:
 
 
 def sym_auto_cache_tiles(
-    n: int, bt: int, device: torch.device, sym: bool = True, itemsize: int = 4
+    n: int, bt: int, device: torch.device, sym: bool = True, itemsize: int = 4,
+    ring: bool = True,
 ) -> int:
     """The largest resident tile cache the triangle kernel can hold at
     (n, bt) on ``device`` for A stored in ``itemsize`` bytes an element: as
@@ -221,13 +225,14 @@ def sym_auto_cache_tiles(
     tile must stream).  0 when one tile does not fit, and on the CPU, where
     the plain version keeps nothing resident.  (The JAX package sizes its
     cache from the v5e's VMEM, by the tile's itemsize as here; the budget
-    here is the card's own.)"""
+    here is the card's own.)  ``ring=False``: the budget of the register
+    path alone (the dot formulation; six bf16 tiles a block at n = 8192)."""
     if device.type != "cuda":
         return 0
     lim = cuda_limits(device)
-    ring = sym_ring(n, bt, device, itemsize)
+    depth = sym_ring(n, bt, device, itemsize) if ring else 0
     free = (lim.smem_per_block_optin - _MULTIROUND_STATIC_SMEM
-            - sym_smem_bytes(n, bt, 0, itemsize, ring))
+            - sym_smem_bytes(n, bt, 0, itemsize, depth))
     slots = max(0, free // (itemsize * bt * bt))
     g = n // bt
     cap = g * (g - 1) // 2 if sym else g * g - 1

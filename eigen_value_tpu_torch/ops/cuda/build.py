@@ -26,7 +26,7 @@ SOURCES = (
     "matvec.cu", "multiround.cu", "multiround_sym.cu", "round.cu", "rowsum.cu", "scale.cu",
     "stop.cu",
 )
-HEADERS = ("bulk.cuh", "prologue.cuh", "rowdot.cuh", "rowsum.cuh")
+HEADERS = ("bulk.cuh", "mma_tf32.cuh", "prologue.cuh", "rowdot.cuh", "rowsum.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,22 +38,23 @@ _SIGNATURES = {
     # A, x, y, n, m, ld, elem, stream (elem: A's element type, kernels._ELEM)
     "evt_matvec": (_P, _P, _P, _I, _I, ctypes.c_longlong, _I, _P),
     # A, ev_in, v_in, lam_in, budget, ev_out, v_out, adv_out, lam_out, raw,
-    # n, chunk, eps, init, rel, resident, l2_rows, ring, stamps, elem, grid, stream
+    # n, chunk, eps, init, rel, resident, l2_rows, ring, dot, part, stamps, elem,
+    # grid, stream
     "evt_multiround": (
         _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I, _I, _I,
-        _P, _I, _I, _P,
+        _I, _P, _P, _I, _I, _P,
     ),
-    # n, resident, ring, elem
-    "evt_multiround_blocks": (_I, _I, _I, _I),
+    # n, resident, ring, elem, dot
+    "evt_multiround_blocks": (_I, _I, _I, _I, _I),
     # A, tiles, T, C, slots, ev_in, v_in, lam_in, budget, ev_out, v_out,
     # adv_out, lam_out, raw, part, part_t, n, bt, chunk, eps, init, rel, sym,
-    # split, l2_tiles, ring, stamps, elem, grid, stream
+    # split, l2_tiles, ring, dot, stamps, elem, grid, stream
     "evt_multiround_sym": (
         _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-        ctypes.c_float, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P,
+        ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P,
     ),
-    # n, bt, slots, ring, elem
-    "evt_multiround_sym_grid": (_I, _I, _I, _I, _I),
+    # n, bt, slots, ring, elem, dot
+    "evt_multiround_sym_grid": (_I, _I, _I, _I, _I, _I),
     "evt_round_grid": (_I,),
     # A, ev, v, m, v_next, ev_new, n, grid, stream
     "evt_round_matvec": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
@@ -69,6 +70,8 @@ _SIGNATURES = {
     "evt_scale_rowsum": (_P, _P, _P, _P, _I, _P),
     # v, eps, n, state, out, stream
     "evt_stop": (_P, _P, _I, _P, _P, _P),
+    # x, big, small, n, stream
+    "evt_tf32_split": (_P, _P, _P, _I, _P),
 }
 
 

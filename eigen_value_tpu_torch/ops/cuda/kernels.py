@@ -33,6 +33,13 @@ in full float32 (cuBLAS gemv on the card, which has no TF32 mode; TF32
 would put row-sum noise above the absolute 1e-3 stop once λ ≳ 1).  A
 2-byte A is cast up to f32 in blocks of rows (or tiles) of at most
 ``PLAIN_BLOCK_BYTES``, so the plain versions never hold an f32 copy of it.
+
+The two persistent kernels take ``formulation="dot"`` as the JAX kernels
+do: their products on the tensor cores in 3xTF32 (csrc/mma_tf32.cuh; each
+f32 value split into a TF32 big part and a TF32 small part, the
+small·small term dropped), never plain TF32.  Its plain version is
+:func:`matvec_tf32_plain`, the same three products in f32 (TF32 off), over
+:func:`tf32_split`, which gives the bits of the card's ``cvt.rna``.
 """
 
 from __future__ import annotations
@@ -104,6 +111,13 @@ def _sized(dtype: torch.dtype, name: str = "dtype") -> dict:
     return {name: dtype if name == "dtype" else dtype.itemsize}
 
 
+def _formulated(formulation: str) -> dict:
+    """The keyword that asks a plan call for the dot instance: none for
+    "vpu", so that a launch looks its plan up under the key that
+    :func:`prepare` cached it under."""
+    return {"dot": True} if formulation == "dot" else {}
+
+
 #: Phase stamps of the persistent kernels: None, or the tensor they write.
 STAMPS: Optional[torch.Tensor] = None
 #: The phases between a round's stamps, in order.
@@ -137,6 +151,48 @@ def matvec_plain(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     if A.element_size() >= 4 or A.shape[0] <= rows:
         return torch.mv(_up(A), x)
     return torch.cat([torch.mv(_up(A[r:r + rows]), x) for r in range(0, A.shape[0], rows)])
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (float32) rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    10 fraction bits, to nearest, ties away from zero; the low 13 bits are
+    0.  On the f32 bits: add half of the last kept bit to the magnitude,
+    then clear the 13 low bits (the sign bit is untouched below the
+    largest finite values; infinities stay, a NaN stays a NaN)."""
+    bits = x.contiguous().view(torch.int32)
+    out = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(torch.isnan(x), x, out)
+
+
+def tf32_split(x: torch.Tensor):
+    """``(big, small)`` with ``big = rna(x)`` and ``small = rna(x - big)``
+    (``x - big`` is exact): the two TF32 parts the dot formulation's kernels
+    multiply.  A bf16 or f16 value is exact in TF32, so its small part is
+    0."""
+    big = tf32_rna(x)
+    return big, tf32_rna(x - big)
+
+
+def _mv3(a_big, a_small, e_big, e_small, mv) -> torch.Tensor:
+    # the kernel's three products: a_big·e_small + a_small·e_big, then + a_big·e_big
+    return (mv(a_big, e_small) + mv(a_small, e_big)) + mv(a_big, e_big)
+
+
+def matvec_tf32_plain(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` in 3xTF32, the dot formulation's product: A and x split by
+    :func:`tf32_split`, then ``A_big·x_small + A_small·x_big + A_big·x_big``
+    by f32 GEMVs (TF32 off; the small·small term, 2^-22 relative, is
+    dropped).  The sums run in PyTorch's order, not the tensor cores', so
+    this is the kernel's function and not its bits.  A is split
+    ``PLAIN_BLOCK_BYTES`` of f32 rows at a time, the same blocks for every
+    dtype, so a 2-byte A gives the bits of ``A.float()``."""
+    xb, xs = tf32_split(x)
+    rows = max(1, PLAIN_BLOCK_BYTES // (4 * max(1, A.shape[1])))
+    out = []
+    for r in range(0, A.shape[0], rows):
+        ab, a_s = tf32_split(_up(A[r:r + rows]))
+        out.append(_mv3(ab, a_s, xb, xs, torch.mv))
+    return torch.cat(out)
 
 
 def _leading_dim(A: torch.Tensor) -> int:
@@ -234,27 +290,47 @@ def multiround_plain(
     eps: float,
     init: bool = False,
     eps_mode: str = "absolute",
+    formulation: str = "vpu",
 ):
     """Up to ``chunk`` matvec-form rounds, round for round what the kernel
     does.  Each round checks the stop BEFORE advancing and the solve freezes
     at the round that stops (or that reaches ``budget`` advanced rounds).
     ``init=True`` makes round 0 the row-sum pass (no check, not counted; v
-    is then ignored).  Returns ``(ev, v, advanced, λ)``."""
+    is then ignored).  ``formulation="dot"`` multiplies in 3xTF32
+    (:func:`matvec_tf32_plain`).  Returns ``(ev, v, advanced, λ)``."""
+    _check_formulation(formulation, A.shape[0])
+    mv = matvec_tf32_plain if formulation == "dot" else matvec_plain
     return _rounds_plain(
-        lambda e: matvec_plain(A, e), ev, v, lam, budget, chunk, eps, init, eps_mode
+        lambda e: mv(A, e), ev, v, lam, budget, chunk, eps, init, eps_mode
     )
 
 
+def _check_formulation(formulation: str, n: int) -> None:
+    """The stripes kernel's formulations, as the JAX kernel's: "vpu", and
+    "dot", whose row stripes need a divisor of n that is a multiple of 128
+    (every stripe a whole number of the unit's 128-column lanes)."""
+    if formulation not in ("vpu", "dot"):
+        raise ValueError(f"unknown formulation {formulation!r} (the stripes kernel has "
+                         f"'vpu' and 'dot')")
+    if formulation == "dot" and n % 128:
+        raise ValueError(f"dim {n} admits no dot-aligned row stripe (need a divisor that is a "
+                         f"multiple of 128)")
+
+
 @functools.lru_cache(maxsize=None)
-def multiround_launch_plan(device: torch.device, n: int, dtype: torch.dtype = torch.float32):
+def multiround_launch_plan(
+    device: torch.device, n: int, dtype: torch.dtype = torch.float32, dot: bool = False
+):
     """:func:`device.multiround_plan` at dimension ``n`` for A stored in
     ``dtype``, checked once against what the card will run side by side (a
-    cooperative launch needs every block resident)."""
+    cooperative launch needs every block resident).  ``dot``: the dot
+    formulation's instance, which has no ring."""
     from . import build
 
-    plan = multiround_plan(n, device, dtype.itemsize)
+    plan = multiround_plan(n, device, dtype.itemsize, ring=not dot)
     with torch.cuda.device(device):
-        cap = build.load().evt_multiround_blocks(n, plan.resident, plan.ring, _ELEM[dtype])
+        cap = build.load().evt_multiround_blocks(n, plan.resident, plan.ring, _ELEM[dtype],
+                                                 int(dot))
     if cap < 0:
         raise RuntimeError(f"multiround occupancy query failed with cudaError {-cap}")
     if cap < plan.grid:
@@ -283,12 +359,15 @@ def multiround(
     eps: float,
     init: bool = False,
     eps_mode: str = "absolute",
+    formulation: str = "vpu",
 ):
     """Up to ``chunk`` matvec-form rounds in one launch of the persistent
     kernel; semantics of :func:`multiround_plain`.  A is float32, bfloat16
     or float16 (read as stored, every product and sum in f32); ev and v
-    are float32.  Returns ``(ev, v, advanced, λ)`` with ``advanced`` an
-    int32 tensor."""
+    are float32.  ``formulation="dot"`` (n % 128 == 0) takes the row sums
+    on the tensor cores in 3xTF32: bit-identical across chunkings and
+    between A_q and A_q.float(), within rounding of "vpu".  Returns ``(ev,
+    v, advanced, λ)`` with ``advanced`` an int32 tensor."""
     if A.dim() != 2 or A.shape[0] != A.shape[1]:
         raise ValueError(f"A must be square, got shape {tuple(A.shape)}")
     n = A.shape[0]
@@ -298,6 +377,7 @@ def multiround(
         raise ValueError(f"chunk must be >= 1, got {chunk}")
     if eps_mode not in ("absolute", "relative"):
         raise ValueError(f"unknown eps_mode {eps_mode!r}")
+    _check_formulation(formulation, n)
     _check_stored("A", A, (n, n))
     _check_f32("ev", ev, (n,))
     _check_f32("v", v, (n,))
@@ -306,7 +386,8 @@ def multiround(
     budget = int(budget)
     if dev.type == "cpu":
         return multiround_plain(
-            A, ev, v, lam, budget, chunk=chunk, eps=eps, init=init, eps_mode=eps_mode
+            A, ev, v, lam, budget, chunk=chunk, eps=eps, init=init, eps_mode=eps_mode,
+            formulation=formulation,
         )
     _check_aligned(n, A, v)
     if not multiround_fits(n, dev):
@@ -322,7 +403,10 @@ def multiround(
     adv = torch.empty((), dtype=torch.int32, device=dev)
     lam_out = torch.empty((), dtype=torch.float32, device=dev)
     raw = torch.empty(2 * n, dtype=torch.float32, device=dev)
-    plan = multiround_launch_plan(dev, n, **_sized(A.dtype))
+    dot = formulation == "dot"
+    # the dot formulation's segment sums: kDotSegments (8) floats a row
+    part = torch.empty(8 * n, dtype=torch.float32, device=dev) if dot else None
+    plan = multiround_launch_plan(dev, n, **_sized(A.dtype), **_formulated(formulation))
     _check_ring_aligned(plan.ring, A)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -331,8 +415,8 @@ def multiround(
             min(budget, 2**31 - 1),
             ev_out.data_ptr(), v_out.data_ptr(), adv.data_ptr(), lam_out.data_ptr(),
             raw.data_ptr(), n, min(chunk, 2**31 - 1), eps, int(init),
-            int(eps_mode == "relative"), plan.resident, plan.l2_rows, plan.ring, _stamps_ptr(),
-            _ELEM[A.dtype], plan.grid, stream,
+            int(eps_mode == "relative"), plan.resident, plan.l2_rows, plan.ring, int(dot),
+            part.data_ptr() if dot else 0, _stamps_ptr(), _ELEM[A.dtype], plan.grid, stream,
         )
         _launch(rc, "multiround")
     multiround.launches += 1
@@ -398,14 +482,24 @@ def _tile_index(device: torch.device, n: int, bt: int, sym: bool):
     return ti, tj, off
 
 
-def tiled_matvec_plain(A: torch.Tensor, ev: torch.Tensor, bt: int, sym: bool) -> torch.Tensor:
+def _tile_products(tiles: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
+    """``tiles[k] @ vecs[k]`` for every k in 3xTF32 (batched f32 GEMVs)."""
+    tb, ts = tf32_split(tiles)
+    eb, es = tf32_split(vecs)
+    return _mv3(tb, ts, eb, es, lambda a, e: torch.bmm(a, e.unsqueeze(-1)).squeeze(-1))
+
+
+def tiled_matvec_plain(
+    A: torch.Tensor, ev: torch.Tensor, bt: int, sym: bool, formulation: str = "vpu"
+) -> torch.Tensor:
     """``A @ ev`` over square bt-edge tiles, reading only the upper block
     triangle when ``sym``: each tile's row term ``T @ ev[j_blk]`` and, off
     the diagonal, its transpose term ``ev[i_blk] @ T`` land in the slot of
     their (row block, column block), and the slots are summed over column
     blocks.  Batched f32 products (no TF32), over at most
     ``PLAIN_BLOCK_BYTES`` of f32 tiles at a time (a 2-byte A is cast up
-    there)."""
+    there); ``formulation="dot"`` takes each term in 3xTF32 (``T^T @
+    ev[i_blk]`` for the transpose term)."""
     n = A.shape[0]
     g = n // bt
     ti, tj, off = _tile_index(A.device, n, bt, sym)
@@ -416,6 +510,11 @@ def tiled_matvec_plain(A: torch.Tensor, ev: torch.Tensor, bt: int, sym: bool) ->
     for s in range(0, len(ti), step):
         i, j, o = ti[s:s + step], tj[s:s + step], off[s:s + step]
         tiles = _up(blocks[i, :, j, :])  # (tiles, bt, bt): only these are read
+        if formulation == "dot":
+            part[i, j] = _tile_products(tiles, evb[j])
+            if sym:
+                part[j[o], i[o]] = _tile_products(tiles[o].transpose(1, 2), evb[i[o]])
+            continue
         part[i, j] = torch.bmm(tiles, evb[j].unsqueeze(-1)).squeeze(-1)
         if sym:
             part[j[o], i[o]] = torch.bmm(evb[i[o]].unsqueeze(1), tiles[o]).squeeze(1)
@@ -423,10 +522,12 @@ def tiled_matvec_plain(A: torch.Tensor, ev: torch.Tensor, bt: int, sym: bool) ->
 
 
 def _check_tiled_knobs(formulation: str, mxu_tiles, fill_mode: str) -> None:
-    if formulation != "vpu":
+    if formulation not in ("vpu", "dot", "mixed"):
+        raise ValueError(f"unknown formulation {formulation!r}")
+    if formulation == "mixed":
         raise ValueError(
-            f"formulation={formulation!r} is not ported: the triangle kernel has "
-            f"the 'vpu' reduction only (ROADMAP, Queue 2 item 3)"
+            "formulation='mixed' (the resident tiles on the tensor cores, the rest "
+            "on the 'vpu' path) is not ported (ROADMAP, Queue 2 item 3)"
         )
     if mxu_tiles is not None:
         raise ValueError(
@@ -479,14 +580,17 @@ def multiround_sym_plain(
     tile: int = SYM_TILE,
     cache_tiles: int = 0,
     sym: bool = True,
+    formulation: str = "vpu",
 ):
-    """The rounds of :func:`multiround_plain` over :func:`tiled_matvec_plain`.
-    ``cache_tiles`` changes where tiles live, never the result, so the plain
-    version (which keeps nothing resident) accepts and ignores it."""
+    """The rounds of :func:`multiround_plain` over :func:`tiled_matvec_plain`
+    (in 3xTF32 for ``formulation="dot"``).  ``cache_tiles`` changes where
+    tiles live, never the result, so the plain version (which keeps nothing
+    resident) accepts and ignores it."""
     del cache_tiles
+    _check_tiled_knobs(formulation, None, "prologue")
     bt = _check_tiled(A, ev, v, chunk, eps_mode, tile)
     return _rounds_plain(
-        lambda e: tiled_matvec_plain(A, e, bt, sym),
+        lambda e: tiled_matvec_plain(A, e, bt, sym, formulation),
         ev, v, lam, int(budget), chunk, eps, init, eps_mode,
     )
 
@@ -505,13 +609,14 @@ class SymPlan(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def multiround_sym_plan(
     device: torch.device, n: int, bt: int, cache_tiles: int, sym: bool,
-    dtype: torch.dtype = torch.float32,
+    dtype: torch.dtype = torch.float32, dot: bool = False,
 ):
     """Launch plan of the triangle kernel, built once per (device, n, bt,
-    cache_tiles, sym, A's dtype): the tile table on the card, the grid, the
-    resident tiles per block, and what the card's size decides (the split
-    of tiles into work items, the L2-kept tiles).  Raises ValueError when
-    the cache does not fit the card (a request is rejected, never shrunk)."""
+    cache_tiles, sym, A's dtype, formulation): the tile table on the card,
+    the grid, the resident tiles per block, and what the card's size decides
+    (the split of tiles into work items, the L2-kept tiles).  The dot
+    formulation's instance has no ring.  Raises ValueError when the cache
+    does not fit the card (a request is rejected, never shrunk)."""
     from . import build
 
     size = dtype.itemsize
@@ -519,9 +624,9 @@ def multiround_sym_plan(
     T, C = len(streamed), len(cached)
     sms = cuda_limits(device).sms
     slots0 = -(-C // sms)  # the grid holds at least one block per SM
-    ring = sym_ring(n, bt, device, size)
+    ring = 0 if dot else sym_ring(n, bt, device, size)
     if not multiround_sym_fits(n, bt, device, slots0, size, ring):
-        most = sym_auto_cache_tiles(n, bt, device, sym, size)
+        most = sym_auto_cache_tiles(n, bt, device, sym, size, ring=not dot)
         raise ValueError(
             f"cache_tiles={cache_tiles} does not fit the card: {slots0} resident "
             f"{bt}x{bt} {dtype} tiles per block and {ring} ring stages a warp need "
@@ -529,7 +634,7 @@ def multiround_sym_plan(
             f"{most} tiles fit at n={n}"
         )
     with torch.cuda.device(device):
-        cap = build.load().evt_multiround_sym_grid(n, bt, slots0, ring, _ELEM[dtype])
+        cap = build.load().evt_multiround_sym_grid(n, bt, slots0, ring, _ELEM[dtype], int(dot))
     if cap < 0:
         raise RuntimeError(f"multiround_sym occupancy query failed with cudaError {-cap}")
     if cap == 0:
@@ -569,7 +674,10 @@ def multiround_sym(
     ``cache_tiles`` and every chunking.  A is float32, bfloat16 or float16
     (tiles stream and stay resident as stored, every product and sum in
     f32, the same work items and slots: a 2-byte A gives the bits of its f32
-    values); ev and v are float32."""
+    values); ev and v are float32.  ``formulation="dot"`` takes each tile's
+    terms on the tensor cores in 3xTF32, with the same invariances; "mixed",
+    ``mxu_tiles`` and ``fill_mode="pipelined"`` are not ported (ROADMAP,
+    Queue 2)."""
     _check_tiled_knobs(formulation, mxu_tiles, fill_mode)
     bt = _check_tiled(A, ev, v, chunk, eps_mode, tile)
     n = A.shape[0]
@@ -579,7 +687,7 @@ def multiround_sym(
     if dev.type == "cpu":
         return multiround_sym_plain(
             A, ev, v, lam, budget, chunk=chunk, eps=eps, init=init, eps_mode=eps_mode,
-            tile=tile, cache_tiles=cache_tiles, sym=sym,
+            tile=tile, cache_tiles=cache_tiles, sym=sym, formulation=formulation,
         )
     _check_aligned(n, A, v)
     if not multiround_sym_fits(n, bt, dev):
@@ -590,7 +698,9 @@ def multiround_sym(
         )
     from . import build
 
-    plan = multiround_sym_plan(dev, n, bt, int(cache_tiles), bool(sym), **_sized(A.dtype))
+    dot = formulation == "dot"
+    plan = multiround_sym_plan(dev, n, bt, int(cache_tiles), bool(sym), **_sized(A.dtype),
+                               **_formulated(formulation))
     _check_ring_aligned(plan.ring, A)
     ev_out = torch.empty(n, dtype=torch.float32, device=dev)
     v_out = torch.empty(n, dtype=torch.float32, device=dev)
@@ -610,8 +720,8 @@ def multiround_sym(
             ev_out.data_ptr(), v_out.data_ptr(), adv.data_ptr(), lam_out.data_ptr(),
             raw.data_ptr(), part.data_ptr(), part_t.data_ptr(), n, bt,
             min(chunk, 2**31 - 1), eps, int(init), int(eps_mode == "relative"), int(sym),
-            plan.split, plan.l2_tiles, plan.ring, _stamps_ptr(), _ELEM[A.dtype], plan.grid,
-            stream,
+            plan.split, plan.l2_tiles, plan.ring, int(dot), _stamps_ptr(), _ELEM[A.dtype],
+            plan.grid, stream,
         )
         _launch(rc, "multiround_sym")
     multiround_sym.launches += 1

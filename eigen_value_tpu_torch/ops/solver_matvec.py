@@ -327,9 +327,12 @@ def solve_multiround(
     another order than the stripes one, so its results agree with the
     stripes kernel's in rounds and within rounding.
 
-    ``formulation``, ``mxu_tiles`` and ``fill_mode`` keep the JAX names:
-    only "vpu" and the prologue fill exist here; the rest raise (ROADMAP,
-    Queue 2 items 2 and 3).
+    ``formulation``, ``mxu_tiles`` and ``fill_mode`` keep the JAX names.
+    ``formulation="dot"`` runs either kernel's products on the tensor cores
+    in 3xTF32 (never plain TF32; the stripes need n % 128 == 0, as JAX's):
+    bit-identical across chunkings, caches and A_q against A_q.float(), and
+    within rounding of "vpu" with the same rounds.  "mixed", ``mxu_tiles``
+    and ``fill_mode="pipelined"`` raise (ROADMAP, Queue 2).
 
     ``storage_dtype`` (as JAX ``solve_multiround``): A is cast once and the
     kernels read it in 2 bytes; the O(n) state is f32, as it is for a
@@ -348,11 +351,6 @@ def solve_multiround(
             fill_mode=fill_mode,
         )
     else:
-        if formulation != "vpu":
-            raise ValueError(
-                f"formulation={formulation!r} is not ported: the multiround kernel "
-                f"has the 'vpu' reduction only (ROADMAP, Queue 2 item 2)"
-            )
         if mxu_tiles is not None:
             raise ValueError(
                 "mxu_tiles needs the tiled kernel (symmetric=True or "
@@ -360,12 +358,17 @@ def solve_multiround(
             )
         if fill_mode != "prologue":
             raise ValueError("fill_mode needs the tiled kernel with cache_tiles > 0")
+        if formulation == "mixed":
+            raise ValueError(
+                "formulation='mixed' needs cache_tiles > 0 (the matrix-unit share is "
+                "carved out of the resident tiles)"
+            )
         if tile is not None:
             raise ValueError(
                 f"tile={tile} is a tiled-kernel knob (symmetric=True or "
                 f"cache_tiles > 0); the stripes kernel streams full-width rows"
             )
-        kernel = kernels.multiround
+        kernel = partial(kernels.multiround, formulation=formulation)
     n = A.shape[0]
     if ev0 is None:
         ev0 = torch.ones(n, dtype=dtype, device=A.device)

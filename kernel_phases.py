@@ -2,7 +2,8 @@
 """Time the two persistent kernels and split one launch into its phases.
 
     python3 kernel_phases.py [--root DIR [DIR ...]] [--dtype f32|bf16|f16]
-                             [--sizes 2048 4096 8192] [--reps 20] [--sweep] [--rings]
+                             [--formulation vpu|dot] [--sizes 2048 4096 8192] [--reps 20]
+                             [--sweep] [--rings]
 
 For every size it solves the Hilbert matrix, stored in ``--dtype`` (the
 storage path's launches for bf16 / f16; ev and every sum stay f32), in one
@@ -13,7 +14,9 @@ with the card's auto tile cache, the dense tiled mode with its auto cache),
 and prints one JSON line per arm and checkout: median and min ms over
 ``--reps`` launches by CUDA events, the launch plan, the card's name and
 power limit, and, where the kernels write stamps, the phase split of one
-more launch.
+more launch.  ``--formulation dot`` times the kernels' dot instances (the
+tensor cores in 3xTF32; no ring, so the auto caches are the register
+path's).
 
 ``--root`` names one or more checkouts that hold ``eigen_value_tpu_torch/``
 (an earlier commit unpacked with ``git archive``; the default is this one).
@@ -115,9 +118,9 @@ def plan_fields(plan) -> dict:
     return {k: v for k, v in plan._asdict().items() if k != "table"}
 
 
-def arms(R, H, dev) -> list:
+def arms(R, H, dev, formulation: str = "vpu") -> list:
     """(label, kernel, cache, plan, launch) of the four arms at H's size,
-    under checkout R's plans for H's dtype."""
+    under checkout R's plans for H's dtype and the formulation."""
     import torch
 
     k, d = R.kernels, R.device
@@ -127,6 +130,10 @@ def arms(R, H, dev) -> list:
     kw = dict(chunk=R.evt.MAX_ITR + 1, eps=R.evt.EPS, init=True)
     sized = {} if dt == torch.float32 else {"dtype": dt}
     isz = {} if dt == torch.float32 else {"itemsize": dt.itemsize}
+    if formulation == "dot":
+        kw["formulation"] = "dot"
+        sized["dot"] = True
+        isz["ring"] = False
     out = [("multiround", "multiround", None, k.multiround_launch_plan(dev, n, **sized),
             lambda: k.multiround(H, x, x, z, R.evt.MAX_ITR, **kw))]
     for label, sym, auto in (("multiround_sym, streaming", True, False),
@@ -272,6 +279,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", nargs="+", default=[os.path.dirname(os.path.abspath(__file__))])
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
+    ap.add_argument("--formulation", choices=["vpu", "dot"], default="vpu")
     ap.add_argument("--sizes", type=int, nargs="+", default=[2048, 4096, 8192])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--sweep", action="store_true", help="also time other plans than the card's")
@@ -294,7 +302,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     for n in args.sizes:
         H = fixtures.hilbert_matrix(n, device=dev).to(dt)
-        per_root = [arms(R, H, dev) for R in roots]
+        per_root = [arms(R, H, dev, args.formulation) for R in roots]
         for a in range(len(per_root[0])):
             label, kernel = per_root[0][a][:2]
             fns = [p[a][4] for p in per_root]
@@ -302,7 +310,8 @@ def main() -> int:
             samples = in_turns(fns, args.reps)
             for R, arm, out, ms in zip(roots, (p[a] for p in per_root), outs, samples):
                 _, _, cache, plan, fn = arm
-                row = {"arm": label, "n": n, "dtype": args.dtype, "root": R.root,
+                row = {"arm": label, "n": n, "dtype": args.dtype,
+                       "formulation": args.formulation, "root": R.root,
                        "advanced": int(out[2]), "ms_median": statistics.median(ms),
                        "ms_min": min(ms), "cache": cache, "plan": plan_fields(plan),
                        "bits_equal_root0": all(torch.equal(p, q) for p, q in zip(outs[0], out)),

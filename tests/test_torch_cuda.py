@@ -1204,3 +1204,115 @@ def test_the_examples_run_on_the_card(cuda, name, capsys):
 
     importlib.import_module(f"eigen_value_tpu_torch.examples.{name}").main()
     assert "λ = " in capsys.readouterr().out
+
+
+# --- the dot formulation: the tensor cores in 3xTF32 ----------------------------------
+
+DOT_MODES = {"stripes": {}, "triangle": dict(symmetric=True),
+             "dense tiled": dict(cache_tiles=3)}
+
+
+def test_tf32_split_is_the_cards_cvt_rna(cuda):
+    import numpy as np
+
+    from eigen_value_tpu_torch.ops.cuda import build
+
+    bits = np.random.default_rng(13).integers(0, 2**32, 1 << 16, dtype=np.uint64).astype(np.uint32)
+    picked = np.array([0x3F801000, 0xBF801000, 0x3F800FFF, 0x3F801001, 0x3F803000, 0x00001000,
+                       0x00000FFF, 0x007FFFFF, 0x80003001, 0x00800000, 0x3F810000, 0x80000000],
+                      dtype=np.uint32)
+    x = np.concatenate([picked, bits]).view(np.float32)
+    x = torch.from_numpy(x[np.isfinite(x) & (np.abs(x) < 3.4e38)].copy())
+    xd = x.to(cuda)
+    big = torch.empty(x.numel(), dtype=torch.int32, device=cuda)
+    small = torch.empty_like(big)
+    rc = build.load().evt_tf32_split(xd.data_ptr(), big.data_ptr(), small.data_ptr(), x.numel(),
+                                     torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    want_big, want_small = tk.tf32_split(x)
+    assert torch.equal(big.cpu(), want_big.view(torch.int32))
+    assert torch.equal(small.cpu(), want_small.view(torch.int32))
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("mode", sorted(DOT_MODES))
+@pytest.mark.parametrize("n", [384, 1024, 4096])
+def test_dot_kernels_match_their_plain_versions(cuda, n, mode, dt):
+    H = tfx.hilbert_matrix(n, device=cuda)
+    # and not Hankel: every 16 x 16 piece of a Hilbert tile is symmetric, so a
+    # row / column mix-up in the fragments would not show on it.  The
+    # triangle gets a symmetric random scaling, the others an asymmetric one.
+    R = 1 + 0.25 * torch.rand(n, n, generator=torch.Generator().manual_seed(n)).to(cuda)
+    if mode == "triangle":
+        R = (R + R.T) / 2
+    for A in (H.to(dt), (H * R).to(dt)):
+        _dot_launches_match_plain(A, mode)
+
+
+def _dot_launches_match_plain(A, mode):
+    n, cuda = A.shape[0], A.device
+    ev = torch.ones(n, device=cuda)
+    z = torch.zeros((), device=cuda)
+    if mode == "stripes":
+        run, plain, kw = tk.multiround, tk.multiround_plain, {}
+    else:
+        run, plain = tk.multiround_sym, tk.multiround_sym_plain
+        kw = dict(sym=mode == "triangle", cache_tiles=DOT_MODES[mode].get("cache_tiles", 0))
+    state = (ev, ev, z)
+    for init in (True, False):
+        before = run.launches
+        got = run(A, *state, MAX_ITR, chunk=5, eps=EPS, init=init, formulation="dot", **kw)
+        want = plain(A, *state, MAX_ITR, chunk=5, eps=EPS, init=init, formulation="dot", **kw)
+        torch.cuda.synchronize()
+        assert run.launches == before + 1
+        assert int(got[2]) == int(want[2])
+        # the unit's order of the products is its own: within f32 rounding of
+        # the plain 3xTF32 product, as the vpu kernels are of theirs
+        for g, w in zip((got[0], got[1], got[3]), (want[0], want[1], want[3])):
+            torch.testing.assert_close(g, w, rtol=1e-5, atol=0)
+        state = (got[0], got[1], got[3])
+
+
+@pytest.mark.parametrize("mode", sorted(DOT_MODES))
+@pytest.mark.parametrize("n", [128, 1024, 2048, 4096])
+def test_dot_solves_keep_the_table_and_their_bits(cuda, n, mode):
+    H = tfx.hilbert_matrix(n, device=cuda)
+    kw = dict(DOT_MODES[mode], formulation="dot")
+    base = solve_multiround(H, EPS, MAX_ITR, **kw)
+    vpu = solve_multiround(H, EPS, MAX_ITR, **DOT_MODES[mode])
+    assert int(base.rounds) == tfx.HILBERT_ROUNDS[n] == int(vpu.rounds)
+    assert float(base.eigenvalue) == pytest.approx(float(vpu.eigenvalue), rel=1e-5)
+    for chunk in (1, 5):
+        _same(solve_multiround(H, EPS, MAX_ITR, chunk=chunk, **kw), base)
+    for dt in (torch.bfloat16, torch.float16):
+        H_q = H.to(dt)
+        _same(solve_multiround(H_q, EPS, MAX_ITR, **kw),
+              solve_multiround(H_q.float(), EPS, MAX_ITR, **kw))
+    if mode != "stripes":
+        sym = mode == "triangle"
+        auto = sym_auto_cache_tiles(n, 128, cuda, sym=sym, ring=False)
+        # a cache of 0 without symmetric=True would be the stripes kernel
+        for c in sorted({0 if sym else 1, 3, auto} - ({0} if not sym else set())):
+            _same(solve_multiround(H, EPS, MAX_ITR, **dict(kw, cache_tiles=c)), base)
+
+
+def test_dot_triangle_does_not_read_below_the_block_diagonal(cuda):
+    n = 2048
+    H = tfx.hilbert_matrix(n, device=cuda)
+    bad = torch.where(_below_block_diagonal(n, 128, cuda), torch.full_like(H, 7.25), H)
+    kw = dict(symmetric=True, formulation="dot")
+    for c in (0, sym_auto_cache_tiles(n, 128, cuda, ring=False)):
+        _same(solve_multiround(bad, EPS, MAX_ITR, cache_tiles=c, **kw),
+              solve_multiround(H, EPS, MAX_ITR, cache_tiles=c, **kw))
+
+
+@pytest.mark.parametrize("n", [96, 1000, 1088])
+def test_the_stripes_dot_rejects_an_unaligned_n(cuda, n):
+    H = tfx.hilbert_matrix(n, device=cuda)
+    ev = torch.ones(n, device=cuda)
+    before = tk.multiround.launches
+    with pytest.raises(ValueError, match="dot-aligned"):
+        tk.multiround(H, ev, ev, 0.0, 10, chunk=2, eps=EPS, formulation="dot")
+    with pytest.raises(ValueError, match="dot-aligned"):
+        solve_multiround(H, EPS, MAX_ITR, formulation="dot")
+    assert tk.multiround.launches == before

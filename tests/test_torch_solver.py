@@ -199,7 +199,7 @@ def test_not_ported_errors_name_the_roadmap():
         _reject_cases()["mesh"]()
     H = tfx.hilbert_matrix(128)
     with pytest.raises(ValueError, match="ROADMAP"):
-        solve_multiround(H, EPS, MAX_ITR, symmetric=True, formulation="dot")
+        solve_multiround(H, EPS, MAX_ITR, symmetric=True, formulation="mixed")
     with pytest.raises(ValueError, match="ROADMAP"):
         solve_multiround(H, EPS, MAX_ITR, symmetric=True, cache_tiles=1,
                          fill_mode="pipelined")

@@ -244,7 +244,7 @@ def test_multiround_sym_wrapper_rejects():
     H, ev = tfx.hilbert_matrix(256), torch.ones(256)
     call = lambda **kw: tk.multiround_sym(H, ev, ev, 0.0, 10, **{"chunk": 2, "eps": EPS, **kw})  # noqa: E731
     for kw, match in [
-        (dict(formulation="dot"), "ROADMAP"),
+        (dict(formulation="bogus"), "unknown formulation"),
         (dict(formulation="mixed", cache_tiles=2), "ROADMAP"),
         (dict(cache_tiles=2, mxu_tiles=1), "ROADMAP"),
         (dict(cache_tiles=2, fill_mode="pipelined"), "ROADMAP"),
