@@ -149,6 +149,22 @@ solve's) and the whole Hilbert table on both kernels; the bit identities
 and the median of 12 whole-budget launches of each dot instance beside its
 "vpu" instance, interleaved.
 
+The last two variants of the triangle kernel (``mixed_fill_phase``, step
+11): ``formulation="mixed"`` (the last m resident tiles in 3xTF32, m by the
+JAX package's rule, every other tile "vpu") and ``fill_mode="pipelined"``
+(the resident tiles brought by bulk copies waited for at first use).  One
+launch of each at 8192² against its plain version (Hilbert, Hilbert scaled
+at random, bf16, dense tiled; max |kernel − plain| ≤ 1e-5); then, with the
+launch counters read around each solve, ``solve_multiround(symmetric=True,
+cache_tiles=auto)`` with mixed, pipelined and both on Hilbert 8192² in f32
+and bf16 storage (17 rounds, λ within 1e-5 of a float64 loop and of "vpu",
+residual ≤ 1e-3) and the Hilbert table from 256² (at 128² no tile can be
+resident and both packages refuse); the bit identities (chunk 1 / 5 /
+whole budget, ``mxu_tiles=0`` against "vpu", pipelined against the
+prologue fill for vpu, dot and mixed, a pipelined launch that stops at
+round 0, the lower block triangle, A_q against A_q.float()); and the median
+of 12 whole-budget launches of each beside "vpu", interleaved.
+
 Uses torch only (no jax).  Exits non-zero, without the final result line,
 on any failed check or when there is no CUDA device.
 
@@ -1350,6 +1366,238 @@ def dot_phase(dev, mats, same, reset_counts, read_counts, card) -> dict:
             "auto": auto, "auto_q": auto_q, "auto_q_vpu": auto_q_vpu}
 
 
+def mixed_fill_phase(dev, mats, same, reset_counts, read_counts, card) -> dict:
+    """The last two variants of the triangle kernel (step 11):
+    ``formulation="mixed"`` (the last m resident tiles in 3xTF32, the rest
+    "vpu") and ``fill_mode="pipelined"`` (the resident tiles brought by bulk
+    copies waited for at first use).  Returns the numbers of their records:
+    launches on the main path, the max abs error against the plain version,
+    the times and the share m."""
+    import torch
+
+    import eigen_value_tpu_torch as evt
+    from eigen_value_tpu_torch import fixtures
+    from eigen_value_tpu_torch.device import sym_auto_cache_tiles
+    from eigen_value_tpu_torch.ops.cuda import kernels
+    from eigen_value_tpu_torch.ops.solver_matvec import solve_matvec, solve_multiround
+    from eigen_value_tpu_torch.utils.timing import time_call
+
+    n, bt = 8192, kernels.SYM_TILE
+    H = mats[n]
+    bf16 = torch.bfloat16
+    H_q = H.to(bf16)
+    auto = sym_auto_cache_tiles(n, bt, dev)
+    auto_q = sym_auto_cache_tiles(n, bt, dev, itemsize=2)
+    auto_dense = sym_auto_cache_tiles(n, bt, dev, sym=False)
+    m = {torch.float32: kernels.mxu_share(n, bt, auto, True),
+         bf16: kernels.mxu_share(n, bt, auto_q, True)}
+    say(f"mixed share at {n}², tile {bt}: {m[torch.float32]} of {auto} f32 tiles, {m[bf16]} "
+        f"of {auto_q} bf16 tiles on the tensor cores (kernels.MXU_TERM_COST "
+        f"{kernels.MXU_TERM_COST}, the JAX package's rule)")
+    x1 = torch.ones(n, device=dev)
+    z = torch.zeros((), device=dev)
+
+    # --- 11a. one launch of each variant against its plain version ---
+    R = 1 + 0.25 * torch.rand(n, n, device=dev,
+                              generator=torch.Generator(device=dev).manual_seed(SEED + 15))
+    scaled = H * ((R + R.T) / 2)
+    del R
+    err = {"mixed": 0.0, "pipelined": 0.0}
+    cases = [("mixed", "Hilbert", H, dict(cache_tiles=auto, formulation="mixed")),
+             ("mixed", "symmetrically scaled", scaled, dict(cache_tiles=auto, formulation="mixed")),
+             ("mixed", "Hilbert bf16", H_q, dict(cache_tiles=auto_q, formulation="mixed")),
+             ("mixed", "dense tiled, asymmetric Hilbert", H * (1 + 0.25 * torch.rand(
+                 n, n, device=dev, generator=torch.Generator(device=dev).manual_seed(SEED + 16))),
+              dict(cache_tiles=auto_dense, sym=False, formulation="mixed")),
+             ("pipelined", "Hilbert", H, dict(cache_tiles=auto, fill_mode="pipelined")),
+             ("pipelined", "Hilbert bf16", H_q, dict(cache_tiles=auto_q, fill_mode="pipelined")),
+             ("pipelined", "Hilbert, mixed", H, dict(cache_tiles=auto, formulation="mixed",
+                                                     fill_mode="pipelined"))]
+    for variant, label, A, kw in cases:
+        state = (x1, x1, z)
+        for init in (True, False):
+            a = dict(chunk=5, eps=evt.EPS, init=init, **kw)
+            got = kernels.multiround_sym(A, *state, evt.MAX_ITR, **a)
+            want = kernels.multiround_sym_plain(A, *state, evt.MAX_ITR, **a)
+            torch.cuda.synchronize()
+            check(int(got[2]) == int(want[2]), f"{variant} {label} init={init}: advanced "
+                  f"{int(got[2])} != {int(want[2])}")
+            rel = max(float(((g - w).abs() / w.abs()).max())
+                      for g, w in ((got[0], want[0]), (got[1], want[1]), (got[3], want[3])))
+            e = max(float((got[1] - want[1]).abs().max()), float((got[0] - want[0]).abs().max()))
+            say(f"multiround_sym[{variant}] {label} {n}² chunk 5 init={init}: advanced "
+                f"{int(got[2])}, max rel diff (ev, v, λ) to the plain version {rel:.3e}, max "
+                f"|kernel - plain| (v, ev) {e:.3e}")
+            check(rel <= PARITY_REL and e <= 1e-5, f"{variant} {label} init={init}: rel {rel}, "
+                  f"abs {e}")
+            err[variant] = max(err[variant], e)
+            state = (got[0], got[1], got[3])
+    del scaled, cases
+
+    # --- 11b. the main path: the solves through solve_multiround, launches
+    # counted arm by arm ---
+    arms = {
+        "mixed f32": (H, dict(cache_tiles=auto, formulation="mixed")),
+        "pipelined f32": (H, dict(cache_tiles=auto, fill_mode="pipelined")),
+        "mixed + pipelined f32": (H, dict(cache_tiles=auto, formulation="mixed",
+                                          fill_mode="pipelined")),
+        "mixed bf16": (H, dict(cache_tiles=auto_q, formulation="mixed", storage_dtype=bf16)),
+        "pipelined bf16": (H, dict(cache_tiles=auto_q, fill_mode="pipelined",
+                                   storage_dtype=bf16)),
+        "mixed + pipelined bf16": (H, dict(cache_tiles=auto_q, formulation="mixed",
+                                           fill_mode="pipelined", storage_dtype=bf16)),
+    }
+    vpu = {torch.float32: solve_multiround(H, evt.EPS, evt.MAX_ITR, symmetric=True,
+                                           cache_tiles=auto),
+           bf16: solve_multiround(H, evt.EPS, evt.MAX_ITR, symmetric=True, cache_tiles=auto_q,
+                                  storage_dtype=bf16)}
+    oracle = {torch.float32: solve_matvec(H.double(), evt.EPS, evt.MAX_ITR),
+              bf16: solve_matvec(H_q.double(), evt.EPS, evt.MAX_ITR)}
+    launches = {"mixed": 0, "pipelined": 0}
+    runs = {}
+    for k, (A, kw) in arms.items():
+        reset_counts()
+        runs[k] = solve_multiround(A, evt.EPS, evt.MAX_ITR, symmetric=True, **kw)
+        got = read_counts()
+        check(got["multiround_sym"] == 1 and sum(got.values()) == 1,
+              f"{k}: launches {got}, not one multiround_sym launch")
+        for variant in launches:
+            launches[variant] += got["multiround_sym"] if variant in k else 0
+    say(f"mixed / pipelined path launches (multiround_sym, one a solve): {launches}")
+    for k, (A, kw) in arms.items():
+        res = runs[k]
+        dt = kw.get("storage_dtype", torch.float32)
+        A_s = A.to(dt) if dt != torch.float32 else A
+        v = res.eigenvector.double()
+        resid = float((f64_matvec(A_s, v) - res.eigenvalue.double() * v).abs().max())
+        lam, lam_64, lam_v = (float(res.eigenvalue), float(oracle[dt].eigenvalue),
+                              float(vpu[dt].eigenvalue))
+        rel_64, rel_v = abs(lam - lam_64) / lam_64, abs(lam - lam_v) / lam_v
+        say(f"hilbert {n} {k}: rounds {int(res.rounds)} (vpu {int(vpu[dt].rounds)}, float64 "
+            f"loop {int(oracle[dt].rounds)}), λ {lam!r} (float64 loop {lam_64!r}, rel "
+            f"{rel_64:.2e}; vpu {lam_v!r}, rel {rel_v:.2e}), residual {resid:.3e}")
+        check(bool(res.converged) and int(res.rounds) == 17, f"{k}: rounds {int(res.rounds)}")
+        check(rel_64 <= PARITY_REL and rel_v <= PARITY_REL, f"{k}: λ rel {rel_64}, {rel_v}")
+        check(resid <= 1e-3, f"{k}: residual {resid}")
+        check(bool(torch.isfinite(res.eigenvector).all()), f"{k}: eigenvector not finite")
+        if "mixed" not in k:
+            check(same(res, vpu[dt]), f"{k}: not the prologue fill's bits")
+    # the table; at 128² (one tile) no tile can be resident, and both
+    # packages refuse the two variants there.  The pipelined fill takes the
+    # largest cache up to the auto one that its depth rule (the JAX
+    # kernel's) accepts: at 2048² the 120 tiles of the whole triangle would
+    # keep 16 copies in flight on the JAX schedule, 108 keep 8
+    for variant, kw in (("mixed", dict(formulation="mixed")),
+                        ("pipelined", dict(fill_mode="pipelined"))):
+        rounds = {}
+        for size in sorted(fixtures.HILBERT_ROUNDS):
+            c = sym_auto_cache_tiles(size, bt, dev)
+            while variant == "pipelined" and c and (
+                    kernels.pipelined_depth(size, bt, c, True) > kernels.PIPELINED_DEPTH):
+                c -= 1
+            if c == 0:
+                try:
+                    solve_multiround(mats[size], evt.EPS, evt.MAX_ITR, symmetric=True,
+                                     cache_tiles=1, **kw)
+                except ValueError as e:
+                    check("cache_tiles > 0" in str(e), f"{variant} {size}²: {e}")
+                    rounds[size] = "refused (no resident tile)"
+                    continue
+                check(False, f"{variant} at {size}² ran with no resident tile")
+            res = solve_multiround(mats[size], evt.EPS, evt.MAX_ITR, symmetric=True,
+                                   cache_tiles=c, **kw)
+            check(bool(res.converged) and int(res.rounds) == fixtures.HILBERT_ROUNDS[size],
+                  f"{variant} hilbert {size}: rounds {int(res.rounds)}")
+            rounds[size] = f"{int(res.rounds)} (cache {c})"
+        say(f"{variant} Hilbert table (auto cache): {rounds}")
+
+    # --- 11c. bit identities ---
+    def tri(A, **kw):
+        return solve_multiround(A, evt.EPS, evt.MAX_ITR, symmetric=True, **kw)
+
+    for dt, A, c in ((torch.float32, H, auto), (bf16, H_q, auto_q)):
+        name = "f32" if dt == torch.float32 else "bf16"
+        mixed = tri(A, cache_tiles=c, formulation="mixed")
+        for chunk in (1, 5):
+            ok = same(tri(A, cache_tiles=c, formulation="mixed", chunk=chunk), mixed)
+            say(f"mixed {name} chunk={chunk} vs the whole budget: bit-identical {ok}")
+            check(ok, f"mixed {name} chunk={chunk} changed the result")
+        for cc in (7, c):
+            ok = same(tri(A, cache_tiles=cc, formulation="mixed", mxu_tiles=0),
+                      tri(A, cache_tiles=cc))
+            say(f"mixed {name} cache {cc}, mxu_tiles=0 vs vpu: bit-identical {ok}")
+            check(ok, f"mixed {name} mxu_tiles=0 is not vpu at cache {cc}")
+        for form, fc in (("vpu", c), ("dot", sym_auto_cache_tiles(n, bt, dev, itemsize=dt.itemsize,
+                                                                   ring=False)), ("mixed", c)):
+            for chunk in (5, None):
+                ok = same(tri(A, cache_tiles=fc, formulation=form, chunk=chunk,
+                              fill_mode="pipelined"),
+                          tri(A, cache_tiles=fc, formulation=form, chunk=chunk))
+                say(f"{form} {name} cache {fc} chunk={chunk or 'whole budget'}: pipelined vs "
+                    f"prologue fill bit-identical {ok}")
+                check(ok, f"{form} {name}: the pipelined fill changed the result")
+        # a launch that stops at its round 0, its copies issued
+        whole = dict(chunk=evt.MAX_ITR + 1, eps=evt.EPS, init=True, cache_tiles=c)
+        ev, v, _, lam = kernels.multiround_sym(A, x1, x1, z, evt.MAX_ITR, **whole)
+        for form in ("vpu", "mixed"):
+            outs = [kernels.multiround_sym(A, ev, v, lam, evt.MAX_ITR, chunk=5, eps=evt.EPS,
+                                           cache_tiles=c, formulation=form, fill_mode=fm)
+                    for fm in ("prologue", "pipelined")]
+            torch.cuda.synchronize()
+            ok = (int(outs[1][2]) == 0 and all(torch.equal(a, b) for a, b in zip(*outs))
+                  and torch.equal(outs[1][0], ev) and torch.equal(outs[1][1], v))
+            say(f"{form} {name}: a pipelined launch that stops at round 0 (advanced "
+                f"{int(outs[1][2])}) keeps ev and v and the prologue fill's bits: {ok}")
+            check(ok, f"{form} {name}: the stopped pipelined launch")
+    blk = torch.arange(n, device=dev) // bt
+    bad = torch.where(blk[:, None] > blk[None, :], torch.full_like(H, 7.25), H)
+    ok = same(tri(bad, cache_tiles=auto, formulation="mixed", fill_mode="pipelined"),
+              tri(H, cache_tiles=auto, formulation="mixed", fill_mode="pipelined"))
+    del bad, blk
+    say(f"mixed + pipelined f32: the lower block triangle is never read: {ok}")
+    check(ok, "mixed read below the block diagonal")
+    # A_q against A_q.float(), at one cache (396 f32 tiles fit; the tile set
+    # is the cache's)
+    for kw in (dict(formulation="mixed"), dict(fill_mode="pipelined"),
+               dict(formulation="mixed", fill_mode="pipelined")):
+        ok = same(tri(H_q, cache_tiles=auto, **kw), tri(H_q.float(), cache_tiles=auto, **kw))
+        say(f"{kw} cache {auto}: A_q (bf16) vs A_q.float() bit-identical {ok}")
+        check(ok, f"{kw}: A_q differs from A_q.float()")
+
+    # --- 11d. times: whole-budget launches, each beside "vpu", interleaved ---
+    whole = dict(chunk=evt.MAX_ITR + 1, eps=evt.EPS, init=True)
+
+    def launch(A, c, **kw):
+        return lambda: kernels.multiround_sym(A, x1, x1, z, evt.MAX_ITR, cache_tiles=c,
+                                              **whole, **kw)
+
+    timed = {}
+    for name, A, c in (("f32", H, auto), ("bf16", H_q, auto_q)):
+        timed[f"vpu {name}"] = launch(A, c)
+        timed[f"mixed {name}"] = launch(A, c, formulation="mixed")
+        timed[f"pipelined {name}"] = launch(A, c, fill_mode="pipelined")
+        timed[f"mixed + pipelined {name}"] = launch(A, c, formulation="mixed",
+                                                    fill_mode="pipelined")
+    ms = interleaved_ms(timed, reps=12)
+    passes = int(timed["mixed f32"]()[2]) + 1
+    plain = {
+        "mixed": time_call(lambda: kernels.multiround_sym_plain(
+            H, x1, x1, z, evt.MAX_ITR, cache_tiles=auto, formulation="mixed", **whole),
+            reps=3).median_ms,
+        "pipelined": time_call(lambda: kernels.multiround_sym_plain(
+            H, x1, x1, z, evt.MAX_ITR, cache_tiles=auto, fill_mode="pipelined", **whole),
+            reps=3).median_ms,
+    }
+    say(f"mixed / pipelined times at {n}², {passes} passes, card {card} (median of 12 "
+        f"whole-budget launches, interleaved; f32 cache {auto}, bf16 cache {auto_q}):")
+    for k, v in ms.items():
+        say(f"  {k}: {v:.4f} ms")
+    say(f"  plain versions (f32): mixed {plain['mixed']:.4f} ms, pipelined "
+        f"{plain['pipelined']:.4f} ms")
+    return {"launches": launches, "err": err, "ms": ms, "plain_ms": plain, "passes": passes,
+            "auto": auto, "auto_q": auto_q, "m": m[torch.float32], "m_q": m[bf16]}
+
+
 def main() -> int:
     import torch
 
@@ -2447,6 +2695,9 @@ def main() -> int:
     # --- 10. the dot formulation ---
     p10 = dot_phase(dev, mats, same, reset_counts, read_counts, card)
 
+    # --- 11. the mixed formulation and the pipelined fill ---
+    p11 = mixed_fill_phase(dev, mats, same, reset_counts, read_counts, card)
+
     # The least time the card could take: each input read once and each
     # output written once at the published memory rate, against the float32
     # operations at the published rate outside the tensor cores.  The two
@@ -2466,6 +2717,13 @@ def main() -> int:
     tri_bytes = len(kernels.sym_cache_split(n, bt, 0)[0]) * tile_mb
     tri_streamed = len(kernels.sym_cache_split(n, bt, cache)[0]) * tile_mb
     tri2_streamed = len(kernels.sym_cache_split(n, bt, auto2)[0]) * tile2
+
+    def mixed_bound(nbytes: float, passes: int, tf32_elems: int) -> dict:
+        t_bytes = nbytes / (H100_SXM_GBPS * 1e9) * 1e3
+        t_ops = (passes * 6 * tf32_elems / (H100_SXM_TF32_TFLOPS * 1e12)
+                 + passes * 2 * (nn - tf32_elems) / (H100_SXM_F32_TFLOPS * 1e12)) * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
     def resident_bound(total: int, on_chip: int, passes: int = passes) -> float:
         rest = max(0, total - on_chip - lim.l2_bytes)
@@ -2596,6 +2854,29 @@ def main() -> int:
                bf16_vpu_ms=p10["ms"]["multiround_sym bf16 vpu"],
                bf16_cache_tiles=p10["auto_q"], bf16_vpu_cache_tiles=p10["auto_q_vpu"],
                dense_max_abs_err=p10["err"]["multiround_sym dense"], passes=p10["passes"]),
+        # mixed: the same bytes; its m resident tiles take 6 TF32 flops an
+        # element a pass (each tile element serves two terms), the rest 2 f32
+        # flops, the two units' times added
+        record("multiround_sym[mixed]", "multiround_sym.cu", f"{jk}:981-1016, {jk}:1237-1283",
+               p11["launches"]["mixed"], p11["err"]["mixed"], p11["ms"]["mixed f32"],
+               p11["plain_ms"]["mixed"], None,
+               mixed_bound(tri_bytes + 4 * vec, p11["passes"], 2 * p11["m"] * bt * bt),
+               helper="eigen_value_tpu_torch/csrc/mma_tf32.cuh", cache_tiles=p11["auto"],
+               mxu_tiles=p11["m"], vpu_ms=p11["ms"]["vpu f32"],
+               bf16_ms=p11["ms"]["mixed bf16"], bf16_vpu_ms=p11["ms"]["vpu bf16"],
+               bf16_cache_tiles=p11["auto_q"], bf16_mxu_tiles=p11["m_q"],
+               bf16_bound_ms=mixed_bound(tri_bytes // 2 + 4 * vec, p11["passes"],
+                                         2 * p11["m_q"] * bt * bt)["bound_ms"],
+               passes=p11["passes"]),
+        record("multiround_sym[pipelined]", "multiround_sym.cu",
+               f"{jk}:779-800, {jk}:943-946, {jk}:1224-1236",
+               p11["launches"]["pipelined"], p11["err"]["pipelined"],
+               p11["ms"]["pipelined f32"], p11["plain_ms"]["pipelined"], None,
+               bound(tri_bytes + 4 * vec, p11["passes"] * 2 * nn), cache_tiles=p11["auto"],
+               prologue_fill_ms=p11["ms"]["vpu f32"], bf16_ms=p11["ms"]["pipelined bf16"],
+               bf16_prologue_fill_ms=p11["ms"]["vpu bf16"],
+               mixed_ms=p11["ms"]["mixed + pipelined f32"],
+               mixed_bf16_ms=p11["ms"]["mixed + pipelined bf16"], passes=p11["passes"]),
     ]}, allow_nan=False))
     say(f"wall: {time.perf_counter() - t_start:.1f} s")
     say(smi)

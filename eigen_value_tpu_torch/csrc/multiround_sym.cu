@@ -5,8 +5,8 @@
 // of a launch (the tile cache).
 //
 // Replaces: eigen_value_tpu/ops/pallas/kernels.py, `multiround_sym` /
-// `_multiround_sym_kernel` ("vpu" formulation, prologue fill, sym and
-// dense modes), with `_round_prologue`.
+// `_multiround_sym_kernel` (the "vpu", "dot" and "mixed" formulations, the
+// prologue and pipelined fills, sym and dense modes), with `_round_prologue`.
 //
 // Bound on the H100: bytes.  At 8192^2 with bt = 128 a round needs the 2080
 // upper-triangle tiles, 2080 * 64 KiB = 136 MB (the dense pass reads
@@ -130,7 +130,7 @@
 //   * A must be 16-byte aligned (the wrapper checks; n % 128 == 0 makes
 //     its row pitch a multiple of 16 bytes, as a tensor map needs).
 //
-// The "dot" formulation (kDot; `dot` = 1, the plan gives it no ring): each
+// The "dot" formulation (kDot; `form` = 1, the plan gives it no ring): each
 // tile's row term and transpose term on the tensor cores in 3xTF32
 // (mma_tf32.cuh), as the TPU kernel's formulation="dot" contracts each tile
 // on its matrix unit (kernels.py:890-915, :948-965).  The work items, the
@@ -147,6 +147,41 @@
 // a dot launch is bit-identical for every cache size, every chunking, the
 // lower block triangle's contents and A_q against A_q.float(); it agrees
 // with a vpu launch in rounds and within rounding.
+//
+// The "mixed" formulation (kMixed; `form` = 2): the last m resident tiles of
+// the split's order (indices mxu_from = C - m .. C - 1) take tile_terms_dot,
+// every other tile (streamed through registers, or resident) takes
+// tile_terms, as the TPU kernel's formulation="mixed"
+// puts an `mxu_tiles` share of its VMEM-resident tiles on the matrix unit
+// (kernels.py:981-1016, :1237-1283).  Both write the same slots, so
+// slot_sum's order does not change; the TPU kernel's own accumulator for
+// that share only broke a memory dependency there.  Which tiles take the
+// dot form depends on (n, bt, C, sym, m) and on nothing else, so a mixed
+// launch keeps every invariance of the other two (chunking, the block and
+// slot a tile lies in, the lower block triangle, A_q against A_q.float()),
+// and at m = 0 it gives the bits of a vpu launch.  It has no ring, as the dot
+// instance has none: with the ring the 2-byte mixed instances spilled 68-84
+// bytes (ptxas) and the bf16 launch was slower than without, with the same
+// bits (8192^2, PERF.md §6).
+//
+// The pipelined fill (kFill; `fill` = 1 at the C entry), an instance of its
+// own beside each of the others: the resident tiles are brought by bulk
+// copies (bulk.cuh, one cp.async.bulk of bt * sizeof(S) bytes a row, with
+// the evict_first policy of the plain fill)
+// that complete on one mbarrier per resident slot of the block, placed after
+// the tiles.  Thread 0 initialises the barriers and expects each tile's
+// bytes; after the block barrier that every launch has (ev), the block's
+// threads issue all of the block's rows at once and go straight to round 0,
+// where a warp waits on its tile's barrier (parity 0) before the tile's
+// first read; no barrier is re-armed.  The TPU kernel issued a step's tiles
+// one step ahead only because its DMA queue is 8 deep (kernels.py:779-800,
+// :943-946); Hopper's copy engine queues them all.  A launch whose rounds
+// stop before round 0's tile phase still waits for every copy before the
+// block exits.  The bytes that land are the prologue fill's, so the bits
+// are the prologue fill's.  (A launch argument read by every instance, the
+// first design, moved the f32 dot instance's spills from 40 to 64 bytes of
+// stores and cost the dense tiled dot launch 9.5% at 8192^2; PERF.md.  As a
+// template parameter it leaves the other instances as they were.)
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
 #include <cuda_runtime.h>
@@ -185,13 +220,14 @@ constexpr size_t stage_bytes() {
 }
 
 // Dynamic shared memory: ev (n floats) | resident tiles (slots * bt^2
-// elements of S, A's storage type) | up to 128 bytes to align the ring (a
-// tensor copy's destination) | ring stages (kWarps * ring) | their
-// mbarriers (kWarps * ring).  device.sym_smem_bytes mirrors this.
+// elements of S, A's storage type) | with the pipelined fill, one mbarrier a
+// slot | up to 128 bytes to align the ring (a tensor copy's destination) |
+// ring stages (kWarps * ring) | their mbarriers (kWarps * ring).
+// device.sym_smem_bytes mirrors this.
 template <class S>
-size_t smem_bytes(int n, int bt, int slots, int ring) {
+size_t smem_bytes(int n, int bt, int slots, int ring, int fill) {
   return static_cast<size_t>(n) * sizeof(float) +
-         static_cast<size_t>(slots) * bt * bt * sizeof(S) +
+         static_cast<size_t>(slots) * bt * bt * sizeof(S) + (fill ? 8 * slots : 0) +
          (ring ? 128 + static_cast<size_t>(ring) * kWarps * (stage_bytes<S>() + 8) : 0);
 }
 
@@ -460,13 +496,25 @@ __device__ __forceinline__ float slot_sum(const float* p, const float* pt, int k
   return s;
 }
 
+// The pipelined fill's mbarrier of resident slot k: after the block's
+// `slots` resident tiles.
+template <class S>
+__device__ __forceinline__ unsigned long long* fill_bar(S* cache, int slots, size_t tile_elems,
+                                                         int k) {
+  return reinterpret_cast<unsigned long long*>(cache + static_cast<size_t>(slots) * tile_elems) +
+         k;
+}
+
 // tiles: T streamed (i, j) pairs, then C resident ones.  part: g * n floats;
 // part_t: g * n * split floats (sym only).  split: 1 (an item is a tile) or
 // bt / 32 (an item is a 32-row group).
 // kRing: the instance with the ring (a launch whose plan has `ring` > 0);
 // the other is the register path alone.  kDot: the dot formulation
-// (register path, no ring).
-template <class S, bool kRing, bool kDot = false>
+// (register path, no ring).  kMixed: the mixed formulation, resident tiles
+// from index mxu_from on in the dot form (register path, no ring).
+// kFill: the pipelined fill of the resident tiles (the other instances fill
+// them before round 0).
+template <class S, bool kRing, bool kDot = false, bool kMixed = false, bool kFill = false>
 __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
     const S* __restrict__ A, const int2* __restrict__ tiles, int T, int C,
     int slots, const float* __restrict__ ev_in, const float* __restrict__ v_in,
@@ -474,9 +522,11 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
     float* __restrict__ v_out, int* __restrict__ adv_out,
     float* __restrict__ lam_out, float* raw, float* part, float* part_t, int n,
     int bt, int chunk, float eps, int init, int rel, int sym, int split,
-    int l2_tiles, int ring, const __grid_constant__ CUtensorMap tmap,
+    int l2_tiles, int ring, int mxu_from, const __grid_constant__ CUtensorMap tmap,
     unsigned long long* stamps) {
   static_assert(!(kRing && kDot), "the dot formulation has no ring");
+  static_assert(!(kDot && kMixed), "one formulation an instance");
+  static_assert(!(kRing && kMixed), "the mixed formulation has no ring");
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float4 smem4[];
   float* ev_s = reinterpret_cast<float*>(smem4);
@@ -498,9 +548,11 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
   const evt::FromGlobalHinted keep{evt::l2_evict_last()};
   const evt::FromGlobalHinted pass{evt::l2_evict_first()};
 
-  // this warp's ring, after the resident tiles
+  // the pipelined fill's barriers, one a slot, after the resident tiles;
+  // then this warp's ring
+  unsigned long long* fill_bars = fill_bar(cache, slots, tile_elems, 0);
   using Ring = SymRing<S>;
-  char* after = reinterpret_cast<char*>(cache + static_cast<size_t>(slots) * tile_elems);
+  char* after = reinterpret_cast<char*>(fill_bars + (kFill ? slots : 0));
   Chunk* ring_s =
       reinterpret_cast<Chunk*>(after + ((128u - (evt::smem_addr(after) & 127u)) & 127u));
   Ring rg;
@@ -529,9 +581,15 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
     }
   }
 
+  if (kFill && tid == 0) {
+    for (int k = 0; k < ncached; ++k) evt::mbar_init(fill_bars + k);
+    evt::mbar_init_fence();
+    for (int k = 0; k < ncached; ++k)
+      evt::mbar_expect(fill_bars + k, static_cast<unsigned>(tile_elems * sizeof(S)));
+  }
   for (int j = tid; j < n; j += kThreads) ev_s[j] = ev_in[j];
-  // fill this block's resident tiles, once per launch
-  for (int k = 0; k < ncached; ++k) {
+  // fill this block's resident tiles, once per launch (the prologue fill)
+  for (int k = 0; k < (kFill ? 0 : ncached); ++k) {
     const int2 ij = tiles[T + b + k * nb];
     const S* src = A + static_cast<size_t>(ij.x) * bt * n +
                    static_cast<size_t>(ij.y) * bt;
@@ -545,6 +603,15 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
     }
   }
   __syncthreads();
+  if constexpr (kFill) {  // every row of the block's resident tiles, a copy a thread
+    for (int e = tid; e < ncached * bt; e += kThreads) {
+      const int k = e / bt, r = e - k * bt;
+      const int2 ij = tiles[T + b + k * nb];
+      evt::bulk_copy(cache + k * tile_elems + static_cast<size_t>(r) * bt,
+                     A + (static_cast<size_t>(ij.x) * bt + r) * n + static_cast<size_t>(ij.y) * bt,
+                     static_cast<unsigned>(bt * sizeof(S)), fill_bars + k, pass.policy);
+    }
+  }
   for (int s = 0; s < (rg.nk ? ring : 0); ++s) rg.issue(lane);
 
   int adv = 0;
@@ -569,6 +636,9 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
       float* row_out = part + (static_cast<size_t>(ij.x) * g + ij.y) * bt;
       float* col_out =
           part_t + ((static_cast<size_t>(ij.y) * g + ij.x) * split + lo / span) * bt;
+      // a resident tile's first read of a pipelined launch waits for its copies
+      if (kFill && !streamed && r == 0)
+        evt::mbar_wait(fill_bar(cache, slots, tile_elems, m - nstream), 0u);
       if constexpr (kDot) {
         if (streamed) {
           tile_terms_dot(A + static_cast<size_t>(ij.x) * bt * n + static_cast<size_t>(ij.y) * bt,
@@ -587,8 +657,16 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
         tile_terms(src, n, bt, lo, lo + span, trans, evi, evj, row_out, col_out,
                    lane, t < l2_tiles ? keep : pass);
       } else {
-        tile_terms(cache + (m - nstream) * tile_elems, bt, bt, lo, lo + span,
-                   trans, evi, evj, row_out, col_out, lane, evt::FromShared());
+        const S* src = cache + (m - nstream) * tile_elems;
+        if constexpr (kMixed) {
+          if (b + (m - nstream) * nb >= mxu_from) {  // resident tile index s >= C - m
+            tile_terms_dot(src, bt, bt, lo, lo + span, trans, evi, evj, row_out, col_out, lane,
+                           evt::FromShared());
+            continue;
+          }
+        }
+        tile_terms(src, bt, bt, lo, lo + span, trans, evi, evj, row_out, col_out, lane,
+                   evt::FromShared());
       }
     }
     evt::stamp(stamps, r, 2, true);
@@ -624,6 +702,8 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
     evt::stamp(stamps, r, 5, false);
   }
   rg.drain();  // the trips issued ahead for a round that did not run
+  if (kFill && tid == 0)  // copies of a launch that stopped before its tile phase
+    for (int k = 0; k < ncached; ++k) evt::mbar_wait(fill_bar(cache, slots, tile_elems, k), 0u);
 
   // A frozen solve keeps the v it stopped on (the previous matvec / ev, or
   // the input if it stopped at r == 0); a running one leaves the division
@@ -638,19 +718,27 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
   }
 }
 
-// The instance a launch runs: dot, ring or register path.
-template <class S>
-auto instance(int ring, int dot) {
-  return dot ? multiround_sym_kernel<S, false, true>
-             : ring ? multiround_sym_kernel<S, true> : multiround_sym_kernel<S, false>;
+// The instance a launch runs: by fill, by formulation (0 vpu, 1 dot, 2
+// mixed), then ring or register path.
+template <class S, bool kFill>
+auto instance_of(int ring, int form) {
+  return form == 1   ? multiround_sym_kernel<S, false, true, false, kFill>
+         : form == 2 ? multiround_sym_kernel<S, false, false, true, kFill>
+         : ring      ? multiround_sym_kernel<S, true, false, false, kFill>
+                     : multiround_sym_kernel<S, false, false, false, kFill>;
 }
 
 template <class S>
-int grid_of(int n, int bt, int slots, int ring, int dot) {
+auto instance(int ring, int form, int fill) {
+  return fill ? instance_of<S, true>(ring, form) : instance_of<S, false>(ring, form);
+}
+
+template <class S>
+int grid_of(int n, int bt, int slots, int ring, int form, int fill) {
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
   cudaFuncAttributes attr;
-  const size_t smem = smem_bytes<S>(n, bt, slots, ring);
-  const auto kernel = instance<S>(ring, dot);
+  const size_t smem = smem_bytes<S>(n, bt, slots, ring, fill);
+  const auto kernel = instance<S>(ring, form, fill);
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -718,14 +806,16 @@ int tile_map(CUtensorMap* map, const void* A, int n) {
 
 // Co-resident blocks of the kernel at (n, bt, slots resident tiles per
 // block, ring stages a warp, element type `elem`: 0 float32, 1 bfloat16, 2
-// float16; `dot`: the dot formulation's instance, ring 0) on the current
-// device, 0 if one block does not fit, or a negated cudaError_t.  Also
-// raises the kernel's dynamic shared-memory limit to the most the card
-// allows.
-extern "C" int evt_multiround_sym_grid(int n, int bt, int slots, int ring, int elem, int dot) {
-  if (elem < 0 || elem > 2 || (dot && ring)) return -static_cast<int>(cudaErrorInvalidValue);
+// float16; `form`: the formulation's instance, 0 vpu, 1 dot, 2 mixed (ring
+// 0 for both); `fill`: 1 for the pipelined fill's barriers) on the current device,
+// 0 if one block does not fit, or a negated cudaError_t.  Also raises the
+// kernel's dynamic shared-memory limit to the most the card allows.
+extern "C" int evt_multiround_sym_grid(int n, int bt, int slots, int ring, int elem, int form,
+                                       int fill) {
+  if (elem < 0 || elem > 2 || form < 0 || form > 2 || (form && ring))
+    return -static_cast<int>(cudaErrorInvalidValue);
   return evt::with_elem(elem, [&](auto tag) {
-    return grid_of<typename decltype(tag)::type>(n, bt, slots, ring, dot);
+    return grid_of<typename decltype(tag)::type>(n, bt, slots, ring, form, fill);
   });
 }
 
@@ -737,8 +827,11 @@ extern "C" int evt_multiround_sym_grid(int n, int bt, int slots, int ring, int e
 // tiles each (evt_multiround_sym_grid) and grid * slots >= C.  `split` is 1
 // or bt / 32; the first `l2_tiles` streamed tiles are kept in L2.  `ring`
 // > 0 streams tiles through that many bulk-copy stages a warp (A 16-byte
-// aligned), 0 through registers; `dot` = 1 runs the dot formulation (ring
-// 0).  `stamps`
+// aligned), 0 through registers.  `form`: 0 vpu, 1 dot, 2 mixed (ring 0 for
+// both), whose resident tiles from index `mxu_from` on take the dot form
+// (C: none).
+// `fill` = 1 fills the resident tiles by bulk copies waited for at first
+// use (A 16-byte aligned), 0 before round 0.  `stamps`
 // is null, or kStampRounds * kStampPhases * grid words for the phase
 // stamps.  Launches on `stream` and does not synchronise.  Returns the
 // launch's cudaError_t (0 on success).
@@ -749,16 +842,17 @@ extern "C" int evt_multiround_sym(const void* A, const int* tiles, int T,
                                   int* adv_out, float* lam_out, float* raw,
                                   float* part, float* part_t, int n, int bt,
                                   int chunk, float eps, int init, int rel,
-                                  int sym, int split, int l2_tiles, int ring, int dot,
-                                  void* stamps, int elem, int grid, void* stream) {
-  if (dot && ring) return static_cast<int>(cudaErrorInvalidValue);
+                                  int sym, int split, int l2_tiles, int ring, int form,
+                                  int mxu_from, int fill, void* stamps, int elem, int grid,
+                                  void* stream) {
+  if (form < 0 || form > 2 || (form && ring)) return static_cast<int>(cudaErrorInvalidValue);
   const int2* tiles2 = reinterpret_cast<const int2*>(tiles);
   CUtensorMap tmap = {};  // read only by a launch with a ring
-  void* args[] = {&A,       &tiles2,   &T,        &C,      &slots,  &ev_in,
-                  &v_in,    &lam_in,   &budget,   &ev_out, &v_out,  &adv_out,
-                  &lam_out, &raw,      &part,     &part_t, &n,      &bt,
-                  &chunk,   &eps,      &init,     &rel,    &sym,    &split,
-                  &l2_tiles, &ring,    &tmap,     &stamps};
+  void* args[] = {&A,        &tiles2,   &T,        &C,      &slots,  &ev_in,
+                  &v_in,     &lam_in,   &budget,   &ev_out, &v_out,  &adv_out,
+                  &lam_out,  &raw,      &part,     &part_t, &n,      &bt,
+                  &chunk,    &eps,      &init,     &rel,    &sym,    &split,
+                  &l2_tiles, &ring,     &mxu_from, &tmap,   &stamps};
   return evt::with_elem(elem, [&](auto tag) {
     using E = typename decltype(tag)::type;
     if (ring) {
@@ -766,8 +860,8 @@ extern "C" int evt_multiround_sym(const void* A, const int* tiles, int T,
       if (rc != 0) return rc;
     }
     const cudaError_t e = cudaLaunchCooperativeKernel(
-        (const void*)instance<E>(ring, dot), dim3(grid), dim3(kThreads), args,
-        smem_bytes<E>(n, bt, slots, ring), static_cast<cudaStream_t>(stream));
+        (const void*)instance<E>(ring, form, fill), dim3(grid), dim3(kThreads), args,
+        smem_bytes<E>(n, bt, slots, ring, fill), static_cast<cudaStream_t>(stream));
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());
   });

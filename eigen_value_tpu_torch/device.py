@@ -185,20 +185,26 @@ def sym_ring_bytes(ring: int, itemsize: int) -> int:
     return ring and 128 + ring * _SYM_WARPS * (_SYM_STAGE * itemsize + 8)
 
 
-def sym_smem_bytes(n: int, bt: int, slots: int = 0, itemsize: int = 4, ring: int = 0) -> int:
+def sym_smem_bytes(
+    n: int, bt: int, slots: int = 0, itemsize: int = 4, ring: int = 0, pipelined: bool = False
+) -> int:
     """Dynamic shared memory of one block of the triangle kernel
     (csrc/multiround_sym.cu ``smem_bytes``): ev (n floats), ``slots``
-    resident bt x bt tiles of ``itemsize``-byte elements and the ring's
-    ``ring`` stages a warp.  A tile's column sums stay in registers."""
-    return 4 * n + slots * bt * bt * itemsize + sym_ring_bytes(ring, itemsize)
+    resident bt x bt tiles of ``itemsize``-byte elements, with the
+    ``pipelined`` fill an 8-byte mbarrier a slot, and the ring's ``ring``
+    stages a warp.  A tile's column sums stay in registers."""
+    bars = 8 * slots if pipelined else 0
+    return 4 * n + slots * bt * bt * itemsize + bars + sym_ring_bytes(ring, itemsize)
 
 
 def multiround_sym_fits(
-    n: int, bt: int, device: torch.device, slots: int = 0, itemsize: int = 4, ring: int = 0
+    n: int, bt: int, device: torch.device, slots: int = 0, itemsize: int = 4, ring: int = 0,
+    pipelined: bool = False,
 ) -> bool:
     """Whether one block of the triangle kernel, with ``slots`` resident
-    tiles and ``ring`` ring stages a warp, fits the card's shared memory."""
-    need = sym_smem_bytes(n, bt, slots, itemsize, ring) + _MULTIROUND_STATIC_SMEM
+    tiles (filled by bulk copies when ``pipelined``) and ``ring`` ring
+    stages a warp, fits the card's shared memory."""
+    need = sym_smem_bytes(n, bt, slots, itemsize, ring, pipelined) + _MULTIROUND_STATIC_SMEM
     return need <= cuda_limits(device).smem_per_block_optin
 
 
@@ -212,7 +218,7 @@ def sym_ring(n: int, bt: int, device: torch.device, itemsize: int = 4) -> int:
 
 def sym_auto_cache_tiles(
     n: int, bt: int, device: torch.device, sym: bool = True, itemsize: int = 4,
-    ring: bool = True,
+    ring: bool = True, pipelined: bool = False,
 ) -> int:
     """The largest resident tile cache the triangle kernel can hold at
     (n, bt) on ``device`` for A stored in ``itemsize`` bytes an element: as
@@ -226,14 +232,16 @@ def sym_auto_cache_tiles(
     the plain version keeps nothing resident.  (The JAX package sizes its
     cache from the v5e's VMEM, by the tile's itemsize as here; the budget
     here is the card's own.)  ``ring=False``: the budget of the register
-    path alone (the dot formulation; six bf16 tiles a block at n = 8192)."""
+    path alone (the dot formulation; six bf16 tiles a block at n = 8192).
+    ``pipelined``: each tile also takes its fill's 8-byte mbarrier (the
+    same count at n = 8192: 396 f32 tiles, 528 bf16 ones)."""
     if device.type != "cuda":
         return 0
     lim = cuda_limits(device)
     depth = sym_ring(n, bt, device, itemsize) if ring else 0
     free = (lim.smem_per_block_optin - _MULTIROUND_STATIC_SMEM
             - sym_smem_bytes(n, bt, 0, itemsize, depth))
-    slots = max(0, free // (itemsize * bt * bt))
+    slots = max(0, free // (itemsize * bt * bt + (8 if pipelined else 0)))
     g = n // bt
     cap = g * (g - 1) // 2 if sym else g * g - 1
     return max(0, min(slots * lim.sms, cap))

@@ -48,13 +48,13 @@ _SIGNATURES = {
     "evt_multiround_blocks": (_I, _I, _I, _I, _I),
     # A, tiles, T, C, slots, ev_in, v_in, lam_in, budget, ev_out, v_out,
     # adv_out, lam_out, raw, part, part_t, n, bt, chunk, eps, init, rel, sym,
-    # split, l2_tiles, ring, dot, stamps, elem, grid, stream
+    # split, l2_tiles, ring, form, mxu_from, fill, stamps, elem, grid, stream
     "evt_multiround_sym": (
         _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-        ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P,
+        ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P,
     ),
-    # n, bt, slots, ring, elem, dot
-    "evt_multiround_sym_grid": (_I, _I, _I, _I, _I, _I),
+    # n, bt, slots, ring, elem, form (0 vpu, 1 dot, 2 mixed), fill (1: pipelined)
+    "evt_multiround_sym_grid": (_I, _I, _I, _I, _I, _I, _I),
     "evt_round_grid": (_I,),
     # A, ev, v, m, v_next, ev_new, n, grid, stream
     "evt_round_matvec": (_P, _P, _P, _P, _P, _P, _I, _I, _P),

@@ -112,10 +112,15 @@ def _sized(dtype: torch.dtype, name: str = "dtype") -> dict:
 
 
 def _formulated(formulation: str) -> dict:
-    """The keyword that asks a plan call for the dot instance: none for
-    "vpu", so that a launch looks its plan up under the key that
+    """The keyword that asks a plan call for the dot or the mixed instance:
+    none for "vpu", so that a launch looks its plan up under the key that
     :func:`prepare` cached it under."""
-    return {"dot": True} if formulation == "dot" else {}
+    return {formulation: True} if formulation in ("dot", "mixed") else {}
+
+
+#: The triangle kernel's formulations and their codes in the C entry
+#: (csrc/multiround_sym.cu ``instance``).
+_FORMS = {"vpu": 0, "dot": 1, "mixed": 2}
 
 
 #: Phase stamps of the persistent kernels: None, or the tensor they write.
@@ -457,6 +462,7 @@ def sym_cache_split(n: int, bt: int, cache_tiles: int):
     return streamed, tuple(offdiag[:c])
 
 
+@functools.lru_cache(maxsize=None)
 def _tile_split(n: int, bt: int, cache_tiles: int, sym: bool):
     """(streamed, cached) tiles of the kernel: the triangle split, or in
     dense tiled mode all g² tiles with up to g² − 1 cached, furthest from
@@ -489,8 +495,46 @@ def _tile_products(tiles: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     return _mv3(tb, ts, eb, es, lambda a, e: torch.bmm(a, e.unsqueeze(-1)).squeeze(-1))
 
 
+#: The TPU kernel's measured cost of a tile term on its matrix unit against
+#: one on its vector unit (a v5e; eigen_value_tpu/ops/pallas/kernels.py:54).
+#: It sets the default share of the "mixed" formulation, so that the port
+#: and the JAX package put the same resident tiles on the matrix unit; it is
+#: not a measurement of the H100's tensor cores and is not tuned for them.
+MXU_TERM_COST = 3.5
+
+
+@functools.lru_cache(maxsize=None)
+def mxu_share(n: int, bt: int, cache_tiles: int, sym: bool, mxu_tiles: Optional[int] = None) -> int:
+    """Resident tiles of the "mixed" formulation on the tensor cores: the
+    last m of the split's C cached tiles (:func:`_tile_split`), with m =
+    ``mxu_tiles`` or, for None, the JAX rule's unit-balance point
+    ``round(total / (1 + MXU_TERM_COST) / per_cached)``, where ``total``
+    counts the tile terms of a round (a streamed diagonal tile 1, any other
+    tile 2, every tile 1 in dense mode) and ``per_cached`` is 2 (1 dense);
+    clamped to [0, C].  455 of the 396 f32 (so all 396) or 528 bf16 tiles
+    of the auto caches at 8192², bt = 128."""
+    streamed, cached = _tile_split(n, bt, cache_tiles, sym)
+    C = len(cached)
+    if mxu_tiles is None:
+        per_cached = 2 if sym else 1
+        t_stream = sum(1 if i == j else 2 for i, j in streamed) if sym else len(streamed)
+        mxu_tiles = round((t_stream + per_cached * C) / (1.0 + MXU_TERM_COST) / per_cached)
+    return max(0, min(mxu_tiles, C))
+
+
+@functools.lru_cache(maxsize=None)
+def _mxu_mask(device: torch.device, n: int, bt: int, sym: bool, cache_tiles: int, m: int):
+    """Which of :func:`_tile_index`'s tiles a "mixed" solve takes in the dot
+    form: the last ``m`` cached ones; None when there are none."""
+    if not m:
+        return None
+    on = set(_tile_split(n, bt, cache_tiles, sym)[1][-m:])
+    return torch.tensor([t in on for t in _tile_split(n, bt, 0, sym)[0]], device=device)
+
+
 def tiled_matvec_plain(
-    A: torch.Tensor, ev: torch.Tensor, bt: int, sym: bool, formulation: str = "vpu"
+    A: torch.Tensor, ev: torch.Tensor, bt: int, sym: bool, formulation: str = "vpu",
+    mxu: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``A @ ev`` over square bt-edge tiles, reading only the upper block
     triangle when ``sym``: each tile's row term ``T @ ev[j_blk]`` and, off
@@ -499,7 +543,9 @@ def tiled_matvec_plain(
     blocks.  Batched f32 products (no TF32), over at most
     ``PLAIN_BLOCK_BYTES`` of f32 tiles at a time (a 2-byte A is cast up
     there); ``formulation="dot"`` takes each term in 3xTF32 (``T^T @
-    ev[i_blk]`` for the transpose term)."""
+    ev[i_blk]`` for the transpose term), and ``mxu`` (a bool per tile of
+    the plain version's order, :func:`_mxu_mask`) the terms of those tiles
+    alone: the "mixed" formulation."""
     n = A.shape[0]
     g = n // bt
     ti, tj, off = _tile_index(A.device, n, bt, sym)
@@ -518,30 +564,64 @@ def tiled_matvec_plain(
         part[i, j] = torch.bmm(tiles, evb[j].unsqueeze(-1)).squeeze(-1)
         if sym:
             part[j[o], i[o]] = torch.bmm(evb[i[o]].unsqueeze(1), tiles[o]).squeeze(1)
+        d = None if mxu is None else mxu[s:s + step]
+        if d is not None and bool(d.any()):  # their slots again, in 3xTF32
+            i, j, o, tiles = i[d], j[d], o[d], tiles[d]
+            part[i, j] = _tile_products(tiles, evb[j])
+            if sym:
+                part[j[o], i[o]] = _tile_products(tiles[o].transpose(1, 2), evb[i[o]])
     return part.sum(dim=1).reshape(n)
 
 
-def _check_tiled_knobs(formulation: str, mxu_tiles, fill_mode: str) -> None:
-    if formulation not in ("vpu", "dot", "mixed"):
-        raise ValueError(f"unknown formulation {formulation!r}")
-    if formulation == "mixed":
+def _check_tiled_knobs(
+    n: int, bt: int, cache_tiles: int, sym: bool, formulation: str, mxu_tiles, fill_mode: str
+) -> int:
+    """The JAX kernel's rules for ``mxu_tiles`` and ``fill_mode``, with its
+    conditions and in its order (eigen_value_tpu/ops/pallas/kernels.py
+    ``multiround_sym``), so that both packages accept the same calls.
+    Returns the "mixed" share m (:func:`mxu_share`; 0 otherwise)."""
+    mixed = formulation == "mixed"
+    C = len(_tile_split(n, bt, cache_tiles, sym)[1])
+    if mxu_tiles is not None and not mixed:
+        raise ValueError("mxu_tiles is only meaningful with formulation='mixed'")
+    if mixed and not C:
         raise ValueError(
-            "formulation='mixed' (the resident tiles on the tensor cores, the rest "
-            "on the 'vpu' path) is not ported (ROADMAP, Queue 2 item 3)"
-        )
-    if mxu_tiles is not None:
-        raise ValueError(
-            "mxu_tiles (the 'mixed' matrix-unit share of the resident tiles) is "
-            "not ported (ROADMAP, Queue 2 item 3)"
+            "formulation='mixed' needs cache_tiles > 0 (the tensor-core share is carved "
+            "out of the resident tiles)"
         )
     if fill_mode not in ("prologue", "pipelined"):
         raise ValueError(f"unknown fill_mode {fill_mode!r}")
-    if fill_mode != "prologue":
+    if fill_mode == "pipelined" and not C:
         raise ValueError(
-            f"fill_mode={fill_mode!r} (the wait-at-first-use cache fill) is not "
-            f"ported; the kernel fills its cache at the start of a launch "
-            f"(ROADMAP, Queue 2 item 3)"
+            "fill_mode='pipelined' schedules the cache fill; it needs cache_tiles > 0"
         )
+    m = mxu_share(n, bt, cache_tiles, sym, mxu_tiles) if mixed else 0
+    depth = pipelined_depth(n, bt, cache_tiles, sym, m) if fill_mode == "pipelined" else 0
+    if depth > PIPELINED_DEPTH:
+        raise ValueError(
+            f"fill_mode='pipelined' would keep up to {depth} fill DMAs in flight "
+            f"(2 steps x {depth // 2} slots) — over the {PIPELINED_DEPTH}-deep queue budget; "
+            f"use the prologue fill or cache fewer tiles relative to the streamed count"
+        )
+    return m
+
+
+#: The most fill copies the JAX kernel's pipelined fill may keep in flight:
+#: its TPU's DMA queue, kept as the API's limit so that both packages
+#: accept the same calls (the port issues all of a block's copies at once).
+PIPELINED_DEPTH = 8
+
+
+def pipelined_depth(n: int, bt: int, cache_tiles: int, sym: bool, m: int = 0) -> int:
+    """The fill copies that the JAX kernel's ``fill_mode="pipelined"``
+    keeps in flight: it issues the tiles of its step t + 1 at step t, each
+    of its T streamed steps taking ceil(share / T) slots of each share (the
+    C − m "vpu" tiles and the m "mixed" ones), so two steps' slots.  At most
+    :data:`PIPELINED_DEPTH`; at 2048², bt 128, every one of the 120
+    resident tiles gives 16, and 108 the most that passes."""
+    streamed, cached = _tile_split(n, bt, cache_tiles, sym)
+    T, C = len(streamed), len(cached)
+    return 2 * (-(-(C - m) // T) + -(-m // T))
 
 
 def _check_tiled(A, ev, v, chunk, eps_mode, tile) -> int:
@@ -581,18 +661,31 @@ def multiround_sym_plain(
     cache_tiles: int = 0,
     sym: bool = True,
     formulation: str = "vpu",
+    mxu_tiles: Optional[int] = None,
+    fill_mode: str = "prologue",
 ):
     """The rounds of :func:`multiround_plain` over :func:`tiled_matvec_plain`
-    (in 3xTF32 for ``formulation="dot"``).  ``cache_tiles`` changes where
-    tiles live, never the result, so the plain version (which keeps nothing
-    resident) accepts and ignores it."""
-    del cache_tiles
-    _check_tiled_knobs(formulation, None, "prologue")
+    (in 3xTF32 for ``formulation="dot"``; for "mixed", the last
+    :func:`mxu_share` of the ``cache_tiles`` resident tiles in 3xTF32 and
+    every other tile as "vpu").  Where tiles live and how the cache is
+    filled never change the result, so the plain version keeps nothing
+    resident; ``cache_tiles`` picks the "mixed" tiles, and ``fill_mode`` is
+    checked by the kernel's rules and otherwise ignored."""
+    _check_formulation_name(formulation)
     bt = _check_tiled(A, ev, v, chunk, eps_mode, tile)
+    n = A.shape[0]
+    m = _check_tiled_knobs(n, bt, int(cache_tiles), bool(sym), formulation, mxu_tiles, fill_mode)
+    mxu = _mxu_mask(A.device, n, bt, bool(sym), int(cache_tiles), m) if formulation == "mixed" \
+        else None
     return _rounds_plain(
-        lambda e: tiled_matvec_plain(A, e, bt, sym, formulation),
+        lambda e: tiled_matvec_plain(A, e, bt, sym, formulation, mxu),
         ev, v, lam, int(budget), chunk, eps, init, eps_mode,
     )
+
+
+def _check_formulation_name(formulation: str) -> None:
+    if formulation not in _FORMS:
+        raise ValueError(f"unknown formulation {formulation!r}")
 
 
 class SymPlan(NamedTuple):
@@ -609,14 +702,17 @@ class SymPlan(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def multiround_sym_plan(
     device: torch.device, n: int, bt: int, cache_tiles: int, sym: bool,
-    dtype: torch.dtype = torch.float32, dot: bool = False,
+    dtype: torch.dtype = torch.float32, dot: bool = False, mixed: bool = False,
+    pipelined: bool = False,
 ):
     """Launch plan of the triangle kernel, built once per (device, n, bt,
-    cache_tiles, sym, A's dtype, formulation): the tile table on the card,
-    the grid, the resident tiles per block, and what the card's size decides
-    (the split of tiles into work items, the L2-kept tiles).  The dot
-    formulation's instance has no ring.  Raises ValueError when the cache
-    does not fit the card (a request is rejected, never shrunk)."""
+    cache_tiles, sym, A's dtype, formulation, fill): the tile table on the
+    card, the grid, the resident tiles per block, and what the card's size
+    decides (the split of tiles into work items, the L2-kept tiles).  The
+    dot and mixed formulations' instances have no ring.  The ``pipelined``
+    fill adds a barrier a resident slot.  Raises
+    ValueError when the cache does not fit the card (a request is rejected,
+    never shrunk)."""
     from . import build
 
     size = dtype.itemsize
@@ -624,17 +720,20 @@ def multiround_sym_plan(
     T, C = len(streamed), len(cached)
     sms = cuda_limits(device).sms
     slots0 = -(-C // sms)  # the grid holds at least one block per SM
-    ring = 0 if dot else sym_ring(n, bt, device, size)
-    if not multiround_sym_fits(n, bt, device, slots0, size, ring):
-        most = sym_auto_cache_tiles(n, bt, device, sym, size, ring=not dot)
+    ring = 0 if dot or mixed else sym_ring(n, bt, device, size)
+    if not multiround_sym_fits(n, bt, device, slots0, size, ring, pipelined):
+        most = sym_auto_cache_tiles(n, bt, device, sym, size, ring=bool(ring),
+                                    pipelined=pipelined)
         raise ValueError(
             f"cache_tiles={cache_tiles} does not fit the card: {slots0} resident "
             f"{bt}x{bt} {dtype} tiles per block and {ring} ring stages a warp need "
-            f"{sym_smem_bytes(n, bt, slots0, size, ring)} bytes of shared memory; at most "
-            f"{most} tiles fit at n={n}"
+            f"{sym_smem_bytes(n, bt, slots0, size, ring, pipelined)} bytes of shared memory; "
+            f"at most {most} tiles fit at n={n}"
         )
+    form = _FORMS["dot" if dot else "mixed" if mixed else "vpu"]
     with torch.cuda.device(device):
-        cap = build.load().evt_multiround_sym_grid(n, bt, slots0, ring, _ELEM[dtype], int(dot))
+        cap = build.load().evt_multiround_sym_grid(n, bt, slots0, ring, _ELEM[dtype], form,
+                                                   int(pipelined))
     if cap < 0:
         raise RuntimeError(f"multiround_sym occupancy query failed with cudaError {-cap}")
     if cap == 0:
@@ -675,12 +774,18 @@ def multiround_sym(
     (tiles stream and stay resident as stored, every product and sum in
     f32, the same work items and slots: a 2-byte A gives the bits of its f32
     values); ev and v are float32.  ``formulation="dot"`` takes each tile's
-    terms on the tensor cores in 3xTF32, with the same invariances; "mixed",
-    ``mxu_tiles`` and ``fill_mode="pipelined"`` are not ported (ROADMAP,
-    Queue 2)."""
-    _check_tiled_knobs(formulation, mxu_tiles, fill_mode)
+    terms on the tensor cores in 3xTF32, with the same invariances.
+    ``formulation="mixed"`` takes the last ``mxu_tiles`` resident tiles
+    (None: :func:`mxu_share`'s default, the JAX rule) in the dot form and
+    every other tile as "vpu"; at ``mxu_tiles=0`` it gives the "vpu" bits.
+    ``fill_mode="pipelined"`` fills the resident tiles by bulk copies that
+    a warp waits for at the tile's first use, with the prologue fill's
+    bits; it needs A 16-byte aligned.  Both raise where the JAX kernel
+    does (:func:`_check_tiled_knobs`)."""
+    _check_formulation_name(formulation)
     bt = _check_tiled(A, ev, v, chunk, eps_mode, tile)
     n = A.shape[0]
+    m = _check_tiled_knobs(n, bt, int(cache_tiles), bool(sym), formulation, mxu_tiles, fill_mode)
     dev = tensor_device(A, ev, v)
     lam = _as_scalar(lam, dev)
     budget = int(budget)
@@ -688,6 +793,7 @@ def multiround_sym(
         return multiround_sym_plain(
             A, ev, v, lam, budget, chunk=chunk, eps=eps, init=init, eps_mode=eps_mode,
             tile=tile, cache_tiles=cache_tiles, sym=sym, formulation=formulation,
+            mxu_tiles=mxu_tiles, fill_mode=fill_mode,
         )
     _check_aligned(n, A, v)
     if not multiround_sym_fits(n, bt, dev):
@@ -698,10 +804,11 @@ def multiround_sym(
         )
     from . import build
 
-    dot = formulation == "dot"
+    pipelined = fill_mode == "pipelined"
     plan = multiround_sym_plan(dev, n, bt, int(cache_tiles), bool(sym), **_sized(A.dtype),
-                               **_formulated(formulation))
-    _check_ring_aligned(plan.ring, A)
+                               **_formulated(formulation),
+                               **({"pipelined": True} if pipelined else {}))
+    _check_ring_aligned(plan.ring or pipelined, A)
     ev_out = torch.empty(n, dtype=torch.float32, device=dev)
     v_out = torch.empty(n, dtype=torch.float32, device=dev)
     adv = torch.empty((), dtype=torch.int32, device=dev)
@@ -720,8 +827,8 @@ def multiround_sym(
             ev_out.data_ptr(), v_out.data_ptr(), adv.data_ptr(), lam_out.data_ptr(),
             raw.data_ptr(), part.data_ptr(), part_t.data_ptr(), n, bt,
             min(chunk, 2**31 - 1), eps, int(init), int(eps_mode == "relative"), int(sym),
-            plan.split, plan.l2_tiles, plan.ring, int(dot), _stamps_ptr(), _ELEM[A.dtype],
-            plan.grid, stream,
+            plan.split, plan.l2_tiles, plan.ring, _FORMS[formulation], plan.C - m,
+            int(pipelined), _stamps_ptr(), _ELEM[A.dtype], plan.grid, stream,
         )
         _launch(rc, "multiround_sym")
     multiround_sym.launches += 1

@@ -331,8 +331,12 @@ def solve_multiround(
     ``formulation="dot"`` runs either kernel's products on the tensor cores
     in 3xTF32 (never plain TF32; the stripes need n % 128 == 0, as JAX's):
     bit-identical across chunkings, caches and A_q against A_q.float(), and
-    within rounding of "vpu" with the same rounds.  "mixed", ``mxu_tiles``
-    and ``fill_mode="pipelined"`` raise (ROADMAP, Queue 2).
+    within rounding of "vpu" with the same rounds.  ``formulation="mixed"``
+    (tiled kernel, ``cache_tiles > 0``) takes the last ``mxu_tiles`` resident
+    tiles in that form and every other tile as "vpu" (None: the JAX
+    package's default share, ``kernels.mxu_share``); ``fill_mode="pipelined"``
+    fills the resident tiles by bulk copies waited for at first use, bit for
+    bit the prologue fill.  Each raises where the JAX solve does.
 
     ``storage_dtype`` (as JAX ``solve_multiround``): A is cast once and the
     kernels read it in 2 bytes; the O(n) state is f32, as it is for a

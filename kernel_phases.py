@@ -2,8 +2,8 @@
 """Time the two persistent kernels and split one launch into its phases.
 
     python3 kernel_phases.py [--root DIR [DIR ...]] [--dtype f32|bf16|f16]
-                             [--formulation vpu|dot] [--sizes 2048 4096 8192] [--reps 20]
-                             [--sweep] [--rings]
+                             [--formulation vpu|dot|mixed] [--fill prologue|pipelined ...]
+                             [--sizes 2048 4096 8192] [--reps 20] [--sweep] [--rings]
 
 For every size it solves the Hilbert matrix, stored in ``--dtype`` (the
 storage path's launches for bf16 / f16; ev and every sum stay f32), in one
@@ -16,7 +16,17 @@ and prints one JSON line per arm and checkout: median and min ms over
 power limit, and, where the kernels write stamps, the phase split of one
 more launch.  ``--formulation dot`` times the kernels' dot instances (the
 tensor cores in 3xTF32; no ring, so the auto caches are the register
-path's).
+path's); ``--formulation mixed`` the tiled kernel's mixed instance (its
+default share of the resident tiles in 3xTF32; the two cached arms only).
+``--fill`` names the tiled kernel's cache fills to time, each against the
+others in turns like the checkouts (``prologue``: the resident tiles
+loaded before round 0; ``pipelined``: bulk copies waited for at first use,
+the two cached arms only), and every row then also carries
+``round_0_us``: the split of round 0, whose stream phase holds the
+pipelined fill's waits, and ``span`` (µs from the first block's start of
+round 0 to the last stamp of the launch): the launch's time less the span
+is what lies outside its rounds, the prologue fill's loads among it (the
+pipelined fill's issue is there too, its waits are not).
 
 ``--root`` names one or more checkouts that hold ``eigen_value_tpu_torch/``
 (an earlier commit unpacked with ``git archive``; the default is this one).
@@ -68,10 +78,12 @@ DEFAULT_PHASES = {
 DTYPES = {"f32": "float32", "bf16": "bfloat16", "f16": "float16"}
 
 
-def split(stamps, grid: int, names) -> dict:
-    """Mean µs per phase from one launch's stamps (rounds, phases, blocks)."""
+def split(stamps, grid: int, names, rounds=range(1, STAMP_ROUNDS)) -> dict:
+    """Mean µs per phase from one launch's stamps (rounds, phases, blocks),
+    over ``rounds`` (by default 1 …: round 0 has no prologue and fills the
+    resident set)."""
     t = stamps[: STAMP_ROUNDS * STAMP_PHASES * grid].reshape(STAMP_ROUNDS, STAMP_PHASES, grid)
-    full = [r for r in range(1, STAMP_ROUNDS) if bool((t[r, : len(names) + 1] > 0).all())]
+    full = [r for r in rounds if bool((t[r, : len(names) + 1] > 0).all())]
     if not full:
         return {}
     sel = t[full].double()
@@ -80,11 +92,14 @@ def split(stamps, grid: int, names) -> dict:
         (sel[:, 2].max(dim=1).values - sel[:, 1].min(dim=1).values).mean()) / 1e3
     out["round"] = float((sel[:, len(names)] - sel[:, 0]).mean()) / 1e3
     out["rounds_read"] = len(full)
+    if 0 in full:
+        out["span"] = float(t.max() - t[0, 0].min()) / 1e3
     return out
 
 
-def stamped_split(kernels, fn, kernel: str, grid: int, dev) -> dict:
-    """One more launch of ``fn`` with the stamps on, and its phase split."""
+def stamped_split(kernels, fn, kernel: str, grid: int, dev, rounds=range(1, STAMP_ROUNDS)) -> dict:
+    """One more launch of ``fn`` with the stamps on, and its phase split
+    over ``rounds``."""
     import torch
 
     kernels.STAMPS = torch.zeros(STAMP_ROUNDS * STAMP_PHASES * grid, dtype=torch.int64,
@@ -93,7 +108,7 @@ def stamped_split(kernels, fn, kernel: str, grid: int, dev) -> dict:
         fn()
         torch.cuda.synchronize()
         names = getattr(kernels, "PHASES", DEFAULT_PHASES)[kernel]
-        return split(kernels.STAMPS.cpu(), grid, names)
+        return split(kernels.STAMPS.cpu(), grid, names, rounds)
     finally:
         kernels.STAMPS = None
 
@@ -118,9 +133,13 @@ def plan_fields(plan) -> dict:
     return {k: v for k, v in plan._asdict().items() if k != "table"}
 
 
-def arms(R, H, dev, formulation: str = "vpu") -> list:
+def arms(R, H, dev, formulation: str = "vpu", fill: str = "prologue", fills=None) -> list:
     """(label, kernel, cache, plan, launch) of the four arms at H's size,
-    under checkout R's plans for H's dtype and the formulation."""
+    under checkout R's plans for H's dtype, the formulation and the fill.
+    Where the formulation or one of the ``fills`` timed beside it needs
+    resident tiles ("mixed", "pipelined"), the two cached arms alone; with
+    the pipelined fill among them, each at the largest cache up to the auto
+    one that its depth rule accepts (``kernels.pipelined_depth``)."""
     import torch
 
     k, d = R.kernels, R.device
@@ -130,16 +149,29 @@ def arms(R, H, dev, formulation: str = "vpu") -> list:
     kw = dict(chunk=R.evt.MAX_ITR + 1, eps=R.evt.EPS, init=True)
     sized = {} if dt == torch.float32 else {"dtype": dt}
     isz = {} if dt == torch.float32 else {"itemsize": dt.itemsize}
+    if formulation != "vpu":
+        kw["formulation"] = formulation
+        sized[formulation] = True
     if formulation == "dot":
-        kw["formulation"] = "dot"
-        sized["dot"] = True
         isz["ring"] = False
-    out = [("multiround", "multiround", None, k.multiround_launch_plan(dev, n, **sized),
-            lambda: k.multiround(H, x, x, z, R.evt.MAX_ITR, **kw))]
+    pipelined = "pipelined" in (fills or (fill,))
+    cached_only = formulation == "mixed" or pipelined
+    if fill == "pipelined":
+        kw["fill_mode"] = fill
+        sized["pipelined"] = isz["pipelined"] = True
+    out = [] if cached_only else [
+        ("multiround", "multiround", None, k.multiround_launch_plan(dev, n, **sized),
+         lambda: k.multiround(H, x, x, z, R.evt.MAX_ITR, **kw))]
     for label, sym, auto in (("multiround_sym, streaming", True, False),
                              ("multiround_sym, auto cache", True, True),
                              ("multiround_sym dense tiled, auto cache", False, True)):
+        if cached_only and not auto:
+            continue
         c = d.sym_auto_cache_tiles(n, bt, dev, sym=sym, **isz) if auto else 0
+        while pipelined and c and k.pipelined_depth(
+                n, bt, c, sym, k.mxu_share(n, bt, c, sym) if formulation == "mixed" else 0
+        ) > k.PIPELINED_DEPTH:
+            c -= 1
         out.append((label, "multiround_sym", c, k.multiround_sym_plan(dev, n, bt, c, sym, **sized),
                     lambda c=c, sym=sym: k.multiround_sym(H, x, x, z, R.evt.MAX_ITR, tile=bt,
                                                           cache_tiles=c, sym=sym, **kw)))
@@ -279,7 +311,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", nargs="+", default=[os.path.dirname(os.path.abspath(__file__))])
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
-    ap.add_argument("--formulation", choices=["vpu", "dot"], default="vpu")
+    ap.add_argument("--formulation", choices=["vpu", "dot", "mixed"], default="vpu")
+    ap.add_argument("--fill", choices=["prologue", "pipelined"], nargs="+", default=None,
+                    help="the tiled kernel's cache fills, timed in turns; also prints round "
+                         "0's split")
     ap.add_argument("--sizes", type=int, nargs="+", default=[2048, 4096, 8192])
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--sweep", action="store_true", help="also time other plans than the card's")
@@ -302,22 +337,27 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     for n in args.sizes:
         H = fixtures.hilbert_matrix(n, device=dev).to(dt)
-        per_root = [arms(R, H, dev, args.formulation) for R in roots]
+        fills = args.fill or ["prologue"]
+        variants = [(R, fill) for R in roots for fill in fills]
+        per_root = [arms(R, H, dev, args.formulation, fill, fills) for R, fill in variants]
         for a in range(len(per_root[0])):
             label, kernel = per_root[0][a][:2]
             fns = [p[a][4] for p in per_root]
             outs = [fn() for fn in fns]
             samples = in_turns(fns, args.reps)
-            for R, arm, out, ms in zip(roots, (p[a] for p in per_root), outs, samples):
+            for (R, fill), arm, out, ms in zip(variants, (p[a] for p in per_root), outs, samples):
                 _, _, cache, plan, fn = arm
                 row = {"arm": label, "n": n, "dtype": args.dtype,
-                       "formulation": args.formulation, "root": R.root,
+                       "formulation": args.formulation, "fill": fill, "root": R.root,
                        "advanced": int(out[2]), "ms_median": statistics.median(ms),
                        "ms_min": min(ms), "cache": cache, "plan": plan_fields(plan),
                        "bits_equal_root0": all(torch.equal(p, q) for p, q in zip(outs[0], out)),
                        "card": card}
                 if hasattr(R.kernels, "STAMPS"):
                     row["phases_us"] = stamped_split(R.kernels, fn, kernel, plan.grid, dev)
+                    if args.fill:
+                        row["round_0_us"] = stamped_split(R.kernels, fn, kernel, plan.grid, dev,
+                                                          rounds=[0])
                 print(json.dumps(row, allow_nan=False), flush=True)
         if args.sweep:
             sweep(roots[0], H, dev, args.reps, card)

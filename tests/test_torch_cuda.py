@@ -1316,3 +1316,163 @@ def test_the_stripes_dot_rejects_an_unaligned_n(cuda, n):
     with pytest.raises(ValueError, match="dot-aligned"):
         solve_multiround(H, EPS, MAX_ITR, formulation="dot")
     assert tk.multiround.launches == before
+
+
+# --- the mixed formulation and the pipelined fill of the triangle kernel ---------
+
+MIXED_MODES = {"triangle": dict(sym=True), "dense tiled": dict(sym=False)}
+
+
+def _pipelined(n, c, sym, mixed=False, mxu_tiles=None):
+    """The largest cache up to ``c`` that the pipelined fill's depth rule
+    (the JAX kernel's, ``kernels.pipelined_depth``) accepts."""
+    def depth(c):
+        m = tk.mxu_share(n, 128, c, sym, mxu_tiles) if mixed else 0
+        return tk.pipelined_depth(n, 128, c, sym, m)
+    while c and depth(c) > tk.PIPELINED_DEPTH:
+        c -= 1
+    return c
+
+
+def _caches(n, sym, dt, cuda):
+    """A cache with fewer resident tiles than the grid has blocks, and one
+    with more (the card's auto cache where that is more)."""
+    g = n // 128
+    most = g * (g - 1) // 2 if sym else g * g - 1
+    auto = sym_auto_cache_tiles(n, 128, cuda, sym=sym, itemsize=dt.itemsize)
+    return sorted({min(3, most), max(min(most, 200), auto)})
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("mode", sorted(MIXED_MODES))
+@pytest.mark.parametrize("n", [256, 2048, 8192])
+def test_mixed_kernel_matches_its_plain_version(cuda, n, mode, dt):
+    H = tfx.hilbert_matrix(n, device=cuda)
+    R = 1 + 0.25 * torch.rand(n, n, generator=torch.Generator().manual_seed(n)).to(cuda)
+    if mode == "triangle":
+        R = (R + R.T) / 2
+    A = (H * R).to(dt)
+    del R
+    ev, z = torch.ones(n, device=cuda), torch.zeros((), device=cuda)
+    for c in _caches(n, MIXED_MODES[mode]["sym"], dt, cuda):
+        for mxu in (None, 1):
+            state = (ev, ev, z)
+            for init in (True, False):
+                kw = dict(chunk=5, eps=EPS, init=init, cache_tiles=c, formulation="mixed",
+                          mxu_tiles=mxu, **MIXED_MODES[mode])
+                before = tk.multiround_sym.launches
+                got = tk.multiround_sym(A, *state, MAX_ITR, **kw)
+                want = tk.multiround_sym_plain(A, *state, MAX_ITR, **kw)
+                torch.cuda.synchronize()
+                assert tk.multiround_sym.launches == before + 1
+                assert int(got[2]) == int(want[2])
+                # the tensor cores' order of the products is their own: within
+                # f32 rounding of the plain 3xTF32 product (dot: 3.6-4.5e-6)
+                for g, w in ((got[0], want[0]), (got[1], want[1])):
+                    assert float((g - w).abs().max()) <= 1e-5
+                torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=0)
+                state = (got[0], got[1], got[3])
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", sorted(MIXED_MODES))
+@pytest.mark.parametrize("n", [256, 2048])
+def test_mixed_with_no_tensor_core_tile_is_vpu_bit_for_bit(cuda, n, mode, dt):
+    H = tfx.hilbert_matrix(n, device=cuda).to(dt)
+    sym = MIXED_MODES[mode]["sym"]
+    for c in _caches(n, sym, dt, cuda):
+        kw = dict(cache_tiles=c, symmetric=sym)
+        _same(solve_multiround(H, EPS, MAX_ITR, formulation="mixed", mxu_tiles=0, **kw),
+              solve_multiround(H, EPS, MAX_ITR, **kw))
+
+
+@pytest.mark.parametrize("variant", ["mixed", "pipelined"])
+def test_the_two_variants_keep_the_hilbert_table(cuda, variant):
+    kw = dict(formulation="mixed") if variant == "mixed" else dict(fill_mode="pipelined")
+    for n, rounds in tfx.HILBERT_ROUNDS.items():
+        H = tfx.hilbert_matrix(n, device=cuda)
+        c = sym_auto_cache_tiles(n, 128, cuda)
+        if variant == "pipelined":
+            c = _pipelined(n, c, True)
+        if c == 0:  # 128²: one tile, none resident; JAX refuses too
+            with pytest.raises(ValueError, match="cache_tiles > 0"):
+                solve_multiround(H, EPS, MAX_ITR, symmetric=True, cache_tiles=1, **kw)
+            continue
+        res = solve_multiround(H, EPS, MAX_ITR, symmetric=True, cache_tiles=c, **kw)
+        assert int(res.rounds) == rounds and bool(res.converged)
+        vpu = solve_multiround(H, EPS, MAX_ITR, symmetric=True)
+        assert float(res.eigenvalue) == pytest.approx(float(vpu.eigenvalue), rel=1e-5)
+        for chunk in (1, 5):
+            _same(solve_multiround(H, EPS, MAX_ITR, symmetric=True, cache_tiles=c, chunk=chunk,
+                                   **kw), res)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("formulation", ["vpu", "dot", "mixed"])
+@pytest.mark.parametrize("n", [2048, 8192])
+def test_the_pipelined_fill_is_the_prologue_fill_bit_for_bit(cuda, n, formulation, dt):
+    H = tfx.hilbert_matrix(n, device=cuda).to(dt)
+    ev, z = torch.ones(n, device=cuda), torch.zeros((), device=cuda)
+    for sym in (True, False):
+        auto = sym_auto_cache_tiles(n, 128, cuda, sym=sym, itemsize=dt.itemsize,
+                                    ring=formulation == "vpu")
+        for c in sorted({5, _pipelined(n, auto, sym, formulation == "mixed")}):
+            kw = dict(cache_tiles=c, sym=sym, formulation=formulation, eps=EPS)
+            for chunk, init in ((5, True), (MAX_ITR + 1, True)):
+                a = tk.multiround_sym(H, ev, ev, z, MAX_ITR, chunk=chunk, init=init, **kw)
+                b = tk.multiround_sym(H, ev, ev, z, MAX_ITR, chunk=chunk, init=init,
+                                      fill_mode="pipelined", **kw)
+                assert all(torch.equal(p, q) for p, q in zip(a, b))
+            # a launch whose rounds stop at round 0, its copies in flight
+            ev_s, v_s, _, lam = a
+            stopped = [tk.multiround_sym(H, ev_s, v_s, lam, MAX_ITR, chunk=5, fill_mode=fm, **kw)
+                       for fm in ("prologue", "pipelined")]
+            torch.cuda.synchronize()
+            assert int(stopped[1][2]) == 0
+            assert all(torch.equal(p, q) for p, q in zip(*stopped))
+            assert torch.equal(stopped[1][0], ev_s) and torch.equal(stopped[1][1], v_s)
+
+
+def test_the_two_variants_do_not_read_below_the_block_diagonal(cuda):
+    n = 2048
+    H = tfx.hilbert_matrix(n, device=cuda)
+    bad = torch.where(_below_block_diagonal(n, 128, cuda), torch.full_like(H, 7.25), H)
+    auto = sym_auto_cache_tiles(n, 128, cuda)
+    for kw in (dict(formulation="mixed"), dict(fill_mode="pipelined"),
+               dict(formulation="mixed", fill_mode="pipelined", mxu_tiles=2)):
+        c = auto if "fill_mode" not in kw else _pipelined(
+            n, auto, True, "formulation" in kw, kw.get("mxu_tiles"))
+        _same(solve_multiround(bad, EPS, MAX_ITR, symmetric=True, cache_tiles=c, **kw),
+              solve_multiround(H, EPS, MAX_ITR, symmetric=True, cache_tiles=c, **kw))
+
+
+@pytest.mark.parametrize("kw", [dict(formulation="mixed"), dict(formulation="mixed", mxu_tiles=2),
+                                dict(fill_mode="pipelined"),
+                                dict(formulation="mixed", fill_mode="pipelined")])
+def test_the_jax_hardware_cases_of_the_two_variants(cuda, kw):
+    """tests/test_tpu_hw.py's cases at 2048², cache 4, at tile 128 (a 512²
+    f32 tile does not fit a block's shared memory)."""
+    n = 2048
+    H = tfx.hilbert_matrix(n, device=cuda)
+    res = solve_multiround(H, EPS, MAX_ITR, chunk=tfx.HILBERT_ROUNDS[n] + 1, symmetric=True,
+                           tile=128, cache_tiles=4, **kw)
+    assert int(res.rounds) == tfx.HILBERT_ROUNDS[n] and bool(res.converged)
+    v = res.eigenvector.double()
+    assert float((H.double() @ v - res.eigenvalue.double() * v).abs().max()) <= 1e-3
+
+
+def test_the_pipelined_fill_refuses_a_misaligned_matrix(cuda):
+    # a bf16 A 8 bytes off a 16-byte boundary: aligned to four elements, as
+    # the loads need, but not for a bulk copy; "mixed" has no ring, so only
+    # the fill asks for the bulk copies
+    n = 256
+    buf = torch.empty(n * n + 4, dtype=torch.bfloat16, device=cuda)
+    A = buf[4:].view(n, n)
+    A.copy_(tfx.hilbert_matrix(n, device=cuda))
+    ev = torch.ones(n, device=cuda)
+    kw = dict(chunk=2, eps=EPS, cache_tiles=1, formulation="mixed")
+    tk.multiround_sym(A, ev, ev, 0.0, 10, **kw)
+    before = tk.multiround_sym.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tk.multiround_sym(A, ev, ev, 0.0, 10, fill_mode="pipelined", **kw)
+    assert tk.multiround_sym.launches == before

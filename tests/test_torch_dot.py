@@ -229,13 +229,19 @@ def test_stripes_dot_rejects_what_jax_rejects(n):
 
 @pytest.mark.parametrize("kw", [
     dict(symmetric=True, formulation="mixed", cache_tiles=4),
-    dict(symmetric=True, cache_tiles=4, mxu_tiles=2),
+    dict(symmetric=True, cache_tiles=4, formulation="mixed", mxu_tiles=2),
     dict(symmetric=True, cache_tiles=4, fill_mode="pipelined"),
     dict(symmetric=True, cache_tiles=4, formulation="dot", fill_mode="pipelined"),
 ])
 def test_unported_variants_name_the_roadmap(kw):
-    with pytest.raises(ValueError, match="ROADMAP"):
-        solve_multiround(tfx.hilbert_matrix(512), EPS, MAX_ITR, tile=128, **kw)
+    # once rejected as not ported (the name is kept); "mixed", mxu_tiles and
+    # the pipelined fill now run and agree with JAX's interpret-mode solve
+    got = solve_multiround(tfx.hilbert_matrix(512), EPS, MAX_ITR, tile=128, **kw)
+    want = jax_multiround(jfx.hilbert_matrix(512), EPS, MAX_ITR, interpret=True, tile=128,
+                          chunk=18, **kw)
+    assert int(got.rounds) == int(want.rounds) == tfx.HILBERT_ROUNDS[512]
+    assert bool(got.converged) and bool(want.converged)
+    assert float(got.eigenvalue) == pytest.approx(float(want.eigenvalue), rel=1e-5)
 
 
 @pytest.mark.parametrize("kw", [dict(formulation="bogus"), dict(formulation="mixed"),

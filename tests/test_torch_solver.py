@@ -17,6 +17,7 @@ from eigen_value_tpu import SolverConfig as JaxConfig  # noqa: E402
 from eigen_value_tpu import fixtures as jfx  # noqa: E402
 from eigen_value_tpu.ops.solver_matvec import solve_matvec as jax_solve_matvec  # noqa: E402
 from eigen_value_tpu.ops.solver_matvec import solve_matvec_pallas  # noqa: E402
+from eigen_value_tpu.ops.solver_matvec import solve_multiround as jax_solve_multiround  # noqa: E402
 import eigen_value_tpu_torch as evt  # noqa: E402
 from eigen_value_tpu_torch import fixtures as tfx  # noqa: E402
 from eigen_value_tpu_torch import api  # noqa: E402
@@ -197,12 +198,19 @@ def test_not_ported_errors_name_the_roadmap():
     # mesh names the dimension it lacks
     with pytest.raises(ValueError, match="mesh has no 'rows' axis"):
         _reject_cases()["mesh"]()
+    # "mixed" and the pipelined fill are ported; what is left are JAX's own
+    # errors: both need a resident tile, and at 128² (one tile) a cache
+    # request clamps to none
     H = tfx.hilbert_matrix(128)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        solve_multiround(H, EPS, MAX_ITR, symmetric=True, formulation="mixed")
-    with pytest.raises(ValueError, match="ROADMAP"):
-        solve_multiround(H, EPS, MAX_ITR, symmetric=True, cache_tiles=1,
-                         fill_mode="pipelined")
+    for kw in (dict(formulation="mixed"), dict(cache_tiles=1, fill_mode="pipelined")):
+        with pytest.raises(ValueError, match="cache_tiles > 0"):
+            solve_multiround(H, EPS, MAX_ITR, symmetric=True, **kw)
+        with pytest.raises(ValueError, match="cache_tiles > 0"):
+            jax_solve_multiround(jfx.hilbert_matrix(128), EPS, MAX_ITR, interpret=True,
+                                 symmetric=True, tile=128, **kw)
+    H = tfx.hilbert_matrix(256)
+    res = solve_multiround(H, EPS, MAX_ITR, symmetric=True, cache_tiles=1, fill_mode="pipelined")
+    assert int(res.rounds) == tfx.HILBERT_ROUNDS[256] and bool(res.converged)
 
 
 def test_symmetric_under_auto_is_consumed_by_the_dense_solve():

@@ -245,9 +245,9 @@ def test_multiround_sym_wrapper_rejects():
     call = lambda **kw: tk.multiround_sym(H, ev, ev, 0.0, 10, **{"chunk": 2, "eps": EPS, **kw})  # noqa: E731
     for kw, match in [
         (dict(formulation="bogus"), "unknown formulation"),
-        (dict(formulation="mixed", cache_tiles=2), "ROADMAP"),
-        (dict(cache_tiles=2, mxu_tiles=1), "ROADMAP"),
-        (dict(cache_tiles=2, fill_mode="pipelined"), "ROADMAP"),
+        (dict(formulation="mixed"), "cache_tiles > 0"),
+        (dict(cache_tiles=2, mxu_tiles=1), "only meaningful"),
+        (dict(fill_mode="pipelined"), "cache_tiles > 0"),
         (dict(cache_tiles=2, fill_mode="bogus"), "unknown fill_mode"),
         (dict(chunk=0), "chunk"),
         (dict(eps_mode="rel"), "eps_mode"),
@@ -258,6 +258,12 @@ def test_multiround_sym_wrapper_rejects():
     with pytest.raises(ValueError, match="128-aligned"):
         tk.multiround_sym(tfx.hilbert_matrix(96), torch.ones(96), torch.ones(96), 0.0, 10,
                           chunk=2, eps=EPS)
+    # the ported variants run (tests/test_torch_mixed.py holds them to JAX)
+    base = call(init=True)
+    for kw in (dict(cache_tiles=1, mxu_tiles=0, formulation="mixed"),
+               dict(cache_tiles=1, fill_mode="pipelined")):
+        assert all(torch.equal(a, b) for a, b in zip(call(init=True, **kw), base))
+    assert int(call(init=True, formulation="mixed", cache_tiles=1)[2]) == int(base[2]) == 1
     with pytest.raises(ValueError, match="shape"):
         tk.multiround_sym(H, torch.ones(255), ev, 0.0, 10, chunk=2, eps=EPS)
     with pytest.raises(ValueError, match="float32"):
