@@ -1181,25 +1181,34 @@ def dot_phase(dev, mats, same, reset_counts, read_counts, card) -> dict:
     H = mats[n]
     bf16 = torch.bfloat16
 
-    # --- 10a. the card's split is kernels.tf32_split, bit for bit ---
+    # --- 10a. the kernels' split (integer rounding) and cvt.rna are
+    # kernels.tf32_split, bit for bit ---
     gen = torch.Generator().manual_seed(SEED + 13)
     bits = torch.randint(0, 1 << 16, (1 << 20, 2), generator=gen, dtype=torch.int32)
     words = (bits[:, 0] << 16) | bits[:, 1]
     picked = torch.tensor([0x3F801000, -0x407FF000, 0x3F800FFF, 0x3F803000, 0x00001000,
                            0x00000FFF, 0x007FFFFF, 0x00800000, 0x3F810000], dtype=torch.int32)
     x = torch.cat([picked, words]).view(torch.float32)
-    x = x[torch.isfinite(x) & (x.abs() < 3.4e38)].contiguous()
+    x = x[torch.isfinite(x) & (x.abs() < 3.4e38)]
+    # ±0, subnormals and the largest finite values
+    edge = torch.tensor([0x00000000, 0x80000000, 0x00000001, 0x80000001, 0x807FF000, 0x807FFFFF,
+                         0x7F7FEFFF, 0x7F7FF000, 0xFF7FF000, 0x7F7FFFFF, 0xFF7FFFFF],
+                        dtype=torch.int64).to(torch.int32).view(torch.float32)
+    x = torch.cat([x, edge]).contiguous()
     xd = x.to(dev)
-    big = torch.empty(x.numel(), dtype=torch.int32, device=dev)
-    small = torch.empty_like(big)
-    check(build.load().evt_tf32_split(xd.data_ptr(), big.data_ptr(), small.data_ptr(),
-                                      x.numel(), torch.cuda.current_stream().cuda_stream) == 0,
-          "evt_tf32_split launch")
     want_big, want_small = kernels.tf32_split(x)
-    ok = (torch.equal(big.cpu(), want_big.view(torch.int32))
-          and torch.equal(small.cpu(), want_small.view(torch.int32)))
-    say(f"cvt.rna on the card against kernels.tf32_split, {x.numel()} values: bit-identical {ok}")
-    check(ok, "kernels.tf32_split is not the card's cvt.rna")
+    for cvt, what in ((0, "the kernels' integer rounding"), (1, "cvt.rna")):
+        big = torch.empty(x.numel(), dtype=torch.int32, device=dev)
+        small = torch.empty_like(big)
+        check(build.load().evt_tf32_split(xd.data_ptr(), big.data_ptr(), small.data_ptr(),
+                                          x.numel(), cvt,
+                                          torch.cuda.current_stream().cuda_stream) == 0,
+              "evt_tf32_split launch")
+        ok = (torch.equal(big.cpu(), want_big.view(torch.int32))
+              and torch.equal(small.cpu(), want_small.view(torch.int32)))
+        say(f"{what} on the card against kernels.tf32_split, {x.numel()} values: "
+            f"bit-identical {ok}")
+        check(ok, f"kernels.tf32_split is not the card's {what}")
 
     # --- 10b. one launch of each dot kernel against its plain version ---
     auto = sym_auto_cache_tiles(n, bt, dev)
@@ -1319,14 +1328,22 @@ def dot_phase(dev, mats, same, reset_counts, read_counts, card) -> dict:
             check(ok, f"dot triangle cache {c} chunk={chunk} changed the result")
     H_q = H.to(bf16)
     # each at its own auto cache (the f32 tiles take twice the room; no cache
-    # changes the bits)
-    for k, kw_q, kw_f in (("stripes", {}, {}),
-                          ("triangle", dict(symmetric=True, cache_tiles=auto_q),
-                           dict(symmetric=True, cache_tiles=auto))):
-        ok = same(solve_multiround(H_q, evt.EPS, evt.MAX_ITR, formulation="dot", **kw_q),
-                  solve_multiround(H_q.float(), evt.EPS, evt.MAX_ITR, formulation="dot", **kw_f))
-        say(f"dot {k} on A_q (bf16) vs A_q.float(): bit-identical {ok}")
-        check(ok, f"dot {k}: A_q differs from A_q.float()")
+    # changes the bits).  A 2-byte A skips its split and the a_small product,
+    # which the f32 launch on A_q.float() takes (its small parts are 0)
+    for dq in (bf16, torch.float16):
+        A_q = H.to(dq)
+        for k, kw_q, kw_f in (("stripes", {}, {}),
+                              ("triangle", dict(symmetric=True, cache_tiles=auto_q),
+                               dict(symmetric=True, cache_tiles=auto)),
+                              ("dense tiled", dict(cache_tiles=auto_q),
+                               dict(cache_tiles=auto_dense))):
+            ok = same(solve_multiround(A_q, evt.EPS, evt.MAX_ITR, formulation="dot", **kw_q),
+                      solve_multiround(A_q.float(), evt.EPS, evt.MAX_ITR, formulation="dot",
+                                       **kw_f))
+            say(f"dot {k} on A_q ({dq}) vs A_q.float(): bit-identical {ok}")
+            check(ok, f"dot {k}: A_q ({dq}) differs from A_q.float()")
+        del A_q
+    H_h = H.to(torch.float16)
 
     # --- 10e. times: whole-budget launches, each dot instance beside its vpu one ---
     whole = dict(chunk=evt.MAX_ITR + 1, eps=evt.EPS, init=True)
@@ -1346,6 +1363,16 @@ def dot_phase(dev, mats, same, reset_counts, read_counts, card) -> dict:
             H_q, x1, x1, z, evt.MAX_ITR, cache_tiles=auto_q_vpu, **whole),
         "multiround_sym bf16 dot": lambda: kernels.multiround_sym(
             H_q, x1, x1, z, evt.MAX_ITR, cache_tiles=auto_q, formulation="dot", **whole),
+        "multiround f16 dot": lambda: kernels.multiround(H_h, x1, x1, z, evt.MAX_ITR,
+                                                         formulation="dot", **whole),
+        "multiround_sym f16 dot": lambda: kernels.multiround_sym(
+            H_h, x1, x1, z, evt.MAX_ITR, cache_tiles=auto_q, formulation="dot", **whole),
+        "dense tiled vpu": lambda: kernels.multiround_sym(H, x1, x1, z, evt.MAX_ITR,
+                                                          cache_tiles=auto_dense, sym=False,
+                                                          **whole),
+        "dense tiled dot": lambda: kernels.multiround_sym(H, x1, x1, z, evt.MAX_ITR,
+                                                          cache_tiles=auto_dense, sym=False,
+                                                          formulation="dot", **whole),
     }
     ms = interleaved_ms(timed, reps=12)
     passes = int(timed["multiround dot"]()[2]) + 1
@@ -1359,7 +1386,8 @@ def dot_phase(dev, mats, same, reset_counts, read_counts, card) -> dict:
         f"interleaved; triangle f32 cache {auto}, bf16 vpu cache {auto_q_vpu}, bf16 dot cache "
         f"{auto_q}):")
     for k, v in ms.items():
-        say(f"  {k}: {v:.4f} ms")
+        vpu = ms.get(k.replace(" dot", " vpu").replace(" f16", " bf16"))
+        say(f"  {k}: {v:.4f} ms" + (f" ({v / vpu:.2f}x vpu)" if " dot" in k and vpu else ""))
     say(f"  plain versions (formulation='dot', f32): multiround {plain['multiround']:.4f} ms, "
         f"multiround_sym {plain['multiround_sym']:.4f} ms")
     return {"launches": launches, "err": err, "ms": ms, "plain_ms": plain, "passes": passes,

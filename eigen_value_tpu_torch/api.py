@@ -613,9 +613,9 @@ class EigenValue:
         dtype = self.config.dtype if dtype is None else dtype
         if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
             raise ValueError(f"dtype must be a torch floating dtype, got {dtype!r}")
-        dev = self.device
-        if dev is None:  # where host input would go
-            dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        # where host input goes: the card, or an error without one unless
+        # device="cpu" was asked for (a solve's own rule)
+        dev = solve_device(self.device)
         if dev.type == "cuda" and dev.index is None:  # the plans are kept per card
             dev = torch.device("cuda", torch.cuda.current_device())
         for n in dims:

@@ -75,6 +75,18 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
 // The 2-D tile of a tensor map (`tmap`, a __grid_constant__ parameter)
 // whose first element is column x, row y, into `dst` (128-byte aligned) in
 // the map's box layout: its rows one after another.
+// Asks the L2 for `bytes` (a multiple of 16) of device memory from src on,
+// with an L2 policy; nothing waits for it.  The copy engine takes 16-byte
+// units, so where src is only 8-byte aligned (a row of a 2-byte A) the unit
+// that holds it is the first one asked for.
+__device__ __forceinline__ void bulk_prefetch_l2(const void* src, unsigned bytes,
+                                                 unsigned long long policy) {
+  const unsigned long long a = reinterpret_cast<unsigned long long>(src);
+  asm volatile("cp.async.bulk.prefetch.L2.global.L2::cache_hint [%0], %1, %2;" ::"l"(a & ~15ull),
+               "r"(bytes + (a & 15u ? 16u : 0u)), "l"(policy)
+               : "memory");
+}
+
 __device__ __forceinline__ void tensor_copy_2d(void* dst, const void* tmap, int x, int y,
                                                unsigned long long* bar,
                                                unsigned long long policy) {

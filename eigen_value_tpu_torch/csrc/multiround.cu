@@ -84,18 +84,31 @@
 // row_dot's fmaf chains, as the TPU kernel's formulation="dot" contracts a
 // row stripe on its matrix unit (kernels.py:546-554).  It reads the same
 // resident rows, L2 band and streamed rows with the same policies, so it
-// moves the same bytes as the register path.  A work item is 16 of the
-// block's rows (k = 16 rg .. 16 rg + 15, the m16 of the unit; rows past
+// moves the same bytes as the register path.  A work item is 16 of a
+// block's rows (k = 16 grp .. 16 grp + 15, the m16 of the unit; rows past
 // the block's last give zeros and are not read) times one of kDotSegments
-// column segments (n / 8 columns, so that at n = 8192 the 4 row groups of a
-// block give its 16 warps two items each; the dot instance runs kDotThreads
-// threads of up to 128 registers).  A lane reads four consecutive columns of
+// column segments (n / 8 columns: at n = 8192 the 4 row groups of a block
+// make 32 items for its 16 warps; the dot instance runs kDotThreads
+// threads of up to 128 registers).  The groups that hold a block's resident
+// rows are its own; where a block has a row group's worth of rows from
+// device memory, every other item is in one pool for the grid, claimed by
+// an atomic counter a round, because at 8192^2 the blocks' stream times
+// were fixed by where they ran (95.7-111.0 us a round, the slowest in runs
+// of four block indices, the same in two launches; PERF.md §6), and the
+// round waited for the slowest.  A lane reads four consecutive columns of
 // its rows g and g + 8 (16 bytes of f32, 8 of bf16 / f16), two f32 or four
 // 2-byte 16-column regions a batch; the warp chains the unit's
 // products over each 128 columns in four interleaved chains and adds the
-// 128-column sums in order in f32 (dot_segment says why).  Lanes 4g write the segment's
+// 128-column sums in order in f32 (dot_segment says why).  A warp holds
+// few loads in flight (16 warps of 128 registers) and waits on memory
+// more than it issues, so: each load asks the L2 for its 128-byte
+// unit (ld's prefetch-size hint), the warp asks the L2 for its rows' next
+// 128-column block while it works on one (a bulk prefetch a row, with the
+// row's policy), and in f32 the next batch's loads go out before this
+// batch's products.  Lanes 4g write the segment's
 // sums of rows g and g + 8 to `part` (kDotSegments * n floats); after a
-// block barrier the block adds the segments of each of its rows in order,
+// grid barrier (a block barrier without the pool) each block adds the
+// segments of each of its rows in order,
 // s = 0 .. 7, into the raw row sums, and the round goes on as in the other
 // instances.  Every row's sum is the same chain of products and the same
 // order of segments whichever block, warp or group holds it and wherever
@@ -106,7 +119,8 @@
 // the sums are not row_dot's: a dot solve agrees with a vpu solve in rounds
 // and within rounding (the TPU kernel's contract between its formulations).
 // n % 128 == 0 (the TPU kernel's "dot" stripe alignment; the wrapper checks).
-// No atomics anywhere: the results are bitwise reproducible.
+// The only atomic is the dot pool's counter, which decides who computes an
+// item and not how: the results are bitwise reproducible.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -146,7 +160,13 @@ struct DotRow {
 
   __device__ __forceinline__ Chunk operator()(int c) const {
     if (where == 0) return Chunk{};
-    return where == 1 ? p[c] : evt::FromGlobalHinted{policy}(p + c);
+    return where == 1 ? p[c] : evt::FromGlobalAhead<128>{policy}(p + c);
+  }
+
+  // Asks the L2 for the 128 elements from chunk c on, with the row's policy,
+  // where the row lies in device memory.
+  __device__ __forceinline__ void prefetch(int c) const {
+    if (where == 2) evt::bulk_prefetch_l2(p + c, 128 * sizeof(T), policy);
   }
 };
 
@@ -167,39 +187,73 @@ __device__ __forceinline__ void dot_segment(const DotRow<T>& lo, const DotRow<T>
                                             float (&s)[2]) {
   using E = evt::Elem<T>;
   using Chunk = typename E::Chunk;
+  constexpr bool kExact = sizeof(T) < sizeof(float);  // a 2-byte A is exact in TF32
   constexpr int kRegions = kDotBlock / 16;
   // 16-column regions whose loads are issued together: two f32 ones (16
   // registers a lane) or four 2-byte ones; a whole block is unrolled, so the
   // compiler may issue the next regions' loads before this one's products
   constexpr int kB = sizeof(Chunk) == sizeof(float4) ? 2 : 4;
+  // f32: the next batch's loads go out before this batch's products
+  // (measured at 8192^2 it took the stream phase 97 -> 92 us a round at 28
+  // bytes of spill; the 2-byte instances lost 6% by it)
+  constexpr bool kPipe = !kExact;
   const int t = lane & 3;
   const float4* e4 = reinterpret_cast<const float4*>(ev_s);
   s[0] = s[1] = 0.0f;
+  Chunk x[kB], y[kB];  // the batch in hand: the first one of the segment
+  if (kPipe && c0 + kDotBlock <= c1) {
+#pragma unroll
+    for (int u = 0; u < kB; ++u) {
+      x[u] = lo((c0 >> 2) + 4 * u + t);
+      y[u] = hi((c0 >> 2) + 4 * u + t);
+    }
+  }
   for (int b0 = c0; b0 < c1; b0 += kDotBlock) {
+    // the next block's rows from device memory into L2 while this one runs:
+    // a warp holds too few loads in flight to cover the latency of device
+    // memory (PERF.md §6)
+    if (b0 + kDotBlock < c1 && t == 0) {  // lane (g, 0) for rows g and g + 8
+      lo.prefetch((b0 + kDotBlock) >> 2);
+      hi.prefetch((b0 + kDotBlock) >> 2);
+    }
     float d[kDotAcc][4];
 #pragma unroll
     for (int a = 0; a < kDotAcc; ++a) d[a][0] = d[a][1] = d[a][2] = d[a][3] = 0.0f;
     if (b0 + kDotBlock <= c1) {
 #pragma unroll
       for (int u0 = 0; u0 < kRegions; u0 += kB) {
-        Chunk x[kB], y[kB];
+        // kPipe: the next batch (the first of the next full block after the
+        // last of this one) into nx, ny; else this batch into x, y
+        const int nb = !kPipe || u0 + kB < kRegions ? b0 : b0 + kDotBlock;
+        const int nu = !kPipe ? u0 : u0 + kB < kRegions ? u0 + kB : 0;
+        Chunk nx[kB], ny[kB];
+        if (nb + kDotBlock <= c1) {
 #pragma unroll
-        for (int u = 0; u < kB; ++u) {
-          const int q = (b0 >> 2) + 4 * (u0 + u) + t;
-          x[u] = lo(q);
-          y[u] = hi(q);
+          for (int u = 0; u < kB; ++u) {
+            const int q = (nb >> 2) + 4 * (nu + u) + t;
+            (kPipe ? nx : x)[u] = lo(q);
+            (kPipe ? ny : y)[u] = hi(q);
+          }
         }
 #pragma unroll
         for (int u = 0; u < kB; ++u)
-          evt::mma_rows16(d[(u0 + u) % kDotAcc], E::up(x[u]), E::up(y[u]),
-                          e4[(b0 >> 2) + 4 * (u0 + u) + t], lane);
+          evt::mma_rows16<kExact>(d[(u0 + u) % kDotAcc], evt::tf32_split4<kExact>(E::up(x[u])),
+                                  evt::tf32_split4<kExact>(E::up(y[u])),
+                                  evt::tf32_split4(e4[(b0 >> 2) + 4 * (u0 + u) + t]));
+#pragma unroll
+        for (int u = 0; u < kB && kPipe; ++u) {
+          x[u] = nx[u];
+          y[u] = ny[u];
+        }
       }
     } else {  // a segment shorter than a block (n < 1024)
 #pragma unroll
       for (int u = 0; u < kRegions; ++u) {
         if (b0 + 16 * u < c1) {
           const int q = (b0 >> 2) + 4 * u + t;
-          evt::mma_rows16(d[u % kDotAcc], E::up(lo(q)), E::up(hi(q)), e4[q], lane);
+          evt::mma_rows16<kExact>(d[u % kDotAcc], evt::tf32_split4<kExact>(E::up(lo(q))),
+                                  evt::tf32_split4<kExact>(E::up(hi(q))),
+                                  evt::tf32_split4(e4[q]));
         }
       }
     }
@@ -282,7 +336,7 @@ __global__ void __launch_bounds__(kDot ? kDotThreads : kThreads) multiround_kern
     int budget, float* __restrict__ ev_out, float* __restrict__ v_out,
     int* __restrict__ adv_out, float* __restrict__ lam_out,
     float* __restrict__ raw, int n, int chunk, float eps, int init, int rel,
-    int resident, int l2_rows, int ring, float* __restrict__ part,
+    int resident, int l2_rows, int ring, float* __restrict__ part, int* __restrict__ work,
     unsigned long long* stamps) {
   static_assert(!(kRing && kDot), "the dot formulation has no ring");
   constexpr int kT = kDot ? kDotThreads : kThreads, kW = kT / 32;
@@ -371,31 +425,66 @@ __global__ void __launch_bounds__(kDot ? kDotThreads : kThreads) multiround_kern
     evt::stamp(stamps, r, 1, false);
     float* out = raw + static_cast<size_t>(r & 1) * n;
     if constexpr (kDot) {
+      // A work item: row group grp (rows k = 16 grp .. 16 grp + 15) of block
+      // bb times column segment s.  Where a block has a row group's worth
+      // of rows from device memory, the groups that hold resident rows (the
+      // first `pinned`) are the block's own and every later group of every
+      // block is in one pool, items claimed in turn from the round's
+      // counter; else every group is the block's own (at 4096^2 the pool's
+      // barrier and claims cost 12%)
       const int seg = n / kDotSegments, g8 = lane >> 2;
-      for (int e = warp; e < (nrows + kDotRows - 1) / kDotRows * kDotSegments; e += kW) {
-        const int rg = e / kDotSegments, s = e - rg * kDotSegments;
+      const int most = (n - 1) / G + 1;  // block 0's rows, the most
+      const int groups = (most + kDotRows - 1) / kDotRows;
+      const bool pooled = most - resident - l2_rows >= kDotRows;
+      const int pinned = pooled ? (resident + kDotRows - 1) / kDotRows : groups;
+      const int pool = max(0, groups - pinned) * G * kDotSegments;
+      const int own = min(pinned, (nrows + kDotRows - 1) / kDotRows) * kDotSegments;
+      for (int e = warp;;) {
+        int bb = b, grp, s;
+        if (e < own) {
+          grp = e / kDotSegments;
+          s = e - grp * kDotSegments;
+          e += kW;
+        } else {
+          int i = 0;
+          if (lane == 0) i = atomicAdd(work + (r & 1), 1);
+          i = __shfl_sync(0xffffffffu, i, 0);
+          if (i >= pool) break;
+          grp = pinned + i / (G * kDotSegments);
+          i -= (grp - pinned) * G * kDotSegments;
+          bb = i / kDotSegments;
+          s = i - bb * kDotSegments;
+        }
+        const int brows = bb < n ? (n - 1 - bb) / G + 1 : 0;  // block bb's rows
+        const int bres = min(resident, brows);  // its resident ones (bb == b only)
+        if (grp * kDotRows >= brows) continue;
         DotRow<T> rows2[2];
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int k = rg * kDotRows + g8 + 8 * h;
-          const int row = b + k * G;
+          const int k = grp * kDotRows + g8 + 8 * h;
           DotRow<T>& w = rows2[h];
-          w.where = k >= nrows ? 0 : k < nres ? 1 : 2;
+          w.where = k >= brows ? 0 : k < bres ? 1 : 2;
           w.p = reinterpret_cast<const Chunk*>(
-              k < nres ? rows_s + static_cast<size_t>(k) * n
-                       : A + static_cast<size_t>(k < nrows ? row : b) * n);
-          w.policy = k - nres < l2_rows ? keep.policy : pass.policy;
+              k < bres ? rows_s + static_cast<size_t>(k) * n
+                       : A + static_cast<size_t>(bb + (k < brows ? k : 0) * G) * n);
+          w.policy = k - bres < l2_rows ? keep.policy : pass.policy;
         }
         float sums[2];
         dot_segment<T>(rows2[0], rows2[1], ev_s, s * seg, (s + 1) * seg, lane, sums);
         if ((lane & 3) == 0) {
-          float* dst = part + static_cast<size_t>(s) * n + b;
-          const int k = rg * kDotRows + g8;
-          if (k < nrows) __stcg(dst + static_cast<size_t>(k) * G, sums[0]);
-          if (k + 8 < nrows) __stcg(dst + static_cast<size_t>(k + 8) * G, sums[1]);
+          float* dst = part + static_cast<size_t>(s) * n + bb;
+          const int k = grp * kDotRows + g8;
+          if (k < brows) __stcg(dst + static_cast<size_t>(k) * G, sums[0]);
+          if (k + 8 < brows) __stcg(dst + static_cast<size_t>(k + 8) * G, sums[1]);
         }
       }
-      __syncthreads();  // the block's segments are written (read back through L2)
+      // every item of the round is written (read back through L2)
+      if (pooled) {
+        grid.sync();
+        if (b == 0 && tid == 0) work[(r + 1) & 1] = 0;  // the next round's counter
+      } else {
+        __syncthreads();
+      }
       for (int k = tid; k < nrows; k += kT) {
         const int row = b + k * G;
         float acc = __ldcg(part + row);
@@ -486,26 +575,35 @@ int blocks(int n, int resident, int ring, int dot) {
   return per_sm * sms;
 }
 
-// The dot formulation's split of x[0 .. n - 1] as the card makes it (a test
-// of kernels.tf32_split, its plain version).
+// The dot formulation's split of x[0 .. n - 1] as the kernels make it (the
+// integer rounding), or by cvt.rna.tf32.f32 (`cvt`): a test of both against
+// kernels.tf32_split, their plain version.
 __global__ void tf32_split_kernel(const float* __restrict__ x, unsigned* __restrict__ big,
-                                  unsigned* __restrict__ small, int n) {
+                                  unsigned* __restrict__ small, int n, int cvt) {
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-    const evt::Tf32Pair p = evt::tf32_split(x[i]);
-    big[i] = p.big;
-    small[i] = p.small;
+    if (cvt) {
+      const unsigned b = evt::tf32_cvt_rna(x[i]);
+      big[i] = b;
+      small[i] = evt::tf32_cvt_rna(x[i] - __uint_as_float(b));
+    } else {
+      const evt::Tf32Pair p = evt::tf32_split(x[i]);
+      big[i] = p.big;
+      small[i] = p.small;
+    }
   }
 }
 
 }  // namespace
 
-// x (n,) float32; big, small (n,) 32-bit words: cvt.rna's TF32 parts of x.
-// Launches on `stream`; returns the launch's cudaError_t.
-extern "C" int evt_tf32_split(const float* x, unsigned* big, unsigned* small, int n,
+// x (n,) float32; big, small (n,) 32-bit words: the TF32 parts of x as the
+// dot kernels split it (`cvt` = 0: the integer rounding) or as cvt.rna
+// splits it (`cvt` = 1).  Launches on `stream`; returns the launch's
+// cudaError_t.
+extern "C" int evt_tf32_split(const float* x, unsigned* big, unsigned* small, int n, int cvt,
                               void* stream) {
   if (n <= 0) return 0;
   const int nb = n < 1024 * 256 ? (n + 255) / 256 : 1024;
-  tf32_split_kernel<<<nb, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, big, small, n);
+  tf32_split_kernel<<<nb, 256, 0, static_cast<cudaStream_t>(stream)>>>(x, big, small, n, cvt);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -530,8 +628,9 @@ extern "C" int evt_multiround_blocks(int n, int resident, int ring, int elem, in
 // kept in L2.  `ring` > 0 streams the other rows through that many
 // bulk-copy stages a warp (A 16-byte aligned, n * sizeof(T) % 16 == 0);
 // 0 reads them into registers.  `dot` = 1 runs the dot formulation (ring 0,
-// n % 128 == 0) with `part` (kDotSegments * n floats) as scratch; `part` is
-// null otherwise.  `stamps` is null, or kStampRounds * kStampPhases *
+// n % 128 == 0) with `part` (kDotSegments * n floats) and `work` (2 int32,
+// zero at the launch: the rounds' work counters) as scratch; both are null
+// otherwise.  `stamps` is null, or kStampRounds * kStampPhases *
 // grid words for the phase stamps.  Launches on `stream` and does not
 // synchronise.  Returns the launch's cudaError_t (0 on success; a card
 // without cooperative launch fails here).
@@ -541,15 +640,16 @@ extern "C" int evt_multiround(const void* A, const float* ev_in,
                               int* adv_out, float* lam_out, float* raw, int n,
                               int chunk, float eps, int init, int rel,
                               int resident, int l2_rows, int ring, int dot, float* part,
-                              void* stamps, int elem, int grid, void* stream) {
-  if (dot && (ring || n % 128 || !part)) return static_cast<int>(cudaErrorInvalidValue);
+                              int* work, void* stamps, int elem, int grid, void* stream) {
+  if (dot && (ring || n % 128 || !part || !work))
+    return static_cast<int>(cudaErrorInvalidValue);
   return evt::with_elem(elem, [&](auto tag) {
     using T = typename decltype(tag)::type;
     const size_t smem = smem_bytes<T>(n, resident, ring);
     void* args[] = {&A,      &ev_in,   &v_in,    &lam_in,   &budget,  &ev_out,
                     &v_out,  &adv_out, &lam_out, &raw,      &n,       &chunk,
                     &eps,    &init,    &rel,     &resident, &l2_rows, &ring,
-                    &part,   &stamps};
+                    &part,   &work,    &stamps};
     const cudaError_t e = cudaLaunchCooperativeKernel(
         (const void*)instance<T>(ring, dot),
         dim3(grid),

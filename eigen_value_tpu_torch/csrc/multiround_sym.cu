@@ -141,8 +141,13 @@
 // at a time: lane (g, t) reads columns 4t .. 4t + 3 of rows g and g + 8 (the
 // vpu path's loads, two of them), the row term chains over the columns and
 // the transpose term over the rows, one accumulator per 16 columns of the
-// chunk (32 registers).  The transpose term's fragments are the row
-// fragments transposed by shuffles (transpose8).  Each slot holds what the
+// chunk (32 registers).  Each loaded value is split once for the row term;
+// the transpose term's fragments are the row fragments transposed by
+// shuffles (transpose8) and split, and its vector is split once per 16 rows
+// (mma_tf32.cuh says why; a 2-byte A is not split).  A streamed tile's loads
+// ask the L2 for the 256-byte unit around them (FromGlobalAhead): the warp
+// waits on memory more than it issues, and an L2 prefetch of the next 16
+// rows cost registers (spills) and time.  Each slot holds what the
 // vpu formulation's holds, the sum of its own products in a fixed order, so
 // a dot launch is bit-identical for every cache size, every chunking, the
 // lower block triangle's contents and A_q against A_q.float(); it agrees
@@ -410,6 +415,9 @@ __device__ __forceinline__ void tile_terms(const S* src, size_t stride, int bt,
 // transpose term one chain over the rows in order.  (The unit's accumulator
 // truncates: chains of 128 columns or rows keep λ within 1e-6 of a float64
 // loop at 8192^2, where one over 1024 columns did not keep it within 1e-5.)
+// The row term splits each loaded value once, the transpose term each
+// shuffled one (mma_cols16); its vector (16 rows of evi) is split once per
+// 16 rows.
 template <class S, class Load>
 __device__ __forceinline__ void tile_terms_dot(const S* src, size_t stride, int bt, int r_lo,
                                                int r_hi, bool trans, const float* evi,
@@ -417,12 +425,12 @@ __device__ __forceinline__ void tile_terms_dot(const S* src, size_t stride, int 
                                                float* col_out, int lane, Load load) {
   using E = evt::Elem<S>;
   using Chunk = typename E::Chunk;
+  constexpr bool kExact = sizeof(S) < sizeof(float);  // a 2-byte A is exact in TF32
   // 16-column steps whose loads go together: two f32 ones, four 2-byte ones
   constexpr int kB = sizeof(Chunk) == sizeof(float4) ? 2 : 4;
   constexpr int kSteps = kChunk / 16;
   const int g = lane >> 2, t = lane & 3;
   const size_t stride4 = stride >> 2;
-  const float4 zero = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
   for (int q = 0; q < bt; q += kChunk) {
     float tacc[kSteps][4];  // the transpose term of columns q + 16u ..
 #pragma unroll
@@ -431,22 +439,26 @@ __device__ __forceinline__ void tile_terms_dot(const S* src, size_t stride, int 
     for (int r0 = r_lo; r0 < r_hi; r0 += 16) {
       // the row term in two chains, the even and the odd 16-column regions
       float d[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
-      const float4 f = trans && lane < 4 ? make_float4(evi[r0 + 2 * t], evi[r0 + 2 * t + 1],
-                                                       evi[r0 + 8 + 2 * t], evi[r0 + 9 + 2 * t])
-                                         : zero;
+      evt::Tf32x4 F;
+      if (trans)
+        F = evt::tf32_split4(make_float4(evi[r0 + 2 * t], evi[r0 + 2 * t + 1],
+                                         evi[r0 + 8 + 2 * t], evi[r0 + 9 + 2 * t]));
       const Chunk* p = reinterpret_cast<const Chunk*>(src + q) + (r0 + g) * stride4 + t;
 #pragma unroll
       for (int u0 = 0; u0 < kSteps; u0 += kB) {
-        float4 x[kB], y[kB];
+        Chunk x[kB], y[kB];
 #pragma unroll
         for (int u = 0; u < kB; ++u) {
-          x[u] = E::up(load(p + 4 * (u0 + u)));
-          y[u] = E::up(load(p + 8 * stride4 + 4 * (u0 + u)));
+          x[u] = load(p + 4 * (u0 + u));
+          y[u] = load(p + 8 * stride4 + 4 * (u0 + u));
         }
 #pragma unroll
         for (int u = 0; u < kB; ++u) {
-          evt::mma_rows16(d[(u0 + u) & 1], x[u], y[u], e4[4 * (u0 + u) + t], lane);
-          if (trans) evt::mma_cols16(tacc[u0 + u], x[u], y[u], f, lane);
+          const float4 xu = E::up(x[u]), yu = E::up(y[u]);
+          evt::mma_rows16<kExact>(d[(u0 + u) & 1], evt::tf32_split4<kExact>(xu),
+                                  evt::tf32_split4<kExact>(yu),
+                                  evt::tf32_split4(e4[4 * (u0 + u) + t]));
+          if (trans) evt::mma_cols16<kExact>(tacc[u0 + u], xu, yu, F, lane);
         }
       }
       if (t == 0) {  // chunks in order; the same lane wrote the earlier ones
@@ -643,7 +655,7 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
         if (streamed) {
           tile_terms_dot(A + static_cast<size_t>(ij.x) * bt * n + static_cast<size_t>(ij.y) * bt,
                          n, bt, lo, lo + span, trans, evi, evj, row_out, col_out, lane,
-                         t < l2_tiles ? keep : pass);
+                         evt::FromGlobalAhead<256>{t < l2_tiles ? keep.policy : pass.policy});
         } else {
           tile_terms_dot(cache + (m - nstream) * tile_elems, bt, bt, lo, lo + span, trans, evi,
                          evj, row_out, col_out, lane, evt::FromShared());

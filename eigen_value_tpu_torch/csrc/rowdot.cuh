@@ -130,6 +130,41 @@ struct FromGlobalHinted {
   }
 };
 
+// FromGlobalHinted for the dot formulation's reads, which take 64 bytes of
+// a row at a time (16 rows a warp): each load also asks the L2 to fetch the
+// kBytes-byte unit around it from device memory (ld's prefetch-size hint),
+// so the row's next pieces are found there.  The unit is the kernel's
+// choice (measured at 8192^2: 128 for the stripes, 256 for the tiles).
+template <int kBytes>
+struct FromGlobalAhead {
+  static_assert(kBytes == 128 || kBytes == 256, "an L2 prefetch size of 128 or 256 bytes");
+  unsigned long long policy;
+  __device__ __forceinline__ float4 operator()(const float4* p) const {
+    float4 v;
+    if constexpr (kBytes == 128)
+      asm volatile("ld.global.nc.L2::cache_hint.L2::128B.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+                   : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                   : "l"(p), "l"(policy));
+    else
+      asm volatile("ld.global.nc.L2::cache_hint.L2::256B.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+                   : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+                   : "l"(p), "l"(policy));
+    return v;
+  }
+  __device__ __forceinline__ uint2 operator()(const uint2* p) const {
+    uint2 v;
+    if constexpr (kBytes == 128)
+      asm volatile("ld.global.nc.L2::cache_hint.L2::128B.v2.u32 {%0, %1}, [%2], %3;"
+                   : "=r"(v.x), "=r"(v.y)
+                   : "l"(p), "l"(policy));
+    else
+      asm volatile("ld.global.nc.L2::cache_hint.L2::256B.v2.u32 {%0, %1}, [%2], %3;"
+                   : "=r"(v.x), "=r"(v.y)
+                   : "l"(p), "l"(policy));
+    return v;
+  }
+};
+
 // The element type codes of the C entries (kernels.py `_ELEM`), and a call
 // of `f(Tag<T>())` with the type a code names; an unknown code gives
 // cudaErrorInvalidValue.

@@ -38,11 +38,11 @@ _SIGNATURES = {
     # A, x, y, n, m, ld, elem, stream (elem: A's element type, kernels._ELEM)
     "evt_matvec": (_P, _P, _P, _I, _I, ctypes.c_longlong, _I, _P),
     # A, ev_in, v_in, lam_in, budget, ev_out, v_out, adv_out, lam_out, raw,
-    # n, chunk, eps, init, rel, resident, l2_rows, ring, dot, part, stamps, elem,
-    # grid, stream
+    # n, chunk, eps, init, rel, resident, l2_rows, ring, dot, part, work, stamps,
+    # elem, grid, stream
     "evt_multiround": (
         _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I, _I, _I,
-        _I, _P, _P, _I, _I, _P,
+        _I, _P, _P, _P, _I, _I, _P,
     ),
     # n, resident, ring, elem, dot
     "evt_multiround_blocks": (_I, _I, _I, _I, _I),
@@ -70,8 +70,8 @@ _SIGNATURES = {
     "evt_scale_rowsum": (_P, _P, _P, _P, _I, _P),
     # v, eps, n, state, out, stream
     "evt_stop": (_P, _P, _I, _P, _P, _P),
-    # x, big, small, n, stream
-    "evt_tf32_split": (_P, _P, _P, _I, _P),
+    # x, big, small, n, cvt (1: by cvt.rna, 0: the kernels' integer rounding), stream
+    "evt_tf32_split": (_P, _P, _P, _I, _I, _P),
 }
 
 

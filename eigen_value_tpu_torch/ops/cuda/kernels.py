@@ -409,8 +409,10 @@ def multiround(
     lam_out = torch.empty((), dtype=torch.float32, device=dev)
     raw = torch.empty(2 * n, dtype=torch.float32, device=dev)
     dot = formulation == "dot"
-    # the dot formulation's segment sums: kDotSegments (8) floats a row
+    # the dot formulation's segment sums, kDotSegments (8) floats a row, and
+    # its rounds' work counters (zero at the launch)
     part = torch.empty(8 * n, dtype=torch.float32, device=dev) if dot else None
+    work = torch.zeros(2, dtype=torch.int32, device=dev) if dot else None
     plan = multiround_launch_plan(dev, n, **_sized(A.dtype), **_formulated(formulation))
     _check_ring_aligned(plan.ring, A)
     with torch.cuda.device(dev):
@@ -421,7 +423,8 @@ def multiround(
             ev_out.data_ptr(), v_out.data_ptr(), adv.data_ptr(), lam_out.data_ptr(),
             raw.data_ptr(), n, min(chunk, 2**31 - 1), eps, int(init),
             int(eps_mode == "relative"), plan.resident, plan.l2_rows, plan.ring, int(dot),
-            part.data_ptr() if dot else 0, _stamps_ptr(), _ELEM[A.dtype], plan.grid, stream,
+            part.data_ptr() if dot else 0, work.data_ptr() if dot else 0, _stamps_ptr(),
+            _ELEM[A.dtype], plan.grid, stream,
         )
         _launch(rc, "multiround")
     multiround.launches += 1

@@ -3,9 +3,12 @@
 
     python3 kernel_phases.py [--root DIR [DIR ...]] [--dtype f32|bf16|f16]
                              [--formulation vpu|dot|mixed] [--fill prologue|pipelined ...]
-                             [--sizes 2048 4096 8192] [--reps 20] [--sweep] [--rings]
+                             [--matrix hilbert|scaled] [--sizes 2048 4096 8192] [--reps 20]
+                             [--sweep] [--rings]
 
-For every size it solves the Hilbert matrix, stored in ``--dtype`` (the
+For every size it solves the Hilbert matrix (``--matrix scaled``: scaled
+at random from a fixed seed, as chip_smoke.py's step 10b), stored in
+``--dtype`` (the
 storage path's launches for bf16 / f16; ev and every sum stay f32), in one
 whole-budget launch (``init=True``, ``chunk = MAX_ITR + 1``: the main path's
 launch) of the stripes kernel (``kernels.multiround``) and of the tiled
@@ -28,13 +31,21 @@ round 0 to the last stamp of the launch): the launch's time less the span
 is what lies outside its rounds, the prologue fill's loads among it (the
 pipelined fill's issue is there too, its waits are not).
 
+Before the timings it prints, for every checkout, one JSON line per
+instance of the two persistent kernels from that checkout's ptxas report
+(``ops/cuda/build.report_path``): the element type, the instance (vpu,
+vpu with the ring, dot, mixed; ``+pipelined`` for the pipelined fill), its
+registers and the bytes of its spill stores and loads.
+
 ``--root`` names one or more checkouts that hold ``eigen_value_tpu_torch/``
 (an earlier commit unpacked with ``git archive``; the default is this one).
 Each is loaded as a package of its own in this one process, with its own
 kernel library, and every arm is timed in turns across them (A B, B A,
 A B, ...; a sample is the median of five launches back to back), so that
 two versions are compared on one card at one time.  Each row also says whether
-the launch gave the bits of the first checkout's.
+the launch gave the bits of the first checkout's, as a whole
+(``bits_equal_root0``) and for each of its outputs (``bits_equal_root0_by``:
+ev, v, the advanced count and λ).
 
 The phase split: with ``kernels.STAMPS`` set to an int64 tensor on the
 card, thread 0 of every block writes the card's nanosecond timer at each
@@ -43,7 +54,9 @@ phase boundary of each of the first 32 rounds (csrc/prologue.cuh
 1 … last (round 0 has no prologue and fills the resident set) of the
 difference of two stamps; ``stream_slowest`` is, per round, the last
 block's end of stream minus the first block's start: what the barrier
-waits for.
+waits for.  ``stream_block_range`` is the least and the most of the
+blocks' own stream phases (each a mean over the rounds), and
+``slowest_blocks`` the indices of the eight slowest blocks.
 
 ``--sweep`` times the first checkout's launches under other plans than the
 card's own (``eigen_value_tpu_torch.device``): the stripes kernel with and
@@ -76,6 +89,23 @@ DEFAULT_PHASES = {
     "multiround_sym": ("prologue", "stream", "barrier_1", "reduce", "barrier_2"),
 }
 DTYPES = {"f32": "float32", "bf16": "bfloat16", "f16": "float16"}
+SCALE_SEED = 20261016 + 14  # chip_smoke.py step 10b's scaling
+
+
+def matrix(n: int, kind: str, dev):
+    """The Hilbert matrix of order n on ``dev`` (f32), or with ``kind ==
+    "scaled"`` the Hilbert matrix times 1 + 0.25 U(0, 1), drawn on ``dev``
+    from a fixed seed (chip_smoke.py step 10b's matrix): no tile piece is
+    symmetric and A is not, so a row / column mix-up shows in the bits."""
+    import torch
+
+    from eigen_value_tpu_torch import fixtures
+
+    H = fixtures.hilbert_matrix(n, device=dev)
+    if kind == "scaled":
+        gen = torch.Generator(device=dev).manual_seed(SCALE_SEED)
+        H = H * (1 + 0.25 * torch.rand(n, n, device=dev, generator=gen))
+    return H
 
 
 def split(stamps, grid: int, names, rounds=range(1, STAMP_ROUNDS)) -> dict:
@@ -90,6 +120,9 @@ def split(stamps, grid: int, names, rounds=range(1, STAMP_ROUNDS)) -> dict:
     out = {name: float((sel[:, p + 1] - sel[:, p]).mean()) / 1e3 for p, name in enumerate(names)}
     out["stream_slowest"] = float(
         (sel[:, 2].max(dim=1).values - sel[:, 1].min(dim=1).values).mean()) / 1e3
+    per_block = (sel[:, 2] - sel[:, 1]).mean(dim=0) / 1e3  # each block's stream phase
+    out["stream_block_range"] = [float(per_block.min()), float(per_block.max())]
+    out["slowest_blocks"] = per_block.argsort(descending=True)[:8].tolist()
     out["round"] = float((sel[:, len(names)] - sel[:, 0]).mean()) / 1e3
     out["rounds_read"] = len(full)
     if 0 in full:
@@ -127,6 +160,49 @@ def load_root(root: str, i: int) -> types.SimpleNamespace:
         evt=mod, root=os.path.relpath(root),
         kernels=importlib.import_module(f"{alias}.ops.cuda.kernels"),
         device=importlib.import_module(f"{alias}.device"))
+
+
+ELEMS = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+OUTPUTS = ("ev", "v", "advanced", "lambda")
+
+
+def ptxas_instances(report: str) -> list:
+    """The kernel, element type, instance, registers and bytes of spill
+    stores and loads of every ``multiround_kernel`` /
+    ``multiround_sym_kernel`` instance in an ``nvcc -Xptxas -v`` report."""
+    import re
+
+    out, cur = [], None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(multiround(?:_sym)?_kernel)I"
+                      r"(f|13__nv_bfloat16|6__half)((?:Lb[01]E)+)", line)
+        if m:
+            ring, dot, mixed, fill = ([f == "1" for f in re.findall(r"Lb([01])E", m.group(3))]
+                                      + [False] * 3)[:4]
+            inst = "dot" if dot else "mixed" if mixed else "vpu, ring" if ring else "vpu"
+            cur = {"kernel": m.group(1), "elem": ELEMS[m.group(2)],
+                   "instance": inst + (" +pipelined" if fill else ""),
+                   "registers": None, "spill_stores": 0, "spill_loads": 0}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            cur = None
+    return out
+
+
+def print_ptxas(R) -> None:
+    """One JSON line per persistent-kernel instance of checkout R's build."""
+    build = importlib.import_module(f"{R.evt.__name__}.ops.cuda.build")
+    build.load()
+    for row in ptxas_instances(build.report_path().read_text()):
+        print(json.dumps(dict(ptxas=row.pop("kernel"), root=R.root, **row)), flush=True)
 
 
 def plan_fields(plan) -> dict:
@@ -311,6 +387,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", nargs="+", default=[os.path.dirname(os.path.abspath(__file__))])
     ap.add_argument("--dtype", choices=sorted(DTYPES), default="f32")
+    ap.add_argument("--matrix", choices=["hilbert", "scaled"], default="hilbert",
+                    help="the Hilbert matrix, or the Hilbert matrix scaled at random (the "
+                         "triangle arms then read its upper block triangle)")
     ap.add_argument("--formulation", choices=["vpu", "dot", "mixed"], default="vpu")
     ap.add_argument("--fill", choices=["prologue", "pipelined"], nargs="+", default=None,
                     help="the tiled kernel's cache fills, timed in turns; also prints round "
@@ -327,16 +406,16 @@ def main() -> int:
         raise SystemExit("FAILED: no CUDA device")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     roots = [load_root(os.path.abspath(r), i) for i, r in enumerate(args.root)]
-    from eigen_value_tpu_torch import fixtures
-
     dev = torch.device("cuda", 0)
     dt = getattr(torch, DTYPES[args.dtype])
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    for R in roots:
+        print_ptxas(R)
     for n in args.sizes:
-        H = fixtures.hilbert_matrix(n, device=dev).to(dt)
+        H = matrix(n, args.matrix, dev).to(dt)
         fills = args.fill or ["prologue"]
         variants = [(R, fill) for R in roots for fill in fills]
         per_root = [arms(R, H, dev, args.formulation, fill, fills) for R, fill in variants]
@@ -347,11 +426,13 @@ def main() -> int:
             samples = in_turns(fns, args.reps)
             for (R, fill), arm, out, ms in zip(variants, (p[a] for p in per_root), outs, samples):
                 _, _, cache, plan, fn = arm
-                row = {"arm": label, "n": n, "dtype": args.dtype,
+                row = {"arm": label, "n": n, "dtype": args.dtype, "matrix": args.matrix,
                        "formulation": args.formulation, "fill": fill, "root": R.root,
                        "advanced": int(out[2]), "ms_median": statistics.median(ms),
                        "ms_min": min(ms), "cache": cache, "plan": plan_fields(plan),
                        "bits_equal_root0": all(torch.equal(p, q) for p, q in zip(outs[0], out)),
+                       "bits_equal_root0_by": {k: torch.equal(p, q) for k, p, q in
+                                               zip(OUTPUTS, outs[0], out)},
                        "card": card}
                 if hasattr(R.kernels, "STAMPS"):
                     row["phases_us"] = stamped_split(R.kernels, fn, kernel, plan.grid, dev)

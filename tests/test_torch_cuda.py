@@ -1227,11 +1227,84 @@ def test_tf32_split_is_the_cards_cvt_rna(cuda):
     big = torch.empty(x.numel(), dtype=torch.int32, device=cuda)
     small = torch.empty_like(big)
     rc = build.load().evt_tf32_split(xd.data_ptr(), big.data_ptr(), small.data_ptr(), x.numel(),
-                                     torch.cuda.current_stream().cuda_stream)
+                                     1, torch.cuda.current_stream().cuda_stream)
     assert rc == 0
     want_big, want_small = tk.tf32_split(x)
     assert torch.equal(big.cpu(), want_big.view(torch.int32))
     assert torch.equal(small.cpu(), want_small.view(torch.int32))
+
+
+def _card_split(x, cvt):
+    from eigen_value_tpu_torch.ops.cuda import build
+
+    xd = x.to("cuda")
+    big = torch.empty(x.numel(), dtype=torch.int32, device=xd.device)
+    small = torch.empty_like(big)
+    assert build.load().evt_tf32_split(xd.data_ptr(), big.data_ptr(), small.data_ptr(),
+                                       x.numel(), int(cvt),
+                                       torch.cuda.current_stream().cuda_stream) == 0
+    return big.cpu(), small.cpu()
+
+
+def test_the_kernels_integer_rounding_is_cvt_rna(cuda):
+    # chip_smoke.py step 10a's 1,044,633 values (random bit patterns from its
+    # seed, finite, below 3.4e38, and its picked ties), then ±0, subnormals,
+    # the largest finite values and ±inf.  The kernels round by (bits +
+    # 0x1000) & ~0x1fff; they assume A and ev finite, so no NaN is held here
+    # (a NaN whose carry reaches the exponent rounds to a signed zero, where
+    # cvt.rna keeps a NaN).
+    gen = torch.Generator().manual_seed(20261016 + 13)
+    bits = torch.randint(0, 1 << 16, (1 << 20, 2), generator=gen, dtype=torch.int32)
+    words = (bits[:, 0] << 16) | bits[:, 1]
+    picked = torch.tensor([0x3F801000, -0x407FF000, 0x3F800FFF, 0x3F803000, 0x00001000,
+                           0x00000FFF, 0x007FFFFF, 0x00800000, 0x3F810000], dtype=torch.int32)
+    x = torch.cat([picked, words]).view(torch.float32)
+    x = x[torch.isfinite(x) & (x.abs() < 3.4e38)]
+    assert x.numel() == 1044633
+    edge = torch.tensor([0x00000000, 0x80000000, 0x00000001, 0x80000001, 0x00000FFF, 0x00001000,
+                         0x00001001, 0x807FF000, 0x007FFFFF, 0x807FFFFF, 0x7F7FEFFF, 0x7F7FF000,
+                         0xFF7FF000, 0x7F7FFFFF, 0xFF7FFFFF],
+                        dtype=torch.int64).to(torch.int32).view(torch.float32)
+    x = torch.cat([x, edge]).contiguous()
+    big, small = _card_split(x, cvt=False)
+    cvt_big, cvt_small = _card_split(x, cvt=True)
+    want_big, want_small = tk.tf32_split(x)
+    assert torch.equal(big, cvt_big) and torch.equal(small, cvt_small)
+    assert torch.equal(big, want_big.view(torch.int32))
+    assert torch.equal(small, want_small.view(torch.int32))
+    # ±inf: the big part is the infinity itself in all three; its small
+    # part (inf - inf) is NaN, which the kernels never meet in a finite solve
+    inf = torch.tensor([float("inf"), float("-inf")])
+    big, _ = _card_split(inf, cvt=False)
+    cvt_big, _ = _card_split(inf, cvt=True)
+    assert torch.equal(big, cvt_big)
+    assert torch.equal(big, tk.tf32_rna(inf).view(torch.int32))
+
+
+@pytest.mark.parametrize("dt", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("mode", sorted(DOT_MODES))
+def test_two_byte_dot_without_the_small_product_is_the_f32_launch(cuda, mode, dt):
+    # a 2-byte A skips the split and the a_small product; the f32 instance on
+    # A_q.float() splits it (small = 0) and adds the product of zeros
+    n = 1024
+    R = 1 + 0.25 * torch.rand(n, n, generator=torch.Generator().manual_seed(n + 1)).to(cuda)
+    if mode == "triangle":
+        R = (R + R.T) / 2
+    A_q = (tfx.hilbert_matrix(n, device=cuda) * R).to(dt)
+    ev = torch.ones(n, device=cuda)
+    z = torch.zeros((), device=cuda)
+    if mode == "stripes":
+        run, kw = tk.multiround, {}
+    else:
+        run = tk.multiround_sym
+        kw = dict(sym=mode == "triangle", cache_tiles=DOT_MODES[mode].get("cache_tiles", 3))
+    for init in (True, False):
+        got = run(A_q, ev, ev, z, MAX_ITR, chunk=5, eps=EPS, init=init, formulation="dot", **kw)
+        want = run(A_q.float(), ev, ev, z, MAX_ITR, chunk=5, eps=EPS, init=init,
+                   formulation="dot", **kw)
+        assert int(got[2]) == int(want[2])
+        for g, w in zip((got[0], got[1], got[3]), (want[0], want[1], want[3])):
+            assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])

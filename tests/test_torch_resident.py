@@ -313,3 +313,90 @@ def test_phase_split_reads_the_stamps():
     assert got["barrier"] == pytest.approx(6.0) and got["round"] == pytest.approx(90.0)
     assert got["stream_slowest"] == pytest.approx(81.0)
     assert kp.split(torch.zeros_like(t).reshape(-1), grid, ("prologue", "stream", "barrier")) == {}
+
+
+def test_phase_split_names_the_slowest_blocks():
+    """Each block's own stream phase, a mean over rounds 1..: the least and
+    the most of them, and the blocks ordered slowest first."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "kernel_phases.py"
+    spec = importlib.util.spec_from_file_location("kernel_phases", path)
+    kp = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kp)
+
+    grid, stream_us = 3, (70, 90, 80)
+    t = torch.zeros(kp.STAMP_ROUNDS, kp.STAMP_PHASES, grid, dtype=torch.int64)
+    for r in range(3):
+        for b in range(grid):
+            start = 1_000_000 + 200_000 * r
+            end = start + 4_000 + 1_000 * stream_us[b] + 10 * r  # rounds 1, 2 add 10 and 20 ns
+            t[r, :4, b] = torch.tensor([start, start + 4_000, end, start + 100_000])
+    got = kp.split(t.reshape(-1), grid, ("prologue", "stream", "barrier"))
+    assert got["stream_block_range"] == pytest.approx([70.015, 90.015])
+    assert got["slowest_blocks"] == [1, 2, 0]
+
+
+def test_ptxas_report_names_every_persistent_instance():
+    """kernel_phases.py reads the compiler's resource report: each
+    persistent-kernel instance with its element type, formulation, fill,
+    registers and spills; other kernels are skipped."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "kernel_phases.py"
+    spec = importlib.util.spec_from_file_location("kernel_phases", path)
+    kp = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kp)
+
+    head = "ptxas info    : "
+    report = "\n".join([
+        head + "Compiling entry function '_ZN12_GLOBAL__N_113matvec_kernelIfEEvPKT_' for 'sm_90a'",
+        head + "Used 40 registers, used 0 barriers",
+        head + "Compiling entry function '_ZN12_GLOBAL__N_121multiround_sym_kernelIfLb0ELb1ELb0E"
+               "Lb1EEEvPKT_PK4int2' for 'sm_90a'",
+        head + "Function properties for _ZN12_GLOBAL__N_121multiround_sym_kernelIfLb0ELb1ELb0ELb1E",
+        "    84 bytes stack frame, 84 bytes spill stores, 228 bytes spill loads",
+        head + "Used 128 registers, used 1 barriers, 84 bytes cumulative stack size",
+        head + "Compiling entry function '_ZN12_GLOBAL__N_117multiround_kernelI13__nv_bfloat16Lb1E"
+               "Lb0EEEvPKT_' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        head + "Used 64 registers, used 1 barriers",
+        head + "Compiling entry function '_ZN12_GLOBAL__N_121multiround_sym_kernelI6__halfLb0ELb0E"
+               "Lb1ELb0EEEvPKT_' for 'sm_90a'",
+        head + "Used 128 registers, used 1 barriers",
+    ])
+    got = kp.ptxas_instances(report)
+    assert got == [
+        {"kernel": "multiround_sym_kernel", "elem": "f32", "instance": "dot +pipelined",
+         "registers": 128, "spill_stores": 84, "spill_loads": 228},
+        {"kernel": "multiround_kernel", "elem": "bf16", "instance": "vpu, ring",
+         "registers": 64, "spill_stores": 0, "spill_loads": 0},
+        {"kernel": "multiround_sym_kernel", "elem": "f16", "instance": "mixed",
+         "registers": 128, "spill_stores": 0, "spill_loads": 0},
+    ]
+
+
+def test_phase_tool_matrices():
+    """kernel_phases.py --matrix: the Hilbert matrix, or the Hilbert matrix
+    times 1 + 0.25 U(0, 1) from a fixed seed (not symmetric), the same on
+    every call."""
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "kernel_phases.py"
+    spec = importlib.util.spec_from_file_location("kernel_phases", path)
+    kp = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(kp)
+
+    from eigen_value_tpu_torch import fixtures
+
+    cpu = torch.device("cpu")
+    H = fixtures.hilbert_matrix(64)
+    assert torch.equal(kp.matrix(64, "hilbert", cpu), H)
+    S = kp.matrix(64, "scaled", cpu)
+    assert torch.equal(S, kp.matrix(64, "scaled", cpu))
+    ratio = S / H
+    assert float(ratio.min()) >= 1.0 and float(ratio.max()) <= 1.25
+    assert not torch.equal(S, S.T)

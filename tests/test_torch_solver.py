@@ -302,3 +302,18 @@ def test_warmup_resolves_and_rejects_on_the_cpu():
         ev.warmup([64], dtype=torch.int32)
     lam, _, ms, rounds = ev.similarity_transform(tfx.hilbert_matrix(128))
     assert rounds == 9 and ev.last_wall_ms == ms > 0.0
+
+
+def test_warmup_without_a_device_follows_the_solves_rule(monkeypatch):
+    # no card: host input raises, and so does a warmup that names no device
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError) as solve_err:
+        evt.EigenValue(evt.SolverConfig(backend="multiround")).similarity_transform(
+            np.asarray(tfx.hilbert_matrix(128)))
+    with pytest.raises(RuntimeError) as warm_err:
+        evt.EigenValue(evt.SolverConfig(backend="multiround")).warmup([128])
+    assert str(warm_err.value) == str(solve_err.value)
+    assert "device='cpu'" in str(warm_err.value)
+    ev = evt.EigenValue(evt.SolverConfig(backend="multiround"), device="cpu")
+    ev.warmup([128])
+    assert ev.similarity_transform(tfx.hilbert_matrix(128))[3] == 9
