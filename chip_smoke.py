@@ -165,6 +165,18 @@ prologue fill for vpu, dot and mixed, a pipelined launch that stops at
 round 0, the lower block triangle, A_q against A_q.float()); and the median
 of 12 whole-budget launches of each beside "vpu", interleaved.
 
+The NumPy oracles and a sharded A stepped through the checkpoint
+(``oracle_stepping_phase``, step 12): ``python3 -m
+eigen_value_tpu_torch.oracle`` in both semantics as processes of their
+own, once more with jax blocked from import, and ``parallel_oracle`` on
+Hilbert 128…1024 against the card's solves; then, on a one-rank NCCL group,
+Hilbert 8192² as a ``Shard(0)`` DTensor in f32 and bf16 and as a 1 × 1
+block-sharded one, stepped by ``checkpoint.step`` in chunks 5, 5 and the
+rest with the launch counters read around exactly these calls, each bit
+for bit the plain tensor's step and the matvec kernel loop; an Orbax round
+trip of the sharded state; and the stepped solves timed beside the
+unsharded step.
+
 Uses torch only (no jax).  Exits non-zero, without the final result line,
 on any failed check or when there is no CUDA device.
 
@@ -175,6 +187,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import contextlib
+import importlib.util
 import json
 import os
 import statistics
@@ -1626,6 +1639,171 @@ def mixed_fill_phase(dev, mats, same, reset_counts, read_counts, card) -> dict:
             "auto": auto, "auto_q": auto_q, "m": m[torch.float32], "m_q": m[bf16]}
 
 
+def oracle_stepping_phase(dev, here, mats, auto, same, reset_counts, read_counts,
+                          card) -> dict:
+    """The NumPy oracles and a sharded A stepped through the checkpoint
+    (step 12).
+
+    12a: ``python3 -m eigen_value_tpu_torch.oracle`` with both semantics at
+    32²…256² as processes of their own, and once more with jax blocked from
+    import (rc 0, the reference's table), and
+    ``reference_impl.parallel_oracle`` on Hilbert 128…1024 from the card's
+    matrices: rounds on the table, λ within PARITY_REL of the card's
+    ``max_eigenvalue`` (``auto``).  12b, on a one-rank NCCL group on this
+    card: Hilbert 8192² as a ``Shard(0)`` DTensor, in bf16 too, and as a
+    ``(Shard(0), Shard(1))`` DTensor on a 1 × 1 mesh, each stepped by
+    ``checkpoint.step`` in chunks 5, 5 and the rest (launch counters read
+    around exactly these calls: rounds + 1 ``matvec`` launches, nothing
+    else); each state bit for bit (ev, v, λ, rounds, done) the plain
+    tensor's ``step`` at the same chunks (one ``multiround`` launch a step)
+    and its result the matvec kernel loop's; a ``save_state_orbax`` /
+    ``load_state_orbax`` round trip after 5 rounds, resumed to the same
+    bits; a 2-process NCCL group stepping where the host has two cards;
+    then ms per stepped solve beside the unsharded step's, interleaved.
+    Returns the launch counts of 12b and the times."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    import eigen_value_tpu_torch as evt
+    from eigen_value_tpu_torch import checkpoint as cp
+    from eigen_value_tpu_torch import fixtures
+    from eigen_value_tpu_torch.bench import run_mh_workers
+    from eigen_value_tpu_torch.ops.solver_matvec import solve_matvec_kernel
+    from eigen_value_tpu_torch.parallel import (
+        assemble_blocksharded,
+        assemble_rowsharded,
+        make_mesh2d,
+        make_row_mesh,
+    )
+    from eigen_value_tpu_torch.reference_impl import parallel_oracle
+
+    EPS, MAX = evt.EPS, evt.MAX_ITR
+
+    # --- 12a. the oracles, also where jax cannot be imported ---
+    t12 = time.perf_counter()
+    jax_here = "installed" if importlib.util.find_spec("jax") else "not installed"
+    runs = {f"python3 -m eigen_value_tpu_torch.oracle --semantics {sem} --max-pow 8":
+            (sem, ["-m", "eigen_value_tpu_torch.oracle"]) for sem in ("parallel", "sequential")}
+    runs["the same, parallel, with jax and eigen_value_tpu blocked from import"] = (
+        "parallel", ["-c", "import runpy, sys; sys.modules['jax'] = None; "
+                     "sys.modules['eigen_value_tpu'] = None; "
+                     "runpy.run_module('eigen_value_tpu_torch.oracle', run_name='__main__')"])
+    # the three at once: each spends its seconds importing torch
+    procs = {what: subprocess.Popen([sys.executable, *argv, "--semantics", sem, "--max-pow", "8"],
+                                    cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True)
+             for what, (sem, argv) in runs.items()}
+    try:
+        outs = {what: p.communicate(timeout=300) for what, p in procs.items()}
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for what, (stdout, stderr) in outs.items():
+        semantics, rc = runs[what][0], procs[what].returncode
+        rows = [line for line in stdout.splitlines() if "round(s)" in line]
+        say(f"{what} (jax {jax_here} here): rc {rc}; " + " | ".join(
+            " ".join(r.split()) for r in rows))
+        check(rc == 0 and len(rows) == 4
+              and stdout.startswith(f"{semantics.capitalize()} Similarity Transform"),
+              f"{what}: rc {rc}, {stderr[-2000:]}")
+    for n in (128, 256, 512, 1024):
+        got = parallel_oracle(mats[n].cpu().numpy())
+        lam = float(auto[n].eigenvalue)
+        rel = abs(got.eigenvalue - lam) / lam
+        say(f"parallel_oracle of Hilbert {n}²: rounds {got.rounds} (table "
+            f"{fixtures.HILBERT_ROUNDS[n]}), λ {got.eigenvalue!r}, the card's max_eigenvalue "
+            f"{lam!r}, rel {rel:.3e}")
+        check(got.converged and got.rounds == fixtures.HILBERT_ROUNDS[n] and rel <= PARITY_REL,
+              f"parallel_oracle of Hilbert {n}²")
+
+    # --- 12b. a sharded A stepped through the checkpoint, one rank of NCCL ---
+    n = 8192
+    H = mats[n]
+    Hq = H.to(torch.bfloat16)
+    rows = make_row_mesh(1)
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1, "a one-rank NCCL group")
+    mesh2d = make_mesh2d(1, 1)
+    chunks = (5, 5, MAX)
+
+    def stepped(A):
+        state = cp.init_state(A)
+        for k in chunks:
+            state = cp.step(state, k)
+        return state
+
+    def equal(a, b) -> bool:
+        return all(torch.equal(x, y) for x, y in zip(a[1:], b[1:]))
+
+    stepped(assemble_rowsharded(mats[128], rows))  # NCCL sets up its communicator here
+    arms = {
+        "f32 Shard(0)": (assemble_rowsharded(H, rows), H, None),
+        "bf16 Shard(0)": (assemble_rowsharded(Hq, rows), Hq, torch.bfloat16),
+        "f32 (Shard(0), Shard(1)) on 1 x 1": (assemble_blocksharded(H, mesh2d), H, None),
+    }
+    total = {}
+    for name, (A, plain, storage) in arms.items():
+        ref = stepped(plain)
+        loop = solve_matvec_kernel(H, EPS, MAX, storage_dtype=storage)
+        reset_counts()
+        got = stepped(A)
+        c = read_counts()
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+        ok_step, ok_loop = equal(got, ref), same(cp.to_result(got), loop)
+        say(f"stepped {name} {n}² in chunks 5, 5, rest: rounds {int(got.rounds)}, done "
+            f"{bool(got.done)}; bit-identical to the plain tensor's step {ok_step}, to "
+            f"solve_matvec_kernel {ok_loop}; launches { {k: v for k, v in c.items() if v} }")
+        check(ok_step and ok_loop and int(got.rounds) == 17 and bool(got.done),
+              f"stepped {name}")
+        check(c["matvec"] == int(got.rounds) + 1 and sum(c.values()) == c["matvec"],
+              f"stepped {name}: launches {c}")
+    say(f"stepping path launches: {total}")
+    Hs = arms["f32 Shard(0)"][0]
+    ref = stepped(H)
+    with tempfile.TemporaryDirectory() as d:
+        mid = cp.step(cp.init_state(Hs), 5)
+        cp.save_state_orbax(os.path.join(d, "state"), mid)
+        back = cp.load_state_orbax(os.path.join(d, "state"), cp.init_state(Hs))
+    ok_trip = equal(back, mid) and torch.equal(back.A.to_local(), H)
+    fin = cp.step(cp.step(back, 5), MAX)
+    ok_resume = equal(fin, ref)
+    say(f"stepped f32 Shard(0) {n}²: save_state_orbax after 5 rounds, loaded bit for bit "
+        f"{ok_trip}, resumed to the plain step's bits {ok_resume}")
+    check(ok_trip and ok_resume, "the sharded state's Orbax round trip")
+    if torch.cuda.device_count() >= 2:
+        try:
+            two = run_mh_workers(2, n, 3, ["gather", "stepped"], timeout_s=300)
+        except RuntimeError as e:
+            raise SystemExit(f"FAILED: {e}")
+        r, g = two[0]["results"]["stepped"], two[0]["results"]["gather"]
+        say(f"mh_worker, 2 processes of NCCL on 2 cards, stepped: rounds {r['rounds']}, "
+            f"λ {r['eigenvalue']!r} (gather {g['eigenvalue']!r}), {r['ms']:.4f} ms")
+        check(r["rounds"] == 17 and r["eigenvalue"] == g["eigenvalue"]
+              and len({o["results"]["stepped"]["eigenvalue"] for o in two}) == 1,
+              "2-process stepping")
+    else:
+        say(f"stepping in a 2-process NCCL group: not run, this host has "
+            f"{torch.cuda.device_count()} card")
+    ms = interleaved_ms({
+        "unsharded f32 step": lambda: stepped(H),
+        "f32 Shard(0), 1 rank": lambda: stepped(Hs),
+        "f32 1 x 1": lambda: stepped(arms["f32 (Shard(0), Shard(1)) on 1 x 1"][0]),
+        "unsharded bf16 step": lambda: stepped(Hq),
+        "bf16 Shard(0), 1 rank": lambda: stepped(arms["bf16 Shard(0)"][0]),
+        "matvec kernel loop": lambda: solve_matvec_kernel(H, EPS, MAX),
+    }, reps=12)
+    say(f"stepped solve times at {n}² in chunks 5, 5, rest, 1 rank of NCCL on 1 card ({card}; "
+        f"median of 12 interleaved solves, ms): " + json.dumps({k: round(v, 4)
+                                                               for k, v in ms.items()}))
+    dist.destroy_process_group()
+    say(f"step 12: {time.perf_counter() - t12:.1f} s")
+    return {"launches": total, "ms": ms}
+
+
 def main() -> int:
     import torch
 
@@ -2726,6 +2904,10 @@ def main() -> int:
     # --- 11. the mixed formulation and the pipelined fill ---
     p11 = mixed_fill_phase(dev, mats, same, reset_counts, read_counts, card)
 
+    # --- 12. the oracles, and a sharded A stepped through the checkpoint ---
+    p12 = oracle_stepping_phase(dev, here, mats, auto, same, reset_counts, read_counts, card)
+    check(p12["launches"]["matvec"] > 0, "the stepping path launched no matvec")
+
     # The least time the card could take: each input read once and each
     # output written once at the published memory rate, against the float32
     # operations at the published rate outside the tensor cores.  The two
@@ -2772,10 +2954,12 @@ def main() -> int:
     jk = "eigen_value_tpu/ops/pallas/kernels.py"
     say(json.dumps({"kernels": [
         record("matvec", "matvec.cu", f"{jk}:227",
-               launches["matvec"] + p7["matvec"] + p8["launches"]["matvec"] + p9["matvec"],
+               launches["matvec"] + p7["matvec"] + p8["launches"]["matvec"] + p9["matvec"]
+               + p12["launches"]["matvec"],
                mv_err,
                t_mv.median_ms, t_mv_p.median_ms, t_mv_lib, bound(4 * nn + 2 * vec, 2 * nn),
                mesh_launches=p8["launches"]["matvec"], tools_launches=p9["matvec"],
+               stepping_launches=p12["launches"]["matvec"],
                strided_max_abs_err=p8["strided_max_abs_err"], strided_views=p8["views"]),
         record("multiround", "multiround.cu", f"{jk}:483",
                launches["multiround"] + p7["multiround"] + p9["multiround"], mr_err,

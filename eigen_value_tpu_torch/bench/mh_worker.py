@@ -3,7 +3,8 @@
 
     python -m eigen_value_tpu_torch.bench.mh_worker --process-id 0 \\
         --num-processes 2 --coordinator localhost:PORT --dim 2048 \\
-        [--solver gather ring 2d iterated batched] [--device cuda|cpu] [--nodes K]
+        [--solver gather ring 2d iterated batched stepped] [--device cuda|cpu]
+        [--nodes K]
 
 Each process starts the group through ``multihost.initialize`` (NCCL on its
 own card, ``--device cuda``, the process id being its card; gloo with
@@ -20,7 +21,10 @@ for each ``--solver`` in turn, in the one group:
   * ``iterated``: ``solve_sharded`` (the iterated body);
   * ``batched``: ``max_eigenvalue_batch`` of two Hilbert matrices per batch
     shard on a batch × rows mesh (two batch shards when the group has an
-    even number of ranks), each rank holding its rows of its matrices.
+    even number of ranks), each rank holding its rows of its matrices;
+  * ``stepped``: the row-sharded A of ``gather`` stepped through
+    ``checkpoint.solve_checkpointed`` in chunks of 5 rounds (the gathered
+    body's rounds, so the bits of ``gather``).
 
 It prints one JSON line: the group's size and device, and per solver the
 rounds, λ, converged, the global residual ``max|A·v − λ·v|`` (float64, from
@@ -45,7 +49,7 @@ import os
 import sys
 import time
 
-SOLVERS = ("gather", "ring", "2d", "iterated", "batched")
+SOLVERS = ("gather", "ring", "2d", "iterated", "batched", "stepped")
 
 
 def hilbert_rows(row0: int, rows: int, n: int):
@@ -124,7 +128,7 @@ def main(argv=None) -> int:
     import torch
     import torch.distributed as dist
 
-    from eigen_value_tpu_torch import max_eigenvalue_batch
+    from eigen_value_tpu_torch import checkpoint, max_eigenvalue_batch
     from eigen_value_tpu_torch.parallel import (
         make_mesh2d,
         multihost,
@@ -192,6 +196,7 @@ def main(argv=None) -> int:
                 "gather": lambda: multihost.solve_multihost(A, mesh=mesh),
                 "ring": lambda: solve_sharded_matvec_ring(A, mesh),
                 "iterated": lambda: solve_sharded(A, mesh),
+                "stepped": lambda: checkpoint.solve_checkpointed(A, 5),
             }[solver]
         res = solve()  # untimed: NCCL sets up its communicators in the first exchanges
         ts = []
@@ -214,7 +219,9 @@ def main(argv=None) -> int:
                      "eigenvalues": lam_all.tolist()}
         else:
             lam, rounds, converged = float(res.eigenvalue), int(res.rounds), bool(res.converged)
-            resid = residual(rows, row0, res.eigenvector.full_tensor(), lam)
+            ev = res.eigenvector  # a stepped state's ev is replicated: a plain tensor
+            resid = residual(rows, row0, ev.full_tensor() if hasattr(ev, "full_tensor") else ev,
+                             lam)
             extra = {}
         results[solver] = {
             "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)), "rounds": rounds,

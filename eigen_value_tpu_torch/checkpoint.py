@@ -17,6 +17,17 @@ Either way chunked stepping is bit-identical to the one-launch solve of
 the same route, cap included.  A float64 A steps the ``torch.mv`` loop of
 ``solve_matvec`` (the kernels take f32 and 2-byte A only).
 
+A sharded A.  A ``DTensor`` A steps as JAX's sharded ``jax.Array`` does
+under GSPMD: every call of this module takes it, and a round is the one of
+the whole sharded solve (``parallel.sharded.placed_round``), a budget at a
+time.  ``Shard(0)`` on a 1-D mesh: the gathered body's round (the rank's
+rows against the replicated ev, then one all-gather of v); ``(Shard(0),
+Shard(1))`` on a 2-D rows × cols mesh: the 2-D body's round; ``Replicate()``
+on every dimension: the rank's local tensor steps as on one card; any other
+placement raises.  The O(n) state (ev of length n, v, λ, rounds, done) is
+replicated: plain tensors on the rank's device.  Stepped in chunks, a
+sharded A gives the bits of the whole sharded solve.
+
 Storage.  A 2-byte A follows the port's storage contract
 (``ops/solver_matvec.py``): f32 state, the kernels read A as stored, and a
 step is the f32 step of ``A_q.float()``.  JAX's ``_state_matvec`` divides
@@ -25,11 +36,14 @@ by a quantized ev instead; the port does not copy it.
 The snapshot is an ``.npz`` with the JAX package's fields, so an f32 or f64
 snapshot written by either package loads in the other.  numpy has no
 bfloat16, so a 2-byte A is written as its raw uint16 bits with its dtype
-name beside them: such a snapshot is the port's own.  JAX's Orbax snapshots
-(sharded, multi-host state) have their counterpart in
-``torch.distributed.checkpoint`` (:func:`save_state_orbax`,
-:func:`load_state_orbax`, the JAX names): a directory in which each rank
-writes its own shards.  The two formats do not read each other.
+name beside them: such a snapshot is the port's own.  For a DTensor A the
+``.npz`` holds the whole matrix, as JAX's ``np.asarray(state.A)`` gathers
+it: every rank takes part in ``A.full_tensor()`` and the rank at the mesh's
+origin writes the file.  JAX's Orbax snapshots (sharded, multi-host state)
+have their counterpart in ``torch.distributed.checkpoint``
+(:func:`save_state_orbax`, :func:`load_state_orbax`, the JAX names): a
+directory in which each rank writes its own shards and nothing is
+gathered.  The two formats do not read each other.
 """
 
 from __future__ import annotations
@@ -45,7 +59,8 @@ import torch
 from .config import EPS, MAX_ITR
 from .device import multiround_fits, solve_device
 from .ops.cuda import kernels
-from .ops.solver import SolveResult, stop_check
+from .ops.solver import SolveResult, _finish
+from .ops.solver_matvec import _Carry, _run_rounds
 
 
 class SolverState(NamedTuple):
@@ -68,7 +83,7 @@ class SolverState(NamedTuple):
 def _state_dtype(A: torch.Tensor) -> torch.dtype:
     """Dtype of the O(n) state: float32 for a 2-byte A (bf16 cannot hold
     the 1e-3 stop at λ-scale values), else A's own."""
-    return torch.float32 if A.element_size() < 4 else A.dtype
+    return torch.float32 if A.dtype.itemsize < 4 else A.dtype
 
 
 def _product(A: torch.Tensor):
@@ -85,28 +100,46 @@ def _one_launch(A: torch.Tensor) -> bool:
     return A.device.type != "cuda" or multiround_fits(A.shape[0], A.device)
 
 
-def _reject_sharded(A, where: str) -> None:
-    """Refuse a DTensor A by name: JAX steps a row-sharded A under GSPMD,
-    the port's stepping of a sharded A is still to come (ROADMAP Queue 1
-    item 16), and torch would otherwise fail deep inside the first product
-    on mixed local and distributed tensors."""
+def _is_dtensor(A) -> bool:
     from torch.distributed.tensor import DTensor
 
-    if isinstance(A, DTensor):
-        raise ValueError(
-            f"{where}: A is a DTensor (placements {tuple(A.placements)}); stepping a "
-            "sharded A is not ported to eigen_value_tpu_torch yet (ROADMAP: Queue 1 "
-            "item 16). Solve it with max_eigenvalue(A, mesh=...), or step A.full_tensor()"
-        )
+    return isinstance(A, DTensor)
 
 
-def _as_matrix(A, where: str) -> torch.Tensor:
+def _route(A):
+    """How a step reads A: ``(M, next_v)``.  ``next_v(ev)`` is a round's
+    ``(A @ ev) / ev``, replicated; ``M`` is the tensor a single-card step
+    runs on (A itself, or the local tensor of a DTensor replicated on every
+    mesh dimension), None for a sharded DTensor, whose round is the sharded
+    body's (``parallel.sharded.placed_round``, which also refuses any other
+    placement)."""
+    if _is_dtensor(A):
+        from .parallel.sharded import placed_round
+
+        next_v, local = placed_round(A)
+        if next_v is not None:
+            return None, next_v
+        A = local
+    product = _product(A)
+    return A, lambda ev: product(A, ev) / ev
+
+
+def _state_device(A) -> torch.device:
+    """Where the O(n) state lives: A's device, a DTensor's local one."""
+    return A.to_local().device if _is_dtensor(A) else A.device
+
+
+def _as_matrix(A) -> torch.Tensor:
     """A as a contiguous square tensor on its own device (host input goes to
     the card, as in the API).  A tensor that already is one is returned as
     it is, so ``state.A`` aliases the caller's matrix; a misaligned one is
-    cloned (the kernels read rows in aligned chunks).  A DTensor raises
-    (:func:`_reject_sharded`)."""
-    _reject_sharded(A, where)
+    cloned (the kernels read rows in aligned chunks).  A DTensor is
+    returned as it is once its placement is one a step takes."""
+    if _is_dtensor(A):
+        if A.dim() != 2 or A.shape[0] != A.shape[1]:
+            raise ValueError(f"must be a square matrix, got shape {tuple(A.shape)}")
+        _route(A)  # raises on a placement a step does not take
+        return A
     if not isinstance(A, torch.Tensor):
         A = torch.tensor(np.asarray(A), device=solve_device(None, A))
     if A.dim() != 2 or A.shape[0] != A.shape[1]:
@@ -123,18 +156,17 @@ def init_state(A, donate: bool = False) -> SolverState:
     ``state.A`` is the caller's tensor itself (never copied, never
     written), so a solve holds one A whatever it says."""
     del donate
-    A = _as_matrix(A, "init_state")
-    n = A.shape[0]
-    dt = _state_dtype(A)
-    ev0 = torch.ones(n, dtype=dt, device=A.device)
-    v0 = _product(A)(A, ev0) / ev0
+    A = _as_matrix(A)
+    n, dt, dev = A.shape[0], _state_dtype(A), _state_device(A)
+    ev0 = torch.ones(n, dtype=dt, device=dev)
+    v0 = _route(A)[1](ev0)
     return SolverState(
         A,
         ev0,
         v0,
-        torch.zeros((), dtype=dt, device=A.device),
-        torch.zeros((), dtype=torch.int32, device=A.device),
-        torch.zeros((), dtype=torch.bool, device=A.device),
+        torch.zeros((), dtype=dt, device=dev),
+        torch.zeros((), dtype=torch.int32, device=dev),
+        torch.zeros((), dtype=torch.bool, device=dev),
     )
 
 
@@ -150,16 +182,18 @@ def step(
     On the one-launch route the kernel freezes where the stop fires or the
     budget ends; a launch that advanced fewer rounds than it had, with
     budget left, found the stop, and the converging round's update is then
-    applied here with ``solver._finish``'s expression (same bits)."""
-    _reject_sharded(state.A, "step")
+    applied here with ``solver._finish``'s expression (same bits).  Every
+    other route runs ``solver_matvec._run_rounds`` over its round: the
+    matvec kernel loop, or a sharded A's body (see the module's
+    docstring)."""
     rounds = int(state.rounds)
     if bool(state.done) or rounds >= max_itr or num_rounds < 1:
         return state
-    A = state.A
-    dev = A.device
-    if _one_launch(A):
+    M, next_v = _route(state.A)
+    dev = state.v.device
+    if M is not None and _one_launch(M):
         ev, v, adv, lam = kernels.multiround(
-            A, state.ev, state.v, state.lam, max_itr - rounds,
+            M, state.ev, state.v, state.lam, max_itr - rounds,
             chunk=num_rounds, eps=eps, init=False,
         )
         adv = int(adv)
@@ -169,20 +203,13 @@ def step(
             m = torch.max(v)
             ev, lam = ev * (v / m), v[0]
     else:
-        product = _product(A)
-        ev, v, lam, i, done = state.ev, state.v, state.lam, rounds, False
-        for _ in range(num_rounds):
-            if i >= max_itr:
-                break
-            done = bool(stop_check(v, eps))
-            m = torch.max(v)
-            ev, lam = ev * (v / m), v[0]
-            if done:
-                break
-            v = product(A, ev) / ev
-            i += 1
+        c, done = _run_rounds(next_v, _Carry(state.ev, state.v, state.lam, rounds), eps,
+                              max_itr, budget=num_rounds)
+        ev, v, lam, i = c
+        if done:
+            lam, ev = _finish(c, max_itr)[:2]
     return SolverState(
-        A, ev, v, lam,
+        state.A, ev, v, lam,
         torch.tensor(i, dtype=torch.int32, device=dev),
         torch.tensor(done, device=dev),
     )
@@ -211,9 +238,9 @@ def solve_checkpointed(
     if chunk_rounds < 1:
         # a 0-round step would be a no-op and spin this loop forever
         raise ValueError(f"chunk_rounds must be >= 1, got {chunk_rounds}")
-    A = _as_matrix(A, "solve_checkpointed")
+    A = _as_matrix(A)
     if checkpoint_path is not None and os.path.exists(checkpoint_path):
-        state, saved_eps = load_state(checkpoint_path, with_eps=True, device=A.device)
+        state, saved_eps = load_state(checkpoint_path, with_eps=True, device=_state_device(A))
         _check_same_matrix(state.A, A, checkpoint_path)
         if saved_eps is not None and saved_eps != eps:
             raise ValueError(
@@ -247,26 +274,45 @@ def _matrix_digest(A: torch.Tensor) -> torch.Tensor:
     """Bit-level content digest of a matrix, the JAX package's value for
     value (f32, f64, bf16, f16): the element bits (an f64 as two uint32
     words, low first; a 2-byte element widened), xor the position index
-    times 2654435761, times 2246822519, summed, all mod 2³².  Computed on
-    A's device a block of rows at a time in int64 masked to 32 bits (sums
-    mod 2³² are exact in any order), never holding more than
-    ``kernels.PLAIN_BLOCK_BYTES`` of int64 a temporary.  Returns a 0-d
-    int64 tensor on A's device."""
-    if A.element_size() == 8:
+    times 2654435761, times 2246822519, summed, all mod 2³².  Returns a 0-d
+    int64 tensor on A's device (a DTensor's local one).
+
+    Sums mod 2³² are exact in any order, so a sharded DTensor's digest is
+    each rank's block digested at its global positions, the ranks' values
+    added by an integer all-reduce over each dimension that shards it."""
+    if not _is_dtensor(A):
+        return _block_digest(A, 0, 0, A.shape[1])
+    from .parallel._collectives import all_reduce_sum_int
+    from .parallel.sharded import placed_block
+
+    local, row0, col0, dims = placed_block(A)
+    total = _block_digest(local, row0, col0, A.shape[1])
+    for d in dims:
+        total = all_reduce_sum_int(total, A.device_mesh.get_group(d)) & _MASK
+    return total
+
+
+def _block_digest(A: torch.Tensor, row0: int, col0: int, width: int) -> torch.Tensor:
+    """The digest's sum over the block ``A`` of a matrix ``width`` elements
+    wide whose first element sits at (``row0``, ``col0``), mod 2³², on A's
+    device a block of rows at a time in int64 masked to 32 bits, never
+    holding more than ``kernels.PLAIN_BLOCK_BYTES`` of int64 a temporary."""
+    words = 2 if A.dtype.itemsize == 8 else 1
+    if words == 2:
         bits = A.reshape(A.shape[0], -1).view(torch.int32)
-    elif A.element_size() == 2:
+    elif A.dtype.itemsize == 2:
         bits = A.view(torch.int16)
     else:
         bits = A.view(torch.int32)
     rows, cols = bits.shape
-    width = 32 if bits.dtype == torch.int32 else 16
-    keep = (1 << width) - 1
-    col_key = _mul32(torch.arange(cols, device=A.device), 2654435761)
+    keep = (1 << (8 * bits.element_size())) - 1
+    col_key = _mul32(torch.arange(words * col0, words * col0 + cols, device=A.device),
+                     2654435761)
     block = max(1, kernels.PLAIN_BLOCK_BYTES // (8 * max(cols, 1)))
     total = torch.zeros((), dtype=torch.int64, device=A.device)
     for r in range(0, rows, block):
-        r_idx = torch.arange(r, min(r + block, rows), device=A.device)
-        row_key = _mul32((r_idx * cols) & _MASK, 2654435761)
+        r_idx = torch.arange(row0 + r, row0 + min(r + block, rows), device=A.device)
+        row_key = _mul32((r_idx * (words * width)) & _MASK, 2654435761)
         key = (row_key[:, None] + col_key[None, :]) & _MASK
         b = bits[r:r + block].to(torch.int64) & keep
         total = (total + _mul32(b ^ key, 2246822519).sum()) & _MASK
@@ -301,7 +347,21 @@ _BITS = {torch.bfloat16: "bfloat16", torch.float16: "float16"}
 def save_state(path: str, state: SolverState, eps: Optional[float] = None) -> None:
     """Write the state to one ``.npz`` (a temporary file, then
     ``os.replace``: a reader never sees half a snapshot).  ``eps`` records
-    the stop tolerance, so that a resume under another one is rejected."""
+    the stop tolerance, so that a resume under another one is rejected.
+
+    A DTensor A is gathered whole (``full_tensor()``: every rank of its
+    mesh calls this), the rank at the mesh's origin writes the file, and
+    every rank waits for it, so that no rank resumes from an older
+    snapshot."""
+    if _is_dtensor(state.A):
+        mesh = state.A.device_mesh
+        full = state.A.full_tensor()
+        if all(mesh.get_local_rank(d) == 0 for d in range(mesh.ndim)):
+            save_state(path, state._replace(A=full), eps)
+        del full
+        for d in range(mesh.ndim):  # in order: each waits for the origin's write
+            torch.distributed.barrier(group=mesh.get_group(d))
+        return
     arrs = {k: t.detach().cpu() for k, t in zip(_FIELDS, state)}
     if state.A.dtype in _BITS:
         arrs["_A_dtype"] = np.asarray(_BITS[state.A.dtype])

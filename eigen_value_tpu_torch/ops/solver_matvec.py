@@ -77,6 +77,25 @@ def _stored(A: torch.Tensor, storage_dtype) -> tuple:
     return A, (torch.float32 if A.element_size() < 4 else A.dtype)
 
 
+def _run_rounds(next_v, c: _Carry, eps: float, max_itr: int, eps_mode: str = "absolute",
+                budget: Optional[int] = None) -> tuple:
+    """Rounds of :func:`_make_cond_body` from carry ``c``, each checking the
+    stop before it advances, until the stop fires, ``max_itr`` is reached
+    or ``budget`` rounds have been checked (None: no budget).  The check
+    that finds the stop counts among the budget, so ``budget`` k then k′
+    is one budget of k + k′, bit for bit.  Returns ``(carry, stopped)``;
+    ``stopped`` means that the stop fired before ``max_itr``, and
+    ``solver._finish`` then applies the converging round's update."""
+    cond, body = _make_cond_body(next_v, eps, max_itr, eps_mode)
+    k = 0
+    while budget is None or k < budget:
+        if not cond(c):
+            return c, c.i < max_itr
+        c = body(c)
+        k += 1
+    return c, False
+
+
 def _init_carry(n: int, matvec, dtype, device, ev0=None) -> _Carry:
     if ev0 is None:
         ev0 = torch.ones(n, dtype=dtype, device=device)
@@ -96,11 +115,8 @@ def solve_matvec_loop(
 ) -> SolveResult:
     """Convergence loop over a pluggable ``matvec(ev) -> (A @ ev) / ev``.
     The O(n) state has A's dtype, float32 for a 2-byte A."""
-    cond, body = _make_cond_body(matvec, eps, max_itr, eps_mode)
     c = _init_carry(A.shape[0], matvec, _stored(A, None)[1], A.device, ev0)
-    while cond(c):
-        c = body(c)
-    return _finish(c, max_itr)
+    return _finish(_run_rounds(matvec, c, eps, max_itr, eps_mode)[0], max_itr)
 
 
 def solve_matvec(
@@ -173,11 +189,8 @@ def solve_operator(
     def next_v(ev):
         return matvec(ev) / ev
 
-    cond, body = _make_cond_body(next_v, eps, max_itr, eps_mode)
     c = _init_carry(n, next_v, dtype, dev, ev0)
-    while cond(c):
-        c = body(c)
-    return _finish(c, max_itr)
+    return _finish(_run_rounds(next_v, c, eps, max_itr, eps_mode)[0], max_itr)
 
 
 def solve_matvec_traced(A: torch.Tensor, eps: float, max_itr: int):

@@ -17,6 +17,7 @@ JAX                        here
 ``axis_index``             ``mesh.get_local_rank(name)``
 ``psum`` of float partials :func:`sum_in_order`: an all-gather of the
                            partials, then a sum in rank order
+``psum`` of integers       :func:`all_reduce_sum_int`
 =========================  =================================================
 
 Every helper runs its collective for real, on a group of one rank too
@@ -27,7 +28,7 @@ control, and round counts depend on the order of every sum (the ground
 rule of the kernels: no float atomics, fixed-order reductions).  So a sum
 of float partials is gathered and added here in a fixed order; the
 all-reduces are used only where any order gives the same bits (a max, a
-min, one nonzero term).
+min, one nonzero term, a sum of integers).
 
 A CUDA tensor takes NCCL: gloo's point-to-point operations take host
 tensors, and its collectives would copy a card's tensors through the host.
@@ -89,6 +90,16 @@ def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     """The elementwise max over the ranks (JAX's ``pmax``): exact in any
     order."""
     return _all_reduce(x, dist.ReduceOp.MAX, group)
+
+
+def all_reduce_sum_int(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise sum over the ranks of an integer tensor: exact in
+    any order.  A float tensor raises (add float partials with
+    :func:`sum_in_order`)."""
+    if x.dtype.is_floating_point or x.dtype.is_complex:
+        raise ValueError(f"all_reduce_sum_int takes integers, got {x.dtype}: add float "
+                         "partials in rank order with sum_in_order")
+    return _all_reduce(x, dist.ReduceOp.SUM, group)
 
 
 def all_reduce_min(x: torch.Tensor, group) -> torch.Tensor:

@@ -54,7 +54,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 from ..config import DEFAULT_CONFIG, SolverConfig
 from ..ops.cuda import kernels
 from ..ops.solver import SolveResult, _finish, stop_check
-from ..ops.solver_matvec import _init_carry, _make_cond_body, _stored
+from ..ops.solver_matvec import _init_carry, _run_rounds, _stored
 from ._collectives import (
     all_gather,
     all_reduce_max,
@@ -186,14 +186,86 @@ def _ev0(n: int, dtype, device, ev0_scale) -> torch.Tensor:
 
 
 def _replicated_loop(next_v, n: int, dtype, device, eps, max_itr, eps_mode, ev0_scale):
-    """The single-card matvec-form round (``solver_matvec._make_cond_body``,
+    """The single-card matvec-form rounds (``solver_matvec._run_rounds``,
     ``_init_carry``, ``solver._finish``) over a ``next_v`` whose v is
-    replicated: the gathered and 2-D bodies."""
-    cond, body = _make_cond_body(next_v, eps, max_itr, eps_mode)
+    replicated: the gathered and 2-D bodies.  ``checkpoint.step`` runs the
+    same rounds over the same ``next_v`` a budget at a time
+    (:func:`placed_round`)."""
     c = _init_carry(n, next_v, dtype, device, _ev0(n, dtype, device, ev0_scale))
-    while cond(c):
-        c = body(c)
-    return _finish(c, max_itr)
+    return _finish(_run_rounds(next_v, c, eps, max_itr, eps_mode)[0], max_itr)
+
+
+def _rows_next_v(Aq: torch.Tensor, group, row0: int, product=kernels.matvec):
+    """The gathered body's round: the rank's rows (from global row
+    ``row0``) against the replicated ev, divided by ev's slice of those
+    rows, then v gathered in rank order."""
+    n_loc = Aq.shape[0]
+
+    def next_v(ev):
+        return all_gather(product(Aq, ev) / ev[row0:row0 + n_loc], group)
+
+    return next_v
+
+
+def _blocks_next_v(Aq: torch.Tensor, row_group, col_group, row0: int, col0: int):
+    """The 2-D body's round on the block at (``row0``, ``col0``): the block
+    product against ev's column chunk, the column partials added in column
+    order, divided by ev's row chunk, then v gathered along rows."""
+    n_r, n_c = Aq.shape
+
+    def next_v(ev):
+        y = sum_in_order(kernels.matvec(Aq, ev[col0:col0 + n_c]), col_group)
+        return all_gather(y / ev[row0:row0 + n_r], row_group)
+
+    return next_v
+
+
+def placed_block(A: DTensor) -> tuple:
+    """This rank's block of a DTensor ``A`` as a round reads it:
+    ``(local, row0, col0, dims)``, the local tensor (aligned, on the rank's
+    device), its global offsets, and the mesh dimensions that shard it.
+
+    ``Shard(0)`` on a 1-D mesh is a row block, ``(Shard(0), Shard(1))`` on a
+    2-D mesh a rows × cols block, ``Replicate()`` on every dimension the
+    whole matrix (no dimension shards it).  Any other placement raises, as
+    does a dimension of A that the mesh does not divide."""
+    mesh, pl = A.device_mesh, tuple(A.placements)
+    if all(isinstance(q, Replicate) for q in pl):
+        dims = ()
+    elif pl in ((Shard(0),), (Shard(0), Shard(1))):
+        dims = tuple(range(len(pl)))
+    else:
+        raise ValueError(
+            f"a DTensor A placed as {pl} on a {mesh.ndim}-D mesh: a step takes Shard(0) on "
+            "a 1-D mesh, (Shard(0), Shard(1)) on a 2-D rows x cols mesh, or Replicate() on "
+            "every dimension"
+        )
+    offs = [0, 0]
+    for d in dims:
+        size = mesh.size(d)
+        if A.shape[d] % size != 0:
+            raise ValueError(f"dim {A.shape[d]} not divisible by {size} shards")
+        offs[d] = mesh.get_local_rank(d) * (A.shape[d] // size)
+    local = A.to_local().to(_mesh_device(mesh)).contiguous()
+    if local.data_ptr() % 16:
+        local = local.clone()
+    return local, offs[0], offs[1], dims
+
+
+def placed_round(A: DTensor):
+    """The round of a sharded DTensor ``A`` (:func:`placed_block`): the
+    gathered body's for a row block, the 2-D body's for a rows × cols
+    block, over the block as stored (a 2-byte block is read in 2 bytes, the
+    state is f32).  Returns ``(next_v, local)``, ``next_v`` None for an A
+    replicated on every dimension, whose local tensor steps as on one
+    card."""
+    local, row0, col0, dims = placed_block(A)
+    mesh = A.device_mesh
+    if not dims:
+        return None, local
+    if len(dims) == 1:
+        return _rows_next_v(local, mesh.get_group(0), row0), local
+    return _blocks_next_v(local, mesh.get_group(0), mesh.get_group(1), row0, col0), local
 
 
 def _shard_round_body(A_blk: torch.Tensor, group, p: int, eps: float, max_itr: int,
@@ -259,11 +331,7 @@ def _shard_matvec_body(A_blk: torch.Tensor, group, p: int, eps: float, max_itr: 
     n_loc, n = A_blk.shape
     Aq, dtype = _stored(A_blk, storage_dtype)
     row0 = p * n_loc
-    product = kernels.matvec if use_kernel else kernels.matvec_plain
-
-    def next_v(ev):
-        return all_gather(product(Aq, ev) / ev[row0:row0 + n_loc], group)
-
+    next_v = _rows_next_v(Aq, group, row0, kernels.matvec if use_kernel else kernels.matvec_plain)
     res = _replicated_loop(next_v, n, dtype, Aq.device, eps, max_itr, eps_mode, ev0_scale)
     return res._replace(eigenvector=res.eigenvector[row0:row0 + n_loc].clone())
 
@@ -479,12 +547,8 @@ def _shard2d_matvec_body(A_blk: torch.Tensor, row_group, col_group, i_row: int, 
     n_r, n_c = A_blk.shape
     n = n_r * n_row_shards
     Aq, dtype = _stored(A_blk, storage_dtype)
-    row0, col0 = i_row * n_r, i_col * n_c
-
-    def next_v(ev):
-        y = sum_in_order(kernels.matvec(Aq, ev[col0:col0 + n_c]), col_group)
-        return all_gather(y / ev[row0:row0 + n_r], row_group)
-
+    row0 = i_row * n_r
+    next_v = _blocks_next_v(Aq, row_group, col_group, row0, i_col * n_c)
     res = _replicated_loop(next_v, n, dtype, Aq.device, eps, max_itr, eps_mode, ev0_scale)
     return res._replace(eigenvector=res.eigenvector[row0:row0 + n_r].clone())
 

@@ -7,12 +7,15 @@ Every rank builds the same numpy inputs from fixed seeds (:func:`inputs`;
 joins a WORLD-rank gloo group at ``localhost:PORT``, and runs every case of
 :func:`cases` for that world size in the one group.  Rank 0 prints one JSON
 line: per case λ, rounds, converged and the whole eigenvector (gathered
-from its DTensor), and each rank's (λ, rounds).  Imports torch, numpy and
-the port only (no jax, no pytest): the tests launch it as a subprocess.
+from its DTensor), and each rank's (λ, rounds).  The ``step_*`` and
+``checkpointed_*`` cases step a DTensor A through ``checkpoint`` in
+chunks.  Imports torch, numpy and the port only (no jax, no pytest): the
+tests launch it as a subprocess.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -50,7 +53,9 @@ def cases(world: int) -> list:
              "pair_gather", "pair_ring", "pair_iterated", "pair_2d", "api_auto", "api_matvec",
              "api_matvec_pallas", "api_xla", "api_validate", "api_2d", "api_batch",
              "api_batch_rows", "assembled_gather", "assembled_2d", "bf16_gather", "bf16_ring",
-             "bf16_2d", "bf16_batch_rows", "bf16_api", "bf16_prequantized"]
+             "bf16_2d", "bf16_batch_rows", "bf16_api", "bf16_prequantized", "step_rows",
+             "step_rows_1", "step_2d", "step_rows_bf16", "checkpointed_rows",
+             "checkpointed_npz_rows"]
     for pr, pc in SHAPES_2D[world]:
         names += [f"2d_{pr}x{pc}", f"batch_rows_{pr}x{pc}"]
     return names
@@ -127,8 +132,84 @@ def run_case(name: str, world: int, data: dict, meshes):
         "bf16_api": lambda: evt.max_eigenvalue(t["random256"], bf16, mesh=rows),
         "bf16_prequantized": lambda: evt.max_eigenvalue(
             t["random256"].to(torch.bfloat16), bf16, mesh=rows),
+        "step_rows": lambda: stepped(rows_of(H, rows), [3, 3, 1000]),
+        "step_rows_1": lambda: stepped(rows_of(H, rows), [1] * 20),
+        "step_2d": lambda: stepped(assembled_2d(H, sq), [3, 3, 1000]),
+        "step_rows_bf16": lambda: stepped(rows_of(H.to(torch.bfloat16), rows), [3, 3, 1000]),
+        "checkpointed_rows": lambda: checkpointed(rows_of(H, rows)),
+        "checkpointed_npz_rows": lambda: checkpointed_npz(rows_of(H, rows)),
     }
     return run[name]()
+
+
+def rows_of(H, mesh):
+    """H as a ``Shard(0)`` DTensor on the 1-D ``mesh``, from this rank's rows."""
+    import torch
+
+    from eigen_value_tpu_torch.parallel import assemble_rowsharded
+
+    mine = torch.tensor_split(torch.arange(H.shape[0]), mesh.size(0))[mesh.get_local_rank(0)]
+    return assemble_rowsharded(H[mine], mesh)
+
+
+def stepped(A, chunks):
+    """``checkpoint.step`` of ``A`` in ``chunks`` from ``init_state``."""
+    from eigen_value_tpu_torch import checkpoint
+
+    state = checkpoint.init_state(A)
+    for k in chunks:
+        state = checkpoint.step(state, k)
+    return checkpoint.to_result(state)
+
+
+@contextlib.contextmanager
+def shared_dir():
+    """A directory made by rank 0, its name sent to every rank, removed by
+    rank 0 once every rank is done with it."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    name = [tempfile.mkdtemp(prefix="evt_mesh_") if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(name, src=0)
+    try:
+        yield name[0]
+    finally:
+        dist.barrier()
+        if dist.get_rank() == 0:
+            shutil.rmtree(name[0])
+
+
+def checkpointed(A):
+    """Two steps of 3 rounds, a ``save_state_orbax`` snapshot loaded into a
+    fresh state, then the rest."""
+    import os
+
+    from eigen_value_tpu_torch import checkpoint
+
+    state = checkpoint.step(checkpoint.step(checkpoint.init_state(A), 3), 3)
+    with shared_dir() as d:
+        checkpoint.save_state_orbax(os.path.join(d, "state"), state)
+        state = checkpoint.load_state_orbax(os.path.join(d, "state"), checkpoint.init_state(A))
+    return checkpoint.to_result(checkpoint.step(state, 1000))
+
+
+def checkpointed_npz(A):
+    """``solve_checkpointed`` to a shared ``.npz`` (rank 0 writes the
+    gathered A), then a resume from a snapshot taken after 4 rounds."""
+    import os
+
+    from eigen_value_tpu_torch import checkpoint
+
+    with shared_dir() as d:
+        path = os.path.join(d, "state.npz")
+        whole = checkpoint.solve_checkpointed(A, 4, path)
+        checkpoint.save_state(path, checkpoint.step(checkpoint.init_state(A), 4), eps=1e-3)
+        resumed = checkpoint.solve_checkpointed(A, 3, path)
+    for x, y in zip(whole, resumed):
+        assert bool((x == y).all()), "a resumed solve differs from the whole one"
+    return resumed
 
 
 def rank() -> int:
@@ -179,9 +260,14 @@ def main(argv) -> int:
         dist.all_gather_object(ranks, mine)
         out[name] = {"eigenvalue": full[0].tolist(), "eigenvector": full[1].tolist(),
                      "rounds": full[2].tolist(), "converged": full[3].tolist(), "ranks": ranks}
-    blocks = assembled_2d(torch.from_numpy(data["hilbert256"]), meshes("2d", *square_2d(world)))
-    out["assembled_2d"]["placed_equal"] = bool(
-        torch.equal(blocks.full_tensor(), torch.from_numpy(data["hilbert256"])))
+    from eigen_value_tpu_torch.checkpoint import _matrix_digest
+
+    H = torch.from_numpy(data["hilbert256"])
+    blocks = assembled_2d(H, meshes("2d", *square_2d(world)))
+    out["assembled_2d"]["placed_equal"] = bool(torch.equal(blocks.full_tensor(), H))
+    # the digest of the A each stepping case stepped, summed over the ranks
+    out["step_rows"]["digest"] = int(_matrix_digest(rows_of(H, meshes("rows"))))
+    out["step_2d"]["digest"] = int(_matrix_digest(blocks))
     if r == 0:
         print(json.dumps(out), flush=True)
     dist.destroy_process_group()

@@ -1,8 +1,9 @@
 """The port's checkpoint and resume (``eigen_value_tpu_torch/checkpoint.py``)
 against the JAX package's ``checkpoint``.
 
-Counterparts of tests/test_checkpoint.py, except Orbax and the sharded
-stepping (which wait for the sharded solves): the same Hilbert inputs go to
+Counterparts of tests/test_checkpoint.py on one device (a sharded A's
+stepping is held in tests/test_torch_sharded.py and tests/test_torch_tools.py,
+Orbax's counterpart here on one process): the same Hilbert inputs go to
 both packages, the port on the CPU, where a step runs the multiround
 kernel's plain version (or the matvec loop past the kernel's limit).
 Within the port chunked stepping is held bit for bit to the one-launch

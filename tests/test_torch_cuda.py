@@ -1158,6 +1158,44 @@ def test_a_cuda_exchange_over_gloo_raises(cuda, nccl):
             fn()
 
 
+@pytest.mark.parametrize("storage", [None, torch.bfloat16])
+@pytest.mark.parametrize("placement", ["rows", "2d"])
+def test_one_rank_stepping_of_a_sharded_a_is_the_unsharded_step(cuda, nccl, placement, storage):
+    from eigen_value_tpu_torch import checkpoint as cp
+    from eigen_value_tpu_torch.parallel import assemble_blocksharded, assemble_rowsharded
+
+    H = tfx.hilbert_matrix(1024, device=cuda)
+    if storage is not None:
+        H = H.to(storage)
+    A = (assemble_rowsharded(H, nccl["rows"]) if placement == "rows"
+         else assemble_blocksharded(H, nccl["2d"]))
+
+    def stepped(M):
+        state = cp.init_state(M)
+        for k in (5, 5, MAX_ITR):
+            state = cp.step(state, k)
+        return state
+
+    want = stepped(H)  # one multiround launch a step
+    before = tk.matvec.launches
+    got = stepped(A)
+    torch.cuda.synchronize()
+    assert tk.matvec.launches - before == int(want.rounds) + 1
+    assert all(torch.equal(g, w) for g, w in zip(got[1:], want[1:]))
+    assert int(got.rounds) == tfx.HILBERT_ROUNDS[1024] and bool(got.done)
+
+
+@pytest.mark.parametrize("n", [128, 256, 512, 1024, 2048])
+def test_the_parallel_oracle_agrees_with_the_card(cuda, n):
+    from eigen_value_tpu_torch.reference_impl import parallel_oracle
+
+    H = tfx.hilbert_matrix(n, device=cuda)
+    got = parallel_oracle(H.cpu().numpy())
+    lam = float(evt.max_eigenvalue(H).eigenvalue)
+    assert got.converged and got.rounds == tfx.HILBERT_ROUNDS[n]
+    assert abs(got.eigenvalue - lam) <= 1e-5 * lam
+
+
 # --- the headline and the tools on the card -------------------------------------------
 
 

@@ -5,8 +5,9 @@ Groups of 2 and 4 OS processes, each one rank of a gloo group on the CPU,
 run ``eigen_value_tpu_torch.bench.mh_worker``: ``multihost.initialize``,
 each process building only its own Hilbert rows, ``assemble_rowsharded`` /
 ``assemble_blocksharded``, and the gathered, ring, 2-D, iterated and
-batched solves in the one group (the 4-process group as two simulated hosts
-of two ranks, so its 2-D mesh is 2 × 2).  JAX's checks: rounds equal to the
+batched solves and the row-sharded A stepped through ``checkpoint`` in the
+one group (the 4-process group as two simulated hosts of two ranks, so its
+2-D mesh is 2 × 2).  JAX's checks: rounds equal to the
 table, λ within 1e-3 of the reference oracle, the eigen-pair residual below
 1e-3, and λ bit-equal across processes.
 """
@@ -19,7 +20,7 @@ from eigen_value_tpu.reference_impl import parallel_oracle
 from eigen_value_tpu_torch.bench import run_mh_workers
 
 DIM = 256
-SOLVERS = ("gather", "ring", "2d", "iterated", "batched")
+SOLVERS = ("gather", "ring", "2d", "iterated", "batched", "stepped")
 _RUNS: dict = {}
 
 
@@ -56,3 +57,10 @@ def test_multi_process_solve_parity(nprocs, solver):
 def test_the_2d_mesh_is_hosts_by_ranks_of_a_host(nprocs, shape):
     for res in run_group(nprocs):
         assert res["results"]["2d"]["mesh"] == shape
+
+
+@pytest.mark.parametrize("nprocs", [2, 4])
+def test_stepping_the_row_sharded_a_is_the_gathered_solve(nprocs):
+    for res in run_group(nprocs):
+        got, want = res["results"]["stepped"], res["results"]["gather"]
+        assert (got["rounds"], got["eigenvalue"]) == (want["rounds"], want["eigenvalue"])

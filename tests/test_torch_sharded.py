@@ -13,10 +13,18 @@ dot) and ev within 1e-5.  bf16
 storage follows the port's one storage contract, so it is held against the
 port's own single-device storage solve (rounds within ±1, as JAX's sharded
 storage tests allow) and the reference oracle, never against JAX's
-quantized-operand sharded bodies.  A world of one rank (a gloo group in
-this process) holds each body bit for bit against the single-device solve.
-The rejections run in this process with no group spawned.
+quantized-operand sharded bodies.  A DTensor A stepped through
+``checkpoint`` is held against JAX's ``checkpoint.step`` of the sharded
+``jax.Array`` with the tolerances of JAX's own tests
+(``tests/test_checkpoint.py``: rounds exact; λ and ev within 1e-5 for
+rows, λ within rel 1e-6 for 2-D), and bit for bit against the whole
+sharded solve of the same body.  A world of one rank (a gloo group in
+this process) holds each body and each stepping bit for bit against the
+single-device solve or step.  The rejections run in this process with no
+group spawned.
 """
+
+import functools
 
 import json
 import os
@@ -30,9 +38,10 @@ import jax
 import jax.numpy as jnp
 import torch
 import torch.distributed as dist
-from jax.sharding import Mesh
+from jax.sharding import Mesh, NamedSharding, PartitionSpec
 
 import _torch_mesh_cases as mc
+from eigen_value_tpu import checkpoint as jcp
 from eigen_value_tpu import fixtures as jfx
 from eigen_value_tpu.config import SolverConfig as JConfig
 from eigen_value_tpu.parallel import multihost as jmh
@@ -40,6 +49,7 @@ from eigen_value_tpu.parallel import sharded as jsh
 from eigen_value_tpu.parallel.batched import solve_batched_sharded as j_batched_sharded
 from eigen_value_tpu.reference_impl import parallel_oracle
 import eigen_value_tpu_torch as evt
+from eigen_value_tpu_torch import checkpoint as cp
 from eigen_value_tpu_torch.ops import solver_matvec as sm
 from eigen_value_tpu_torch.ops.cuda import kernels as tk
 from eigen_value_tpu_torch.ops.solver import solve_xla
@@ -184,6 +194,57 @@ def test_the_doors_equal_the_direct_calls(world, door, direct):
         assert got["placed_equal"]
 
 
+@functools.lru_cache(maxsize=None)
+def jax_stepped(world: int, kind: str):
+    """JAX's ``checkpoint.step(checkpoint.init_state(Hs), 1000)`` of Hilbert
+    256 sharded over rows of ``cpu_mesh(world)``, or over the 2-D mesh of
+    ``square_2d(world)``."""
+    H = jnp.asarray(DATA["hilbert256"])
+    if kind == "rows":
+        sharding = NamedSharding(cpu_mesh(world), PartitionSpec("rows", None))
+    else:
+        sharding = NamedSharding(jsh.make_mesh2d(*mc.square_2d(world)),
+                                 PartitionSpec("rows", "cols"))
+    return jcp.step(jcp.init_state(jax.device_put(H, sharding)), 1000)
+
+
+#: (the stepped case, how its A is sharded, the whole sharded solve it equals)
+STEPPED = [("step_rows", "rows", "gather"), ("step_rows_1", "rows", "gather"),
+           ("checkpointed_rows", "rows", "gather"), ("checkpointed_npz_rows", "rows", "gather"),
+           ("step_2d", "2d", "2d"), ("step_rows_bf16", "rows", "bf16_gather")]
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("case, kind", [c[:2] for c in STEPPED if "bf16" not in c[0]])
+def test_stepping_a_sharded_a_matches_jaxs_sharded_step(world, case, kind):
+    got, want = group(world)[case], jax_stepped(world, kind)
+    assert bool(want.done) and got["converged"]
+    assert got["rounds"] == int(want.rounds) == jfx.HILBERT_ROUNDS[256]
+    if kind == "rows":
+        assert abs(got["eigenvalue"] - float(want.lam)) < 1e-5
+        np.testing.assert_allclose(np.asarray(got["eigenvector"]), np.asarray(want.ev),
+                                   atol=1e-5)
+    else:
+        assert got["eigenvalue"] == pytest.approx(float(want.lam), rel=1e-6)
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("case, whole", [(c[0], c[2]) for c in STEPPED])
+def test_stepping_in_chunks_is_the_whole_sharded_solve_bit_for_bit(world, case, whole):
+    if whole == "2d":
+        whole += "_{}x{}".format(*mc.square_2d(world))
+    got, want = group(world)[case], group(world)[whole]
+    for key in ("eigenvalue", "eigenvector", "rounds", "converged"):
+        assert got[key] == want[key], key
+
+
+@pytest.mark.parametrize("world", [2, 4])
+@pytest.mark.parametrize("case", ["step_rows", "step_2d"])
+def test_a_sharded_digest_is_the_whole_matrixs(world, case):
+    want = int(jcp._matrix_digest(jnp.asarray(DATA["hilbert256"])))
+    assert group(world)[case]["digest"] == want
+
+
 @pytest.mark.parametrize("world", [2, 4])
 def test_every_rank_runs_in_lockstep(world):
     for case, res in group(world).items():
@@ -284,7 +345,21 @@ ONE_RANK = {
     "bf16_2d": lambda: sm.solve_matvec_kernel(H_T, EPS, MAX_ITR, **BF16),
     "bf16_batch_rows": lambda: tb.solve_batched(torch.from_numpy(DATA["batch4x128"]), EPS,
                                                 MAX_ITR, **BF16),
+    "step_rows": lambda: _stepped(H_T, [3, 3, 1000]),
+    "step_rows_1": lambda: _stepped(H_T, [1] * 20),
+    "step_2d": lambda: _stepped(H_T, [3, 3, 1000]),
+    "step_rows_bf16": lambda: _stepped(H_T.to(torch.bfloat16), [3, 3, 1000]),
+    "checkpointed_rows": lambda: _stepped(H_T, [3, 3, 1000]),
+    "checkpointed_npz_rows": lambda: _stepped(H_T, [4, 1000]),
 }
+
+
+def _stepped(A, chunks):
+    """The port's unsharded ``checkpoint.step`` of ``A`` in ``chunks``."""
+    state = cp.init_state(A)
+    for k in chunks:
+        state = cp.step(state, k)
+    return cp.to_result(state)
 
 
 @pytest.mark.parametrize("case", sorted(ONE_RANK))

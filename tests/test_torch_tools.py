@@ -1,5 +1,5 @@
 """The port's tools against the JAX package's, as far as the CPU can say:
-the packages' exports, the checkpoint's refusal of a sharded A, the timing
+the packages' exports, the checkpoint's stepping of a DTensor A, the timing
 helpers, the scaling model (every function on the JAX package's v5e spec,
 exactly; the H100 spec's fields), the calibrate, model, native, large and
 drift suites' rows and tables, the profiling helpers and ``python -m
@@ -8,6 +8,7 @@ eigen_value_tpu_torch``.
 
 import json
 import math
+import re
 import os
 import subprocess
 import sys
@@ -79,7 +80,7 @@ def test_checkpoint_and_the_ops_names_are_the_modules_own():
     assert tbench.suite is tsuite
 
 
-# --- a sharded A is refused by the checkpoint, by name ---------------------------
+# --- the checkpoint steps a DTensor A ---------------------------------------------
 
 
 @pytest.fixture(scope="module")
@@ -94,17 +95,44 @@ def one_rank_mesh():
         dist.destroy_process_group()
 
 
-def test_the_checkpoint_refuses_a_sharded_a_by_name(one_rank_mesh):
-    from torch.distributed.tensor import Shard, distribute_tensor
+def _equal(got, want) -> bool:
+    return all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_the_checkpoint_steps_a_sharded_a_to_the_whole_matrixs_bits(one_rank_mesh):
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 
     H = tfx.hilbert_matrix(128)
     A = distribute_tensor(H, one_rank_mesh, [Shard(0)])
+    state = cp.init_state(A)
+    assert state.A is A and _equal(state[1:], cp.init_state(H)[1:])
+    assert _equal(cp.step(state, 4)[1:], cp.step(cp.init_state(H), 4)[1:])
+    assert _equal(cp.step(cp.init_state(H)._replace(A=A), 4)[1:],
+                  cp.step(cp.init_state(H), 4)[1:])
+    got = cp.solve_checkpointed(A, 4)
+    assert _equal(got, cp.solve_checkpointed(H, 4))
+    assert not any(isinstance(x, DTensor) for x in got)
+    assert int(got.rounds) == tfx.HILBERT_ROUNDS[128]
+    # the whole matrix steps as before
+    assert int(cp.solve_checkpointed(A.full_tensor(), 4).rounds) == tfx.HILBERT_ROUNDS[128]
+
+
+def _placed(mesh, name: str):
+    from torch.distributed.tensor import DTensor, Partial, Shard
+
+    H = tfx.hilbert_matrix(128)
+    return DTensor.from_local(H, mesh, [{"Shard(1)": Shard(1), "Partial": Partial()}[name]],
+                              run_check=False)
+
+
+@pytest.mark.parametrize("name, shown", [("Shard(1)", "Shard(dim=1)"), ("Partial", "Partial(sum)")])
+def test_an_unsupported_placement_is_refused_by_name(one_rank_mesh, name, shown):
+    A = _placed(one_rank_mesh, name)
+    H = tfx.hilbert_matrix(128)
     for call in (lambda: cp.init_state(A), lambda: cp.solve_checkpointed(A, 4),
                  lambda: cp.step(cp.init_state(H)._replace(A=A), 4)):
-        with pytest.raises(ValueError, match=r"DTensor .*Queue 1 item 16"):
+        with pytest.raises(ValueError, match=rf"placed as \({re.escape(shown)},\) on a 1-D mesh"):
             call()
-    # the whole matrix still steps as before
-    assert int(cp.solve_checkpointed(A.full_tensor(), 4).rounds) == tfx.HILBERT_ROUNDS[128]
 
 
 # --- timing ------------------------------------------------------------------------
