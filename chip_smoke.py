@@ -152,7 +152,8 @@ and the median of 12 whole-budget launches of each dot instance beside its
 The last two variants of the triangle kernel (``mixed_fill_phase``, step
 11): ``formulation="mixed"`` (the last m resident tiles in 3xTF32, m by the
 JAX package's rule, every other tile "vpu") and ``fill_mode="pipelined"``
-(the resident tiles brought by bulk copies waited for at first use).  One
+(the resident tiles brought by one 2-D tensor copy a tile, each waited for
+at first use).  One
 launch of each at 8192² against its plain version (Hilbert, Hilbert scaled
 at random, bf16, dense tiled; max |kernel − plain| ≤ 1e-5); then, with the
 launch counters read around each solve, ``solve_multiround(symmetric=True,
@@ -163,7 +164,9 @@ resident and both packages refuse); the bit identities (chunk 1 / 5 /
 whole budget, ``mxu_tiles=0`` against "vpu", pipelined against the
 prologue fill for vpu, dot and mixed, a pipelined launch that stops at
 round 0, the lower block triangle, A_q against A_q.float()); and the median
-of 12 whole-budget launches of each beside "vpu", interleaved.
+of 12 whole-budget launches of each beside "vpu", interleaved, every
+pipelined instance (vpu, dot, mixed; f32 and bf16) beside its prologue twin
+with both fills' ``fill_us`` from the kernel's fill stamps.
 
 The NumPy oracles and a sharded A stepped through the checkpoint
 (``oracle_stepping_phase``, step 12): ``python3 -m
@@ -1410,13 +1413,14 @@ def dot_phase(dev, mats, same, reset_counts, read_counts, card) -> dict:
 def mixed_fill_phase(dev, mats, same, reset_counts, read_counts, card) -> dict:
     """The last two variants of the triangle kernel (step 11):
     ``formulation="mixed"`` (the last m resident tiles in 3xTF32, the rest
-    "vpu") and ``fill_mode="pipelined"`` (the resident tiles brought by bulk
-    copies waited for at first use).  Returns the numbers of their records:
-    launches on the main path, the max abs error against the plain version,
-    the times and the share m."""
+    "vpu") and ``fill_mode="pipelined"`` (the resident tiles brought by 2-D
+    tensor copies waited for at first use).  Returns the numbers of their
+    records: launches on the main path, the max abs error against the plain
+    version, the times, the fills' µs and the share m."""
     import torch
 
     import eigen_value_tpu_torch as evt
+    import kernel_phases
     from eigen_value_tpu_torch import fixtures
     from eigen_value_tpu_torch.device import sym_auto_cache_tiles
     from eigen_value_tpu_torch.ops.cuda import kernels
@@ -1612,14 +1616,25 @@ def mixed_fill_phase(dev, mats, same, reset_counts, read_counts, card) -> dict:
         return lambda: kernels.multiround_sym(A, x1, x1, z, evt.MAX_ITR, cache_tiles=c,
                                               **whole, **kw)
 
-    timed = {}
+    timed, grids = {}, {}
     for name, A, c in (("f32", H, auto), ("bf16", H_q, auto_q)):
-        timed[f"vpu {name}"] = launch(A, c)
-        timed[f"mixed {name}"] = launch(A, c, formulation="mixed")
-        timed[f"pipelined {name}"] = launch(A, c, fill_mode="pipelined")
-        timed[f"mixed + pipelined {name}"] = launch(A, c, formulation="mixed",
-                                                    fill_mode="pipelined")
+        c_dot = sym_auto_cache_tiles(n, bt, dev, itemsize=A.element_size(), ring=False)
+        for form, fc in (("vpu", c), ("mixed", c), ("dot", c_dot)):
+            for fill in ("prologue", "pipelined"):
+                k = f"{form} {name}" if fill == "prologue" else \
+                    f"pipelined {name}" if form == "vpu" else f"{form} + pipelined {name}"
+                timed[k] = launch(A, fc, formulation=form, fill_mode=fill)
+                sized = {} if A.dtype == torch.float32 else {"dtype": A.dtype}
+                grids[k] = kernels.multiround_sym_plan(
+                    dev, n, bt, fc, True, **sized, **({form: True} if form != "vpu" else {}),
+                    **({"pipelined": True} if fill == "pipelined" else {})).grid
     ms = interleaved_ms(timed, reps=12)
+    # each fill's own µs from the kernel's fill stamps, one more launch each:
+    # the prologue fill from the launch's start (ev's load in it), the pipelined
+    # fill's issue
+    fill_us = {k: kernel_phases.stamped_split(kernels, fn, "multiround_sym", grids[k], dev,
+                                              rounds=[0], fill=True).get("fill_us")
+               for k, fn in timed.items()}
     passes = int(timed["mixed f32"]()[2]) + 1
     plain = {
         "mixed": time_call(lambda: kernels.multiround_sym_plain(
@@ -1632,11 +1647,19 @@ def mixed_fill_phase(dev, mats, same, reset_counts, read_counts, card) -> dict:
     say(f"mixed / pipelined times at {n}², {passes} passes, card {card} (median of 12 "
         f"whole-budget launches, interleaved; f32 cache {auto}, bf16 cache {auto_q}):")
     for k, v in ms.items():
-        say(f"  {k}: {v:.4f} ms")
+        say(f"  {k}: {v:.4f} ms, fill {fill_us[k]:.3f} µs")
+    for name in ("f32", "bf16"):
+        for form in ("vpu", "dot", "mixed"):
+            k = f"{form} {name}"
+            kp = f"pipelined {name}" if form == "vpu" else f"{form} + pipelined {name}"
+            say(f"  {k}: pipelined fill {ms[kp]:.4f} ms (issue {fill_us[kp]:.3f} µs) against "
+                f"the prologue fill {ms[k]:.4f} ms (fill {fill_us[k]:.3f} µs): "
+                f"{100 * (ms[kp] / ms[k] - 1):+.2f}%")
     say(f"  plain versions (f32): mixed {plain['mixed']:.4f} ms, pipelined "
         f"{plain['pipelined']:.4f} ms")
-    return {"launches": launches, "err": err, "ms": ms, "plain_ms": plain, "passes": passes,
-            "auto": auto, "auto_q": auto_q, "m": m[torch.float32], "m_q": m[bf16]}
+    return {"launches": launches, "err": err, "ms": ms, "fill_us": fill_us, "plain_ms": plain,
+            "passes": passes, "auto": auto, "auto_q": auto_q, "m": m[torch.float32],
+            "m_q": m[bf16]}
 
 
 def oracle_stepping_phase(dev, here, mats, auto, same, reset_counts, read_counts,
@@ -3088,7 +3111,15 @@ def main() -> int:
                prologue_fill_ms=p11["ms"]["vpu f32"], bf16_ms=p11["ms"]["pipelined bf16"],
                bf16_prologue_fill_ms=p11["ms"]["vpu bf16"],
                mixed_ms=p11["ms"]["mixed + pipelined f32"],
-               mixed_bf16_ms=p11["ms"]["mixed + pipelined bf16"], passes=p11["passes"]),
+               mixed_bf16_ms=p11["ms"]["mixed + pipelined bf16"],
+               dot_ms=p11["ms"]["dot + pipelined f32"],
+               dot_prologue_fill_ms=p11["ms"]["dot f32"],
+               dot_bf16_ms=p11["ms"]["dot + pipelined bf16"],
+               dot_bf16_prologue_fill_ms=p11["ms"]["dot bf16"],
+               fill_us=p11["fill_us"], passes=p11["passes"],
+               passes_bound_ms=bound(p11["passes"] * tri_streamed + cache * tile_mb,
+                                     0)["bound_ms"],
+               resident_bound_ms=resident_bound(tri_bytes, cache * tile_mb)),
     ]}, allow_nan=False))
     say(f"wall: {time.perf_counter() - t_start:.1f} s")
     say(smi)

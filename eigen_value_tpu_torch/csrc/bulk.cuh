@@ -2,7 +2,8 @@
 // mbarrier (the Tensor Memory Accelerator, sm_90: the 1-D form for a
 // contiguous run of bytes, the 2-D form for a box of a matrix described by
 // a tensor map), and the barrier operations around them.  Shared by multiround.cu and
-// multiround_sym.cu, whose 2-byte rings stream A through them.
+// multiround_sym.cu, whose 2-byte rings stream A through them and whose
+// pipelined fill brings its resident tiles by 2-D copies.
 //
 // A copy of `bytes` (a multiple of 16, both addresses 16-byte aligned) is
 // counted on its barrier by `mbar_expect` (one arrival that also expects the
@@ -72,9 +73,6 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
       : "memory");
 }
 
-// The 2-D tile of a tensor map (`tmap`, a __grid_constant__ parameter)
-// whose first element is column x, row y, into `dst` (128-byte aligned) in
-// the map's box layout: its rows one after another.
 // Asks the L2 for `bytes` (a multiple of 16) of device memory from src on,
 // with an L2 policy; nothing waits for it.  The copy engine takes 16-byte
 // units, so where src is only 8-byte aligned (a row of a 2-byte A) the unit
@@ -87,6 +85,9 @@ __device__ __forceinline__ void bulk_prefetch_l2(const void* src, unsigned bytes
                : "memory");
 }
 
+// The 2-D tile of a tensor map (`tmap`, a __grid_constant__ parameter)
+// whose first element is column x, row y, into `dst` (128-byte aligned) in
+// the map's box layout: its rows one after another.
 __device__ __forceinline__ void tensor_copy_2d(void* dst, const void* tmap, int x, int y,
                                                unsigned long long* bar,
                                                unsigned long long policy) {

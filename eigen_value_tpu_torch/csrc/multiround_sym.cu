@@ -169,24 +169,47 @@
 // bytes (ptxas) and the bf16 launch was slower than without, with the same
 // bits (8192^2, PERF.md §6).
 //
-// The pipelined fill (kFill; `fill` = 1 at the C entry), an instance of its
-// own beside each of the others: the resident tiles are brought by bulk
-// copies (bulk.cuh, one cp.async.bulk of bt * sizeof(S) bytes a row, with
-// the evict_first policy of the plain fill)
-// that complete on one mbarrier per resident slot of the block, placed after
-// the tiles.  Thread 0 initialises the barriers and expects each tile's
-// bytes; after the block barrier that every launch has (ev), the block's
-// threads issue all of the block's rows at once and go straight to round 0,
-// where a warp waits on its tile's barrier (parity 0) before the tile's
-// first read; no barrier is re-armed.  The TPU kernel issued a step's tiles
-// one step ahead only because its DMA queue is 8 deep (kernels.py:779-800,
-// :943-946); Hopper's copy engine queues them all.  A launch whose rounds
-// stop before round 0's tile phase still waits for every copy before the
-// block exits.  The bytes that land are the prologue fill's, so the bits
-// are the prologue fill's.  (A launch argument read by every instance, the
-// first design, moved the f32 dot instance's spills from 40 to 64 bytes of
-// stores and cost the dense tiled dot launch 9.5% at 8192^2; PERF.md.  As a
-// template parameter it leaves the other instances as they were.)
+// The pipelined fill (kFill; `fill` > 0 at the C entry), an instance of its
+// own beside each of the others: the resident tiles are brought by 2-D
+// tensor copies of the Tensor Memory Accelerator, one a work item (a whole
+// tile, or one of its `split` row spans where different warps take them),
+// each from a second tensor map of A whose box is one item (bt / split rows
+// x bt columns; `fmap`, the kernel's last parameter, a placeholder in the
+// other instances), with the evict_first policy of the plain fill (the
+// map's L2 promotion instead was slower: PERF.md §6), into the item's place
+// in its tile.  The tiles start 128-byte aligned, as a copy's destination
+// must: the dynamic shared memory's base is declared so and n % 128 == 0
+// (checked before the first copy).  Each copy completes on an mbarrier of
+// its own, placed after the tiles.  Before ev is loaded (and before round
+// 0's prologue on a launch that is not a solve's first), the lanes of warp
+// 0 read the block's tile indices at once and thread 0 initialises the
+// barriers and issues every copy, in the order warps first reach the items
+// (a thread reading the indices one by one took 4 us a launch).  In round 0
+// a warp waits on its item's barrier (parity 0) before the item's first
+// read; the resident items come after the streamed ones in a warp's order,
+// so the copies land while the streamed tiles are read; no barrier is
+// re-armed.  The TPU kernel issued a step's tiles one step ahead only
+// because its DMA queue is 8 deep (kernels.py:779-800, :943-946); the copy
+// engine here takes them all at once.  A launch whose rounds stop before
+// round 0's tile phase still waits for every copy before the block exits.
+// The bytes that land are the prologue fill's, so the bits are the
+// prologue fill's.  Measured at 8192^2 with the auto caches (NVIDIA H100
+// 80GB HBM3, 700 W; kernel_phases.py against the prologue twins in one
+// process, PERF.md §6): the prologue fill takes 10.5 us (f32) and 8.9 us
+// (bf16) from the launch's start, ev's load in it, the issue 0.8-1.3 us;
+// the copies slow round 0's streamed tiles by about 1 us (the fill's bytes
+// share the memory with them), and the launches came to -0.9..+0.4% of
+// their prologue twins' in f32, -0.8..+1.6% in 2 bytes (the 2-byte mixed
+// twins lose in their rounds).  (The first design, one 1-D bulk copy a row
+// issued by all 512 threads, 384 copies a block in f32 at 8192^2, saved
+// nothing over the prologue fill and spilled 88-276 bytes in the dot and
+// mixed twins.  A launch argument read by every instance, before that,
+// moved the f32 dot instance's spills from 40 to 64 bytes of stores and
+// cost the dense tiled dot launch 9.5% at 8192^2; as a template parameter
+// the fill leaves the other instances as they were.)
+// With stamps, every instance also stamps its fill (fill_stamp): the
+// prologue fill from the launch's start (ev's load is in it) to after its
+// loads and block barrier, the pipelined fill around thread 0's issue.
 #include <cooperative_groups.h>
 #include <cuda.h>  // CUtensorMap and its enums (the encoder is fetched at run time)
 #include <cuda_runtime.h>
@@ -224,16 +247,34 @@ constexpr size_t stage_bytes() {
   return static_cast<size_t>(kAhead) * kChunk * sizeof(S);
 }
 
-// Dynamic shared memory: ev (n floats) | resident tiles (slots * bt^2
-// elements of S, A's storage type) | with the pipelined fill, one mbarrier a
-// slot | up to 128 bytes to align the ring (a tensor copy's destination) |
-// ring stages (kWarps * ring) | their mbarriers (kWarps * ring).
-// device.sym_smem_bytes mirrors this.
+// Dynamic shared memory (its base 128-byte aligned): ev (n floats) |
+// resident tiles (slots * bt^2 elements of S, A's storage type) | with the
+// pipelined fill, one mbarrier a copy (`fill` a slot) | up to 128 bytes to
+// align the ring (a tensor copy's destination) | ring stages (kWarps *
+// ring) | their mbarriers (kWarps * ring).  device.sym_smem_bytes mirrors
+// this.
 template <class S>
 size_t smem_bytes(int n, int bt, int slots, int ring, int fill) {
   return static_cast<size_t>(n) * sizeof(float) +
-         static_cast<size_t>(slots) * bt * bt * sizeof(S) + (fill ? 8 * slots : 0) +
+         static_cast<size_t>(slots) * bt * bt * sizeof(S) + static_cast<size_t>(8) * slots * fill +
          (ring ? 128 + static_cast<size_t>(ring) * kWarps * (stage_bytes<S>() + 8) : 0);
+}
+
+// With stamps, thread 0 of every block writes the card's nanosecond timer
+// before (p = 0) and after (p = 1) the resident tiles' fill, in the two
+// words a block that follow the rounds' stamps (prologue.cuh stamp).  A
+// call, not inlined: inlined, the two stamps moved the 2-byte register
+// instances from 114 to 115 registers and the f32 ring instance from 0 to
+// 16 bytes of spill stores, and after ev's load the first one slowed the
+// f32 instance's sum phase by 0.3 us a round (ptxas, kernel_phases.py);
+// as calls, at the launch's start and after the fill, they leave every
+// prologue-fill instance's registers, spills and time as they were.
+__device__ __noinline__ void fill_stamp(unsigned long long* stamps, int p) {
+  if (stamps == nullptr || threadIdx.x != 0) return;
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  stamps[(static_cast<size_t>(evt::kStampRounds) * evt::kStampPhases + p) * gridDim.x +
+         blockIdx.x] = t;
 }
 
 __device__ __forceinline__ float warp_sum(float a) {
@@ -508,15 +549,6 @@ __device__ __forceinline__ float slot_sum(const float* p, const float* pt, int k
   return s;
 }
 
-// The pipelined fill's mbarrier of resident slot k: after the block's
-// `slots` resident tiles.
-template <class S>
-__device__ __forceinline__ unsigned long long* fill_bar(S* cache, int slots, size_t tile_elems,
-                                                         int k) {
-  return reinterpret_cast<unsigned long long*>(cache + static_cast<size_t>(slots) * tile_elems) +
-         k;
-}
-
 // tiles: T streamed (i, j) pairs, then C resident ones.  part: g * n floats;
 // part_t: g * n * split floats (sym only).  split: 1 (an item is a tile) or
 // bt / 32 (an item is a 32-row group).
@@ -524,8 +556,25 @@ __device__ __forceinline__ unsigned long long* fill_bar(S* cache, int slots, siz
 // the other is the register path alone.  kDot: the dot formulation
 // (register path, no ring).  kMixed: the mixed formulation, resident tiles
 // from index mxu_from on in the dot form (register path, no ring).
-// kFill: the pipelined fill of the resident tiles (the other instances fill
-// them before round 0).
+// kFill: the pipelined fill of the resident tiles, one tensor copy of `fmap`
+// (box: bt / split rows x bt columns) a resident item (the other instances
+// fill them before round 0 and take a placeholder for fmap, the last
+// parameter, so that their other parameters and code stay as they were).
+struct NoFillMap {
+  int unused;
+};
+template <bool kFill>
+using FillMap = typename std::conditional<kFill, CUtensorMap, NoFillMap>::type;
+
+// The pipelined fill's mbarrier of resident item k (slot k / split, row span
+// k % split): after the block's `slots` resident tiles.
+template <class S>
+__device__ __forceinline__ unsigned long long* fill_bar(S* cache, int slots, size_t tile_elems,
+                                                         int k) {
+  return reinterpret_cast<unsigned long long*>(cache + static_cast<size_t>(slots) * tile_elems) +
+         k;
+}
+
 template <class S, bool kRing, bool kDot = false, bool kMixed = false, bool kFill = false>
 __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
     const S* __restrict__ A, const int2* __restrict__ tiles, int T, int C,
@@ -535,16 +584,19 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
     float* __restrict__ lam_out, float* raw, float* part, float* part_t, int n,
     int bt, int chunk, float eps, int init, int rel, int sym, int split,
     int l2_tiles, int ring, int mxu_from, const __grid_constant__ CUtensorMap tmap,
-    unsigned long long* stamps) {
+    unsigned long long* stamps, const __grid_constant__ FillMap<kFill> fmap) {
   static_assert(!(kRing && kDot), "the dot formulation has no ring");
   static_assert(!(kDot && kMixed), "one formulation an instance");
   static_assert(!(kRing && kMixed), "the mixed formulation has no ring");
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ float4 smem4[];
+  if constexpr (!kFill) fill_stamp(stamps, 0);
+  extern __shared__ __align__(128) float4 smem4[];
   float* ev_s = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   using Chunk = typename evt::Elem<S>::Chunk;
-  S* cache = reinterpret_cast<S*>(ev_s + n);  // 16-byte aligned: n % 128 == 0
+  // the resident tiles, after ev: 128-byte aligned (a tensor copy's
+  // destination), as the base is and n % 128 == 0
+  S* cache = reinterpret_cast<S*>(ev_s + n);
   __shared__ float red[3][evt::kWarps];
   __shared__ float stats[3];
 
@@ -560,11 +612,11 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
   const evt::FromGlobalHinted keep{evt::l2_evict_last()};
   const evt::FromGlobalHinted pass{evt::l2_evict_first()};
 
-  // the pipelined fill's barriers, one a slot, after the resident tiles;
-  // then this warp's ring
+  // the pipelined fill's barriers, one a resident item, after the resident
+  // tiles; then this warp's ring
   unsigned long long* fill_bars = fill_bar(cache, slots, tile_elems, 0);
   using Ring = SymRing<S>;
-  char* after = reinterpret_cast<char*>(fill_bars + (kFill ? slots : 0));
+  char* after = reinterpret_cast<char*>(fill_bars + (kFill ? slots * split : 0));
   Chunk* ring_s =
       reinterpret_cast<Chunk*>(after + ((128u - (evt::smem_addr(after) & 127u)) & 127u));
   Ring rg;
@@ -593,11 +645,29 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
     }
   }
 
-  if (kFill && tid == 0) {
-    for (int k = 0; k < ncached; ++k) evt::mbar_init(fill_bars + k);
-    evt::mbar_init_fence();
-    for (int k = 0; k < ncached; ++k)
-      evt::mbar_expect(fill_bars + k, static_cast<unsigned>(tile_elems * sizeof(S)));
+  if (kFill && warp == 0) {  // thread 0 issues every copy, in the work items' order
+    // a lane reads each slot's tile (ncached <= 32), so the reads overlap
+    const int2 mine = lane < ncached ? tiles[T + b + lane * nb] : make_int2(0, 0);
+    const int items = ncached * split;
+    if (lane == 0) {
+      fill_stamp(stamps, 0);
+      if (evt::smem_addr(cache) & 127u) __trap();  // no tensor copy to a misaligned tile
+      for (int k = 0; k < items; ++k) evt::mbar_init(fill_bars + k);
+      evt::mbar_init_fence();
+      evt::fence_proxy_async();  // the barriers, initialised, to the copy engine
+    }
+    const unsigned bytes = static_cast<unsigned>(span * bt * sizeof(S));
+    for (int k = 0; k < items; ++k) {
+      const int m = k / split;
+      const int col = __shfl_sync(0xffffffffu, mine.y, m) * bt;
+      const int row = __shfl_sync(0xffffffffu, mine.x, m) * bt + (k - m * split) * span;
+      if (lane == 0) {
+        evt::mbar_expect(fill_bars + k, bytes);
+        evt::tensor_copy_2d(cache + static_cast<size_t>(k) * span * bt, &fmap, col, row,
+                            fill_bars + k, pass.policy);
+      }
+    }
+    if (lane == 0) fill_stamp(stamps, 1);
   }
   for (int j = tid; j < n; j += kThreads) ev_s[j] = ev_in[j];
   // fill this block's resident tiles, once per launch (the prologue fill)
@@ -615,15 +685,7 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
     }
   }
   __syncthreads();
-  if constexpr (kFill) {  // every row of the block's resident tiles, a copy a thread
-    for (int e = tid; e < ncached * bt; e += kThreads) {
-      const int k = e / bt, r = e - k * bt;
-      const int2 ij = tiles[T + b + k * nb];
-      evt::bulk_copy(cache + k * tile_elems + static_cast<size_t>(r) * bt,
-                     A + (static_cast<size_t>(ij.x) * bt + r) * n + static_cast<size_t>(ij.y) * bt,
-                     static_cast<unsigned>(bt * sizeof(S)), fill_bars + k, pass.policy);
-    }
-  }
+  if constexpr (!kFill) fill_stamp(stamps, 1);
   for (int s = 0; s < (rg.nk ? ring : 0); ++s) rg.issue(lane);
 
   int adv = 0;
@@ -648,9 +710,9 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
       float* row_out = part + (static_cast<size_t>(ij.x) * g + ij.y) * bt;
       float* col_out =
           part_t + ((static_cast<size_t>(ij.y) * g + ij.x) * split + lo / span) * bt;
-      // a resident tile's first read of a pipelined launch waits for its copies
+      // a resident item's first read of a pipelined launch waits for its copy
       if (kFill && !streamed && r == 0)
-        evt::mbar_wait(fill_bar(cache, slots, tile_elems, m - nstream), 0u);
+        evt::mbar_wait(fill_bar(cache, slots, tile_elems, e - nstream * split), 0u);
       if constexpr (kDot) {
         if (streamed) {
           tile_terms_dot(A + static_cast<size_t>(ij.x) * bt * n + static_cast<size_t>(ij.y) * bt,
@@ -715,7 +777,8 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
   }
   rg.drain();  // the trips issued ahead for a round that did not run
   if (kFill && tid == 0)  // copies of a launch that stopped before its tile phase
-    for (int k = 0; k < ncached; ++k) evt::mbar_wait(fill_bar(cache, slots, tile_elems, k), 0u);
+    for (int k = 0; k < ncached * split; ++k)
+      evt::mbar_wait(fill_bar(cache, slots, tile_elems, k), 0u);
 
   // A frozen solve keeps the v it stopped on (the previous matvec / ev, or
   // the input if it stopped at r == 0); a running one leaves the division
@@ -740,9 +803,11 @@ auto instance_of(int ring, int form) {
                      : multiround_sym_kernel<S, false, false, false, kFill>;
 }
 
+// (The two fills' instances differ in their last parameter.)
 template <class S>
-auto instance(int ring, int form, int fill) {
-  return fill ? instance_of<S, true>(ring, form) : instance_of<S, false>(ring, form);
+const void* instance(int ring, int form, int fill) {
+  return fill ? reinterpret_cast<const void*>(instance_of<S, true>(ring, form))
+              : reinterpret_cast<const void*>(instance_of<S, false>(ring, form));
 }
 
 template <class S>
@@ -776,6 +841,10 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, 
                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
+// The fill map's L2 promotion; its copies carry the prologue fill's
+// evict_first policy.
+constexpr CUtensorMapL2promotion kFillPromotion = CU_TENSOR_MAP_L2_PROMOTION_NONE;
+
 template <class S>
 constexpr CUtensorMapDataType map_type() {
   return std::is_same<S, float>::value           ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
@@ -783,10 +852,12 @@ constexpr CUtensorMapDataType map_type() {
                                                  : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
 }
 
-// The tensor map of A (n x n, row-major) whose box is one ring stage:
-// kAhead rows of kChunk elements.  0 or a cudaError_t.
+// The tensor map of A (n x n, row-major) whose box is `rows` rows of `cols`
+// elements (each at most 256, cols * sizeof(S) a multiple of 16), with the
+// L2 promotion `promo`.  0 or a cudaError_t.
 template <class S>
-int tile_map(CUtensorMap* map, const void* A, int n) {
+int tile_map(CUtensorMap* map, const void* A, int n, int cols, int rows,
+             CUtensorMapL2promotion promo) {
   static EncodeTiled encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -805,11 +876,10 @@ int tile_map(CUtensorMap* map, const void* A, int n) {
   }
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(n), static_cast<cuuint64_t>(n)};
   const cuuint64_t strides[1] = {static_cast<cuuint64_t>(n) * sizeof(S)};
-  const cuuint32_t box[2] = {kChunk, kAhead};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(cols), static_cast<cuuint32_t>(rows)};
   const cuuint32_t step[2] = {1, 1};
   const CUresult r = encode(map, map_type<S>(), 2, const_cast<void*>(A), dims, strides, box, step,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, promo,
                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
@@ -819,12 +889,13 @@ int tile_map(CUtensorMap* map, const void* A, int n) {
 // Co-resident blocks of the kernel at (n, bt, slots resident tiles per
 // block, ring stages a warp, element type `elem`: 0 float32, 1 bfloat16, 2
 // float16; `form`: the formulation's instance, 0 vpu, 1 dot, 2 mixed (ring
-// 0 for both); `fill`: 1 for the pipelined fill's barriers) on the current device,
+// 0 for both); `fill`: the pipelined fill's copies a resident tile, its
+// `split`, 0 for the prologue fill) on the current device,
 // 0 if one block does not fit, or a negated cudaError_t.  Also raises the
 // kernel's dynamic shared-memory limit to the most the card allows.
 extern "C" int evt_multiround_sym_grid(int n, int bt, int slots, int ring, int elem, int form,
                                        int fill) {
-  if (elem < 0 || elem > 2 || form < 0 || form > 2 || (form && ring))
+  if (elem < 0 || elem > 2 || form < 0 || form > 2 || (form && ring) || fill < 0)
     return -static_cast<int>(cudaErrorInvalidValue);
   return evt::with_elem(elem, [&](auto tag) {
     return grid_of<typename decltype(tag)::type>(n, bt, slots, ring, form, fill);
@@ -842,11 +913,13 @@ extern "C" int evt_multiround_sym_grid(int n, int bt, int slots, int ring, int e
 // aligned), 0 through registers.  `form`: 0 vpu, 1 dot, 2 mixed (ring 0 for
 // both), whose resident tiles from index `mxu_from` on take the dot form
 // (C: none).
-// `fill` = 1 fills the resident tiles by bulk copies waited for at first
-// use (A 16-byte aligned), 0 before round 0.  `stamps`
-// is null, or kStampRounds * kStampPhases * grid words for the phase
-// stamps.  Launches on `stream` and does not synchronise.  Returns the
-// launch's cudaError_t (0 on success).
+// `fill` = `split` fills the resident tiles by one 2-D tensor copy a work
+// item (a tile, or a row span of one), each waited for at the item's first
+// read (A 16-byte aligned, bt <= 256), 0 before round 0; an encoding of the
+// fill's tensor map that fails is returned, never replaced by another fill.
+// `stamps` is null, or (kStampRounds * kStampPhases + 2) * grid words for
+// the phase stamps and the fill's two.  Launches on `stream` and does not
+// synchronise.  Returns the launch's cudaError_t (0 on success).
 extern "C" int evt_multiround_sym(const void* A, const int* tiles, int T,
                                   int C, int slots, const float* ev_in,
                                   const float* v_in, const float* lam_in,
@@ -857,22 +930,29 @@ extern "C" int evt_multiround_sym(const void* A, const int* tiles, int T,
                                   int sym, int split, int l2_tiles, int ring, int form,
                                   int mxu_from, int fill, void* stamps, int elem, int grid,
                                   void* stream) {
-  if (form < 0 || form > 2 || (form && ring)) return static_cast<int>(cudaErrorInvalidValue);
+  if (form < 0 || form > 2 || (form && ring) ||
+      (fill && (fill != split || bt > 256 || slots > 32)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int2* tiles2 = reinterpret_cast<const int2*>(tiles);
   CUtensorMap tmap = {};  // read only by a launch with a ring
+  CUtensorMap fmap = {};  // read only by a launch with the pipelined fill
   void* args[] = {&A,        &tiles2,   &T,        &C,      &slots,  &ev_in,
                   &v_in,     &lam_in,   &budget,   &ev_out, &v_out,  &adv_out,
                   &lam_out,  &raw,      &part,     &part_t, &n,      &bt,
                   &chunk,    &eps,      &init,     &rel,    &sym,    &split,
-                  &l2_tiles, &ring,     &mxu_from, &tmap,   &stamps};
+                  &l2_tiles, &ring,     &mxu_from, &tmap,   &stamps, &fmap};
   return evt::with_elem(elem, [&](auto tag) {
     using E = typename decltype(tag)::type;
     if (ring) {
-      const int rc = tile_map<E>(&tmap, A, n);
+      const int rc = tile_map<E>(&tmap, A, n, kChunk, kAhead, CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
+      if (rc != 0) return rc;
+    }
+    if (fill) {  // the box: one work item, bt / split rows of a tile
+      const int rc = tile_map<E>(&fmap, A, n, bt, bt / split, kFillPromotion);
       if (rc != 0) return rc;
     }
     const cudaError_t e = cudaLaunchCooperativeKernel(
-        (const void*)instance<E>(ring, form, fill), dim3(grid), dim3(kThreads), args,
+        instance<E>(ring, form, fill), dim3(grid), dim3(kThreads), args,
         smem_bytes<E>(n, bt, slots, ring, fill), static_cast<cudaStream_t>(stream));
     if (e != cudaSuccess) return static_cast<int>(e);
     return static_cast<int>(cudaGetLastError());

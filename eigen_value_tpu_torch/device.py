@@ -186,24 +186,27 @@ def sym_ring_bytes(ring: int, itemsize: int) -> int:
 
 
 def sym_smem_bytes(
-    n: int, bt: int, slots: int = 0, itemsize: int = 4, ring: int = 0, pipelined: bool = False
+    n: int, bt: int, slots: int = 0, itemsize: int = 4, ring: int = 0, pipelined: int = 0
 ) -> int:
     """Dynamic shared memory of one block of the triangle kernel
     (csrc/multiround_sym.cu ``smem_bytes``): ev (n floats), ``slots``
-    resident bt x bt tiles of ``itemsize``-byte elements, with the
-    ``pipelined`` fill an 8-byte mbarrier a slot, and the ring's ``ring``
-    stages a warp.  A tile's column sums stay in registers."""
-    bars = 8 * slots if pipelined else 0
+    resident bt x bt tiles of ``itemsize``-byte elements, and the ring's
+    ``ring`` stages a warp.  A tile's column sums stay in registers.  The
+    ``pipelined`` fill brings each tile by that many tensor copies (its
+    split into work items: 1, or bt / 32; True counts as 1), each with an
+    8-byte mbarrier."""
+    bars = 8 * slots * int(pipelined)
     return 4 * n + slots * bt * bt * itemsize + bars + sym_ring_bytes(ring, itemsize)
 
 
 def multiround_sym_fits(
     n: int, bt: int, device: torch.device, slots: int = 0, itemsize: int = 4, ring: int = 0,
-    pipelined: bool = False,
+    pipelined: int = 0,
 ) -> bool:
     """Whether one block of the triangle kernel, with ``slots`` resident
-    tiles (filled by bulk copies when ``pipelined``) and ``ring`` ring
-    stages a warp, fits the card's shared memory."""
+    tiles (filled by ``pipelined`` tensor copies a tile, or before round 0
+    for 0) and ``ring`` ring stages a warp, fits the card's shared
+    memory."""
     need = sym_smem_bytes(n, bt, slots, itemsize, ring, pipelined) + _MULTIROUND_STATIC_SMEM
     return need <= cuda_limits(device).smem_per_block_optin
 
@@ -233,15 +236,17 @@ def sym_auto_cache_tiles(
     cache from the v5e's VMEM, by the tile's itemsize as here; the budget
     here is the card's own.)  ``ring=False``: the budget of the register
     path alone (the dot formulation; six bf16 tiles a block at n = 8192).
-    ``pipelined``: each tile also takes its fill's 8-byte mbarrier (the
-    same count at n = 8192: 396 f32 tiles, 528 bf16 ones)."""
+    ``pipelined``: each tile also takes its fill's 8-byte mbarriers, one a
+    work item (:func:`sym_split`; the same count at n = 8192: 396 f32
+    tiles, 528 bf16 ones)."""
     if device.type != "cuda":
         return 0
     lim = cuda_limits(device)
     depth = sym_ring(n, bt, device, itemsize) if ring else 0
+    copies = sym_split(n, bt, device, sym) if pipelined else 0
     free = (lim.smem_per_block_optin - _MULTIROUND_STATIC_SMEM
-            - sym_smem_bytes(n, bt, 0, itemsize, depth))
-    slots = max(0, free // (itemsize * bt * bt + (8 if pipelined else 0)))
+            - sym_smem_bytes(n, bt, 0, itemsize, depth, copies))
+    slots = max(0, free // (itemsize * bt * bt + 8 * copies))
     g = n // bt
     cap = g * (g - 1) // 2 if sym else g * g - 1
     return max(0, min(slots * lim.sms, cap))

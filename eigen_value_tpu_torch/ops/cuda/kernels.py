@@ -22,10 +22,11 @@ divides by a quantized vector instead; the port follows its kernels.)
 calls do not count).
 
 The two persistent kernels can report where a launch's time went: with
-``STAMPS`` set to an int64 tensor on the card (32 rounds x 6 phases x the
-grid's blocks), every block writes the card's nanosecond timer at the
-boundaries named in ``PHASES`` (csrc/prologue.cuh ``stamp``;
-``kernel_phases.py`` reads them).  ``None``, the default, costs a launch
+``STAMPS`` set to an int64 tensor on the card ((32 rounds x 6 phases + 2)
+x the grid's blocks), every block writes the card's nanosecond timer at the
+boundaries named in ``PHASES`` (csrc/prologue.cuh ``stamp``) and around the
+triangle kernel's fill of its resident tiles (csrc/multiround_sym.cu
+``fill_stamp``; ``kernel_phases.py`` reads them).  ``None``, the default, costs a launch
 one branch.
 
 The plain versions run anywhere.  ``matvec_plain`` is ``torch.mv``: a GEMV
@@ -713,7 +714,8 @@ def multiround_sym_plan(
     card, the grid, the resident tiles per block, and what the card's size
     decides (the split of tiles into work items, the L2-kept tiles).  The
     dot and mixed formulations' instances have no ring.  The ``pipelined``
-    fill adds a barrier a resident slot.  Raises
+    fill adds a barrier a resident work item (``split`` a slot) and aligns
+    the tiles.  Raises
     ValueError when the cache does not fit the card (a request is rejected,
     never shrunk)."""
     from . import build
@@ -724,19 +726,20 @@ def multiround_sym_plan(
     sms = cuda_limits(device).sms
     slots0 = -(-C // sms)  # the grid holds at least one block per SM
     ring = 0 if dot or mixed else sym_ring(n, bt, device, size)
-    if not multiround_sym_fits(n, bt, device, slots0, size, ring, pipelined):
+    split = sym_split(n, bt, device, sym)
+    fill = split if pipelined else 0  # the pipelined fill's copies a resident tile
+    if not multiround_sym_fits(n, bt, device, slots0, size, ring, fill):
         most = sym_auto_cache_tiles(n, bt, device, sym, size, ring=bool(ring),
                                     pipelined=pipelined)
         raise ValueError(
             f"cache_tiles={cache_tiles} does not fit the card: {slots0} resident "
             f"{bt}x{bt} {dtype} tiles per block and {ring} ring stages a warp need "
-            f"{sym_smem_bytes(n, bt, slots0, size, ring, pipelined)} bytes of shared memory; "
+            f"{sym_smem_bytes(n, bt, slots0, size, ring, fill)} bytes of shared memory; "
             f"at most {most} tiles fit at n={n}"
         )
     form = _FORMS["dot" if dot else "mixed" if mixed else "vpu"]
     with torch.cuda.device(device):
-        cap = build.load().evt_multiround_sym_grid(n, bt, slots0, ring, _ELEM[dtype], form,
-                                                   int(pipelined))
+        cap = build.load().evt_multiround_sym_grid(n, bt, slots0, ring, _ELEM[dtype], form, fill)
     if cap < 0:
         raise RuntimeError(f"multiround_sym occupancy query failed with cudaError {-cap}")
     if cap == 0:
@@ -744,7 +747,7 @@ def multiround_sym_plan(
     grid = min(cap, max(T + C, -(-n // 1024), 1))
     slots = -(-C // grid) if C else 0
     tab = torch.tensor(streamed + cached, dtype=torch.int32, device=device).reshape(-1, 2)
-    return SymPlan(tab.contiguous(), T, C, grid, slots, sym_split(n, bt, device, sym),
+    return SymPlan(tab.contiguous(), T, C, grid, slots, split,
                    sym_l2_tiles(bt, device, T, **_sized(dtype, "itemsize")), ring)
 
 
@@ -781,10 +784,15 @@ def multiround_sym(
     ``formulation="mixed"`` takes the last ``mxu_tiles`` resident tiles
     (None: :func:`mxu_share`'s default, the JAX rule) in the dot form and
     every other tile as "vpu"; at ``mxu_tiles=0`` it gives the "vpu" bits.
-    ``fill_mode="pipelined"`` fills the resident tiles by bulk copies that
-    a warp waits for at the tile's first use, with the prologue fill's
-    bits; it needs A 16-byte aligned.  Both raise where the JAX kernel
-    does (:func:`_check_tiled_knobs`)."""
+    ``fill_mode="pipelined"`` fills the resident tiles by 2-D tensor
+    copies, one a tile or, where a tile is cut into row spans that
+    different warps take, one a span, all issued by one thread before round
+    0; a warp waits for its own at the first read, and the bits are the
+    prologue fill's.  It needs A 16-byte aligned and raises if its tensor
+    map cannot be encoded: it never turns into another fill.  (8192², the
+    auto caches, NVIDIA H100 80GB HBM3 at 700 W: -0.9..+1.6% of the
+    prologue fill's launch, whose fill takes 8.9-10.5 µs; PERF.md §6.)
+    Both raise where the JAX kernel does (:func:`_check_tiled_knobs`)."""
     _check_formulation_name(formulation)
     bt = _check_tiled(A, ev, v, chunk, eps_mode, tile)
     n = A.shape[0]
@@ -831,7 +839,7 @@ def multiround_sym(
             raw.data_ptr(), part.data_ptr(), part_t.data_ptr(), n, bt,
             min(chunk, 2**31 - 1), eps, int(init), int(eps_mode == "relative"), int(sym),
             plan.split, plan.l2_tiles, plan.ring, _FORMS[formulation], plan.C - m,
-            int(pipelined), _stamps_ptr(), _ELEM[A.dtype], plan.grid, stream,
+            plan.split if pipelined else 0, _stamps_ptr(), _ELEM[A.dtype], plan.grid, stream,
         )
         _launch(rc, "multiround_sym")
     multiround_sym.launches += 1

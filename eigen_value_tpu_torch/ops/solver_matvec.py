@@ -348,8 +348,8 @@ def solve_multiround(
     (tiled kernel, ``cache_tiles > 0``) takes the last ``mxu_tiles`` resident
     tiles in that form and every other tile as "vpu" (None: the JAX
     package's default share, ``kernels.mxu_share``); ``fill_mode="pipelined"``
-    fills the resident tiles by bulk copies waited for at first use, bit for
-    bit the prologue fill.  Each raises where the JAX solve does.
+    fills the resident tiles by 2-D tensor copies waited for at first use,
+    bit for bit the prologue fill.  Each raises where the JAX solve does.
 
     ``storage_dtype`` (as JAX ``solve_multiround``): A is cast once and the
     kernels read it in 2 bytes; the O(n) state is f32, as it is for a

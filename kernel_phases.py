@@ -29,7 +29,13 @@ the two cached arms only), and every row then also carries
 pipelined fill's waits, and ``span`` (µs from the first block's start of
 round 0 to the last stamp of the launch): the launch's time less the span
 is what lies outside its rounds, the prologue fill's loads among it (the
-pipelined fill's issue is there too, its waits are not).
+pipelined fill's issue is there too, its waits are not); and ``fill_us``
+beside it: the fill's own time from the kernel's two fill stamps, the mean
+over the blocks (``fill_us_max`` the slowest block's): for the prologue
+fill from the launch's start to after its loads and block barrier (ev's
+load, n floats, is in it), for the pipelined fill the time thread 0 takes
+to issue the copies.  A checkout whose kernel writes no fill stamps gives
+null.
 
 Before the timings it prints, for every checkout, one JSON line per
 instance of the two persistent kernels from that checkout's ptxas report
@@ -83,6 +89,7 @@ import sys
 import types
 
 STAMP_ROUNDS, STAMP_PHASES = 32, 6  # csrc/prologue.cuh
+FILL_STAMPS = 2  # csrc/multiround_sym.cu fill_stamp: two words a block after the rounds' stamps
 WARMUP = 10  # launches before the timed ones: a process's first arm meets an idle card
 DEFAULT_PHASES = {
     "multiround": ("prologue", "stream", "barrier"),
@@ -130,18 +137,32 @@ def split(stamps, grid: int, names, rounds=range(1, STAMP_ROUNDS)) -> dict:
     return out
 
 
-def stamped_split(kernels, fn, kernel: str, grid: int, dev, rounds=range(1, STAMP_ROUNDS)) -> dict:
+def fill_split(stamps, grid: int) -> dict:
+    """The fill's µs from one launch's two fill stamps a block: the mean
+    over the blocks and the slowest block's; {} where none was written."""
+    t = stamps[STAMP_ROUNDS * STAMP_PHASES * grid:
+               (STAMP_ROUNDS * STAMP_PHASES + FILL_STAMPS) * grid].reshape(FILL_STAMPS, grid)
+    if not bool((t > 0).all()):
+        return {}
+    d = (t[1] - t[0]).double() / 1e3
+    return {"fill_us": float(d.mean()), "fill_us_max": float(d.max())}
+
+
+def stamped_split(kernels, fn, kernel: str, grid: int, dev, rounds=range(1, STAMP_ROUNDS),
+                  fill: bool = False) -> dict:
     """One more launch of ``fn`` with the stamps on, and its phase split
-    over ``rounds``."""
+    over ``rounds``; with ``fill``, also the fill's (:func:`fill_split`)."""
     import torch
 
-    kernels.STAMPS = torch.zeros(STAMP_ROUNDS * STAMP_PHASES * grid, dtype=torch.int64,
-                                 device=dev)
+    kernels.STAMPS = torch.zeros((STAMP_ROUNDS * STAMP_PHASES + FILL_STAMPS) * grid,
+                                 dtype=torch.int64, device=dev)
     try:
         fn()
         torch.cuda.synchronize()
         names = getattr(kernels, "PHASES", DEFAULT_PHASES)[kernel]
-        return split(kernels.STAMPS.cpu(), grid, names, rounds)
+        stamps = kernels.STAMPS.cpu()
+        out = split(stamps, grid, names, rounds)
+        return {**out, **fill_split(stamps, grid)} if fill else out
     finally:
         kernels.STAMPS = None
 
@@ -437,8 +458,11 @@ def main() -> int:
                 if hasattr(R.kernels, "STAMPS"):
                     row["phases_us"] = stamped_split(R.kernels, fn, kernel, plan.grid, dev)
                     if args.fill:
-                        row["round_0_us"] = stamped_split(R.kernels, fn, kernel, plan.grid, dev,
-                                                          rounds=[0])
+                        r0 = stamped_split(R.kernels, fn, kernel, plan.grid, dev, rounds=[0],
+                                           fill=True)
+                        row["fill_us"] = r0.pop("fill_us", None)
+                        row["fill_us_max"] = r0.pop("fill_us_max", None)
+                        row["round_0_us"] = r0
                 print(json.dumps(row, allow_nan=False), flush=True)
         if args.sweep:
             sweep(roots[0], H, dev, args.reps, card)

@@ -322,10 +322,11 @@ def test_phase_stamps_cover_every_round(cuda):
     ):
         plain = fn()
         phases = len(tk.PHASES[name]) + 1
-        tk.STAMPS = torch.zeros(32 * 6 * grid, dtype=torch.int64, device=cuda)
+        # 32 rounds x 6 phases, then the triangle kernel's two fill stamps, a block
+        tk.STAMPS = torch.zeros((32 * 6 + 2) * grid, dtype=torch.int64, device=cuda)
         try:
             stamped = fn()
-            t = tk.STAMPS.cpu().reshape(32, 6, grid)
+            t = tk.STAMPS.cpu()[:32 * 6 * grid].reshape(32, 6, grid)
         finally:
             tk.STAMPS = None
         assert all(torch.equal(a, b) for a, b in zip(plain, stamped))
@@ -1518,25 +1519,42 @@ def test_the_two_variants_keep_the_hilbert_table(cuda, variant):
                                    **kw), res)
 
 
+@pytest.mark.parametrize("matrix", ["hilbert", "scaled"])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("formulation", ["vpu", "dot", "mixed"])
-@pytest.mark.parametrize("n", [2048, 8192])
-def test_the_pipelined_fill_is_the_prologue_fill_bit_for_bit(cuda, n, formulation, dt):
-    H = tfx.hilbert_matrix(n, device=cuda).to(dt)
+@pytest.mark.parametrize("n", [2048, 4096, 8192])
+def test_the_pipelined_fill_is_the_prologue_fill_bit_for_bit(cuda, n, formulation, dt, matrix):
+    """Every instance (vpu: the register path in f32, the ring in 2 bytes;
+    dot; mixed), triangle and dense tiled, a small cache and the largest the
+    depth rule leaves of the auto one (108 at 2048²), on Hilbert and on
+    Hilbert scaled at random: single launches of 1, 5 and every round, whole
+    solves in chunks of 1 and 5 (each launch fills anew), and a launch that
+    stops at round 0."""
+    H = tfx.hilbert_matrix(n, device=cuda)
     ev, z = torch.ones(n, device=cuda), torch.zeros((), device=cuda)
     for sym in (True, False):
+        A = H
+        if matrix == "scaled":  # symmetric for the triangle, which reads the upper half
+            R = 1 + 0.25 * torch.rand(n, n, generator=torch.Generator().manual_seed(n + sym))
+            A = H * (((R + R.T) / 2) if sym else R).to(cuda)
+            del R
+        A = A.to(dt)
         auto = sym_auto_cache_tiles(n, 128, cuda, sym=sym, itemsize=dt.itemsize,
                                     ring=formulation == "vpu")
         for c in sorted({5, _pipelined(n, auto, sym, formulation == "mixed")}):
             kw = dict(cache_tiles=c, sym=sym, formulation=formulation, eps=EPS)
-            for chunk, init in ((5, True), (MAX_ITR + 1, True)):
-                a = tk.multiround_sym(H, ev, ev, z, MAX_ITR, chunk=chunk, init=init, **kw)
-                b = tk.multiround_sym(H, ev, ev, z, MAX_ITR, chunk=chunk, init=init,
+            for chunk, init in ((1, True), (5, True), (MAX_ITR + 1, True)):
+                a = tk.multiround_sym(A, ev, ev, z, MAX_ITR, chunk=chunk, init=init, **kw)
+                b = tk.multiround_sym(A, ev, ev, z, MAX_ITR, chunk=chunk, init=init,
                                       fill_mode="pipelined", **kw)
                 assert all(torch.equal(p, q) for p, q in zip(a, b))
+            for chunk in (1, 5):
+                _same(*(solve_multiround(A, EPS, MAX_ITR, chunk=chunk, symmetric=sym,
+                                         cache_tiles=c, formulation=formulation, fill_mode=fm)
+                        for fm in ("pipelined", "prologue")))
             # a launch whose rounds stop at round 0, its copies in flight
             ev_s, v_s, _, lam = a
-            stopped = [tk.multiround_sym(H, ev_s, v_s, lam, MAX_ITR, chunk=5, fill_mode=fm, **kw)
+            stopped = [tk.multiround_sym(A, ev_s, v_s, lam, MAX_ITR, chunk=5, fill_mode=fm, **kw)
                        for fm in ("prologue", "pipelined")]
             torch.cuda.synchronize()
             assert int(stopped[1][2]) == 0

@@ -253,10 +253,20 @@ def test_pipelined_fill_matches_jax(kw):
 
 
 def test_pipelined_fill_counts_a_barrier_a_slot(monkeypatch):
+    """A barrier a tensor copy: one a slot where a tile is one work item
+    (8192²), one a row span where a tile is cut into ``split`` of them
+    (4096²: four)."""
     monkeypatch.setattr(device, "cuda_limits", lambda dev: H100)
     card = torch.device("cuda", 0)
     assert device.sym_smem_bytes(8192, 128, 3, 4, 0, pipelined=True) == \
         device.sym_smem_bytes(8192, 128, 3, 4, 0) + 24
+    assert device.sym_split(8192, 128, card) == 1 and device.sym_split(4096, 128, card) == 4
+    assert device.sym_smem_bytes(4096, 128, 3, 4, 0, pipelined=4) == \
+        device.sym_smem_bytes(4096, 128, 3, 4, 0) + 3 * 4 * 8
+    for n in (4096, 8192):  # the auto caches keep their size with the barriers
+        for itemsize in (4, 2):
+            assert device.sym_auto_cache_tiles(n, 128, card, itemsize=itemsize, pipelined=True) \
+                == device.sym_auto_cache_tiles(n, 128, card, itemsize=itemsize)
     # the auto caches at 8192² keep their size
     for itemsize, cache in ((4, 396), (2, 528)):
         for pipelined in (False, True):
@@ -312,9 +322,7 @@ def test_the_kernel_wrapper_and_plain_version_raise_as_jax(kw, match):
             fn(a, ev, ev, 0.0, 10, chunk=2, eps=EPS, tile=128, **kw)
 
 
-def test_round_zero_split_reads_the_fill():
-    """kernel_phases.py --fill: round 0's split and the span from its start
-    to the launch's last stamp, over two blocks."""
+def _kernel_phases():
     import importlib.util
     import pathlib
 
@@ -322,7 +330,13 @@ def test_round_zero_split_reads_the_fill():
     spec = importlib.util.spec_from_file_location("kernel_phases", path)
     kp = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(kp)
+    return kp
 
+
+def test_round_zero_split_reads_the_fill():
+    """kernel_phases.py --fill: round 0's split and the span from its start
+    to the launch's last stamp, over two blocks."""
+    kp = _kernel_phases()
     grid, names = 2, ("prologue", "stream", "barrier_1", "reduce", "barrier_2")
     t = torch.zeros(kp.STAMP_ROUNDS, kp.STAMP_PHASES, grid, dtype=torch.int64)
     for r in range(3):
@@ -338,3 +352,21 @@ def test_round_zero_split_reads_the_fill():
     assert got["span"] == pytest.approx(301.0)
     rest = kp.split(t.reshape(-1), grid, names)
     assert rest["stream"] == pytest.approx(30.0) and "span" not in rest
+
+
+def test_fill_stamps_give_the_fills_own_time():
+    """kernel_phases.py --fill's ``fill_us``: the two fill stamps a block
+    after the rounds' (csrc/multiround_sym.cu fill_stamp), the mean and the
+    slowest block; nothing where a kernel wrote none (an older checkout)."""
+    kp = _kernel_phases()
+    grid = 3
+    words = (kp.STAMP_ROUNDS * kp.STAMP_PHASES + kp.FILL_STAMPS) * grid
+    t = torch.zeros(words, dtype=torch.int64)
+    assert kp.fill_split(t, grid) == {}
+    base = kp.STAMP_ROUNDS * kp.STAMP_PHASES * grid
+    t[base:base + grid] = torch.tensor([1_000_000, 1_000_500, 1_001_000])
+    t[base + grid:base + 2 * grid] = torch.tensor([1_007_000, 1_009_500, 1_009_000])
+    got = kp.fill_split(t, grid)
+    assert got["fill_us"] == pytest.approx(8.0) and got["fill_us_max"] == pytest.approx(9.0)
+    t[0] = 5  # the rounds' stamps do not enter it
+    assert kp.fill_split(t, grid) == got
