@@ -37,6 +37,7 @@ from .config import DEFAULT_CONFIG, SolverConfig
 from .device import multiround_fits, multiround_sym_fits, solve_device, sym_auto_cache_tiles
 from .ops.cuda.kernels import SYM_TILE, sym_tile
 from .ops.solver import SolveResult
+from .utils.profiling import span
 
 
 def _tile(config: SolverConfig) -> int:
@@ -284,22 +285,24 @@ def max_eigenvalue(
     """
     if mesh is not None:
         return _max_eigenvalue_mesh(mat, config, validate, mesh, device)
-    mat = _as_matrix(mat, config, device)
-    n = mat.shape[0]
-    backend = resolve_backend(config, n, mat.device)
-    solve = _solve_fn(config, backend, n, mat.device)
-    if validate:
-        cand = _promotion(config, n, mat.device)
-        pos, sym_ok = _validate_on_device(mat, config.symmetric or cand is not None)
-        if not pos:
-            raise ValueError("similarity-transform method requires all entries > 0")
-        if config.symmetric and not sym_ok:
-            raise ValueError(
-                "symmetric=True declared but the matrix is not bitwise symmetric"
-            )
-        if cand is not None and sym_ok:
-            solve = _solve_fn(cand, "multiround", n, mat.device)
-    return solve(mat)
+    with span("api.call"):
+        with span("api.prepare"):
+            mat = _as_matrix(mat, config, device)
+            n = mat.shape[0]
+            backend = resolve_backend(config, n, mat.device)
+            solve = _solve_fn(config, backend, n, mat.device)
+            if validate:
+                cand = _promotion(config, n, mat.device)
+                pos, sym_ok = _validate_on_device(mat, config.symmetric or cand is not None)
+                if not pos:
+                    raise ValueError("similarity-transform method requires all entries > 0")
+                if config.symmetric and not sym_ok:
+                    raise ValueError(
+                        "symmetric=True declared but the matrix is not bitwise symmetric"
+                    )
+                if cand is not None and sym_ok:
+                    solve = _solve_fn(cand, "multiround", n, mat.device)
+        return solve(mat)
 
 
 def _mesh_input(mat, config: SolverConfig, mesh, device):

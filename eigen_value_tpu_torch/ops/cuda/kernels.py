@@ -19,7 +19,11 @@ the f32 kernel, so ``kernel(A_q)`` equals ``kernel(A_q.float())`` bit for
 bit; ev, v, λ and every sum stay f32.  (JAX's ``solve_matvec_storage``
 divides by a quantized vector instead; the port follows its kernels.)
 ``<wrapper>.launches`` counts kernel launches (a plain int; plain-version
-calls do not count).
+calls do not count).  The whole body of each wrapper that a route of
+``api.max_eigenvalue`` calls (``matvec``, ``multiround``,
+``multiround_sym``, ``rowsum``, ``scale_rowsum``), checks, plan, buffers and
+launch or plain version, is the span ``launch.<wrapper>``
+(``utils/profiling.py``).
 
 The two persistent kernels can report where a launch's time went: with
 ``STAMPS`` set to an int64 tensor on the card ((32 rounds x 6 phases + 2)
@@ -62,6 +66,7 @@ from ...device import (
     sym_split,
     tensor_device,
 )
+from ...utils.profiling import spanned
 from ..solver import stop_check
 
 
@@ -216,6 +221,7 @@ def _leading_dim(A: torch.Tensor) -> int:
     return ld
 
 
+@spanned("launch.matvec")
 def matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` for A (n, m) float32, bfloat16 or float16 and x (m,)
     float32; the result is float32.  A may be a view whose rows are
@@ -354,6 +360,7 @@ def multiround_grid(device: torch.device, n: int) -> int:
     return multiround_launch_plan(device, n).grid
 
 
+@spanned("launch.multiround")
 def multiround(
     A: torch.Tensor,
     ev: torch.Tensor,
@@ -751,6 +758,7 @@ def multiround_sym_plan(
                    sym_l2_tiles(bt, device, T, **_sized(dtype, "itemsize")), ring)
 
 
+@spanned("launch.multiround_sym")
 def multiround_sym(
     A: torch.Tensor,
     ev: torch.Tensor,
@@ -885,6 +893,7 @@ def rowsum_plain(A: torch.Tensor) -> torch.Tensor:
     return torch.sum(A, dim=1)
 
 
+@spanned("launch.rowsum")
 def rowsum(A: torch.Tensor) -> torch.Tensor:
     """Row sums of a square float32 A.  On a card the sums run in the
     matvec kernel's order: ``rowsum(A)`` equals ``matvec(A, ones)`` bit for
@@ -1002,6 +1011,7 @@ def scale_rowsum_plain(A: torch.Tensor, v: torch.Tensor, out: Optional[torch.Ten
     return A2, rowsum_plain(A2)
 
 
+@spanned("launch.scale_rowsum")
 def scale_rowsum(A: torch.Tensor, v: torch.Tensor, out: Optional[torch.Tensor] = None):
     """The iterated form's round pass, one read and one write of A:
     ``(A', v')`` with ``A'`` as :func:`scale` gives it (to ``out``) and

@@ -25,6 +25,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..utils.profiling import span, spanned
+
 
 class SolveResult(NamedTuple):
     """Result of one dense solve, as tensors on the solve's device.
@@ -94,6 +96,7 @@ class _Carry(NamedTuple):
     i: int
 
 
+@spanned("solver.finish")
 def _finish(out, max_itr: int) -> SolveResult:
     """Post-loop epilogue shared by every solve form (``out`` is a loop
     carry with ``ev``, ``v``, ``lam`` and ``i``).
@@ -145,7 +148,12 @@ def solve_loop(
     else:
         ev0 = torch.as_tensor(ev0, dtype=A.dtype, device=A.device).contiguous()
     c = _Carry(A, rowsum(A), ev0, torch.zeros((), dtype=A.dtype, device=A.device), 0)
-    while c.i < max_itr and not bool(stop_check(c.v, eps, eps_mode)):
+    while c.i < max_itr:
+        stop = stop_check(c.v, eps, eps_mode)
+        with span("solver.read"):
+            stop = bool(stop)
+        if stop:
+            break
         v = c.v
         m = torch.max(v)
         ev = c.ev * (v / m)
@@ -155,6 +163,7 @@ def solve_loop(
     return _finish(c, max_itr)
 
 
+@spanned("solver.xla")
 def solve_xla(
     A: torch.Tensor, eps: float, max_itr: int, ev0=None, eps_mode: str = "absolute"
 ) -> SolveResult:

@@ -9,10 +9,12 @@ and each round's update-and-resum by :func:`..cuda.kernels.scale_rowsum`
 
 from __future__ import annotations
 
+from ..utils.profiling import spanned
 from .cuda import kernels
 from .solver import SolveResult, solve_loop
 
 
+@spanned("solver.kernel")
 def solve_kernel(A, eps: float, max_itr: int, ev0=None) -> SolveResult:
     """Similarity-transform solve with the fused kernel round body, one
     launch per round after one ``rowsum`` launch (the ``solve_pallas``

@@ -40,6 +40,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..device import solve_device
+from ..utils.profiling import span, spanned
 from .cuda import kernels
 from .solver import SolveResult, _finish, stop_check
 
@@ -56,7 +57,11 @@ def _make_cond_body(matvec, eps: float, max_itr: int, eps_mode: str = "absolute"
     back to the host once per round."""
 
     def cond(c: _Carry) -> bool:
-        return c.i < max_itr and not bool(stop_check(c.v, eps, eps_mode))
+        if c.i >= max_itr:
+            return False
+        stop = stop_check(c.v, eps, eps_mode)
+        with span("solver.read"):
+            return not bool(stop)
 
     def body(c: _Carry) -> _Carry:
         v = c.v
@@ -119,6 +124,7 @@ def solve_matvec_loop(
     return _finish(_run_rounds(matvec, c, eps, max_itr, eps_mode)[0], max_itr)
 
 
+@spanned("solver.matvec")
 def solve_matvec(
     A: torch.Tensor,
     eps: float,
@@ -138,6 +144,7 @@ def solve_matvec(
     return solve_matvec_loop(A, matvec, eps, max_itr, ev0=ev0, eps_mode=eps_mode)
 
 
+@spanned("solver.matvec_kernel")
 def solve_matvec_kernel(
     A: torch.Tensor,
     eps: float,
@@ -302,6 +309,7 @@ def solve_fused_round(A: torch.Tensor, eps: float, max_itr: int) -> SolveResult:
     )
 
 
+@spanned("solver.multiround")
 def solve_multiround(
     A: torch.Tensor,
     eps: float,
@@ -396,12 +404,14 @@ def solve_multiround(
     kw = dict(chunk=chunk, eps=eps, eps_mode=eps_mode)
     zero = torch.zeros((), dtype=dtype, device=A.device)
     ev, v, adv, lam = kernel(A, ev0, ev0, zero, max_itr, init=True, **kw)
-    adv = int(adv)
+    with span("solver.read"):
+        adv = int(adv)
     c = _Carry(ev, v, lam, adv)
     frozen = adv < chunk - 1  # round 0 of the first launch is the row-sum pass
     while not frozen and c.i < max_itr:
         ev, v, adv, lam = kernel(A, c.ev, c.v, c.lam, max_itr - c.i, init=False, **kw)
-        adv = int(adv)
+        with span("solver.read"):
+            adv = int(adv)
         c = _Carry(ev, v, lam, c.i + adv)
         frozen = adv < chunk
     return _finish(c, max_itr)
