@@ -334,7 +334,8 @@ __global__ void __launch_bounds__(kDot ? kDotThreads : kThreads) multiround_kern
     const T* __restrict__ A, const float* __restrict__ ev_in,
     const float* __restrict__ v_in, const float* __restrict__ lam_in,
     int budget, float* __restrict__ ev_out, float* __restrict__ v_out,
-    int* __restrict__ adv_out, float* __restrict__ lam_out,
+    int* __restrict__ adv_out, float* __restrict__ lam_out, int* __restrict__ rounds_out,
+    bool* __restrict__ converged_out, int rounds0,
     float* __restrict__ raw, int n, int chunk, float eps, int init, int rel,
     int resident, int l2_rows, int ring, float* __restrict__ part, int* __restrict__ work,
     unsigned long long* stamps) {
@@ -541,6 +542,9 @@ __global__ void __launch_bounds__(kDot ? kDotThreads : kThreads) multiround_kern
     *adv_out = adv;
     *lam_out = lam;
   }
+  if (rounds_out != nullptr)
+    evt::write_finish<kT>(ev_s, v_out, ev_out, lam_out, rounds_out, converged_out, n, adv,
+                          budget, chunk - init, rounds0, stats[0]);
 }
 
 // The instance a launch runs: dot, ring or register path.
@@ -622,7 +626,10 @@ extern "C" int evt_multiround_blocks(int n, int resident, int ring, int elem, in
 
 // A (n, n) row-major in the element type `elem` names (0 float32, 1
 // bfloat16, 2 float16); ev_in, v_in, ev_out, v_out (n,); lam_in, lam_out (1,);
-// adv_out (1,) int32; raw (2n,) scratch; all on the current device.  `grid`
+// adv_out (1,) int32; raw (2n,) scratch; all on the current device.
+// rounds_out (1,) int32 and converged_out (1,) bool ask for the solve's
+// result, `rounds0` its rounds before this launch (evt::write_finish); both
+// null: the carry alone.  `grid`
 // blocks with `resident` rows each must be co-resident
 // (evt_multiround_blocks); the first `l2_rows` streamed rows of a block are
 // kept in L2.  `ring` > 0 streams the other rows through that many
@@ -637,19 +644,19 @@ extern "C" int evt_multiround_blocks(int n, int resident, int ring, int elem, in
 extern "C" int evt_multiround(const void* A, const float* ev_in,
                               const float* v_in, const float* lam_in,
                               int budget, float* ev_out, float* v_out,
-                              int* adv_out, float* lam_out, float* raw, int n,
+                              int* adv_out, float* lam_out, int* rounds_out,
+                              bool* converged_out, int rounds0, float* raw, int n,
                               int chunk, float eps, int init, int rel,
                               int resident, int l2_rows, int ring, int dot, float* part,
                               int* work, void* stamps, int elem, int grid, void* stream) {
-  if (dot && (ring || n % 128 || !part || !work))
+  if ((dot && (ring || n % 128 || !part || !work)) || !rounds_out != !converged_out)
     return static_cast<int>(cudaErrorInvalidValue);
   return evt::with_elem(elem, [&](auto tag) {
     using T = typename decltype(tag)::type;
     const size_t smem = smem_bytes<T>(n, resident, ring);
-    void* args[] = {&A,      &ev_in,   &v_in,    &lam_in,   &budget,  &ev_out,
-                    &v_out,  &adv_out, &lam_out, &raw,      &n,       &chunk,
-                    &eps,    &init,    &rel,     &resident, &l2_rows, &ring,
-                    &part,   &work,    &stamps};
+    void* args[] = {&A, &ev_in, &v_in, &lam_in, &budget, &ev_out, &v_out, &adv_out,
+                    &lam_out, &rounds_out, &converged_out, &rounds0, &raw, &n, &chunk,
+                    &eps, &init, &rel, &resident, &l2_rows, &ring, &part, &work, &stamps};
     const cudaError_t e = cudaLaunchCooperativeKernel(
         (const void*)instance<T>(ring, dot),
         dim3(grid),

@@ -581,8 +581,9 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
     int slots, const float* __restrict__ ev_in, const float* __restrict__ v_in,
     const float* __restrict__ lam_in, int budget, float* __restrict__ ev_out,
     float* __restrict__ v_out, int* __restrict__ adv_out,
-    float* __restrict__ lam_out, float* raw, float* part, float* part_t, int n,
-    int bt, int chunk, float eps, int init, int rel, int sym, int split,
+    float* __restrict__ lam_out, int* __restrict__ rounds_out,
+    bool* __restrict__ converged_out, int rounds0, float* raw, float* part, float* part_t,
+    int n, int bt, int chunk, float eps, int init, int rel, int sym, int split,
     int l2_tiles, int ring, int mxu_from, const __grid_constant__ CUtensorMap tmap,
     unsigned long long* stamps, const __grid_constant__ FillMap<kFill> fmap) {
   static_assert(!(kRing && kDot), "the dot formulation has no ring");
@@ -791,6 +792,9 @@ __global__ void __launch_bounds__(kThreads) multiround_sym_kernel(
     *adv_out = adv;
     *lam_out = lam;
   }
+  if (rounds_out != nullptr)
+    evt::write_finish<kThreads>(ev_s, v_out, ev_out, lam_out, rounds_out, converged_out, n, adv,
+                                budget, chunk - init, rounds0, stats[0]);
 }
 
 // The instance a launch runs: by fill, by formulation (0 vpu, 1 dot, 2
@@ -906,8 +910,11 @@ extern "C" int evt_multiround_sym_grid(int n, int bt, int slots, int ring, int e
 // bfloat16, 2 float16); tiles (T + C) int32 pairs; ev_in, v_in, ev_out, v_out
 // (n,); lam_in, lam_out (1,); adv_out (1,) int32; raw (n,), part (g * n,)
 // and part_t (g * n * split,; one float when not sym) scratch; all on the
-// current device.  `grid` blocks must be co-resident with `slots` resident
-// tiles each (evt_multiround_sym_grid) and grid * slots >= C.  `split` is 1
+// current device.  rounds_out (1,) int32 and converged_out (1,) bool ask for
+// the solve's result, `rounds0` its rounds before this launch
+// (evt::write_finish); both null: the carry alone.  `grid` blocks must be
+// co-resident with `slots` resident tiles each (evt_multiround_sym_grid) and
+// grid * slots >= C.  `split` is 1
 // or bt / 32; the first `l2_tiles` streamed tiles are kept in L2.  `ring`
 // > 0 streams tiles through that many bulk-copy stages a warp (A 16-byte
 // aligned), 0 through registers.  `form`: 0 vpu, 1 dot, 2 mixed (ring 0 for
@@ -924,23 +931,23 @@ extern "C" int evt_multiround_sym(const void* A, const int* tiles, int T,
                                   int C, int slots, const float* ev_in,
                                   const float* v_in, const float* lam_in,
                                   int budget, float* ev_out, float* v_out,
-                                  int* adv_out, float* lam_out, float* raw,
+                                  int* adv_out, float* lam_out, int* rounds_out,
+                                  bool* converged_out, int rounds0, float* raw,
                                   float* part, float* part_t, int n, int bt,
                                   int chunk, float eps, int init, int rel,
                                   int sym, int split, int l2_tiles, int ring, int form,
                                   int mxu_from, int fill, void* stamps, int elem, int grid,
                                   void* stream) {
   if (form < 0 || form > 2 || (form && ring) ||
-      (fill && (fill != split || bt > 256 || slots > 32)))
+      (fill && (fill != split || bt > 256 || slots > 32)) || !rounds_out != !converged_out)
     return static_cast<int>(cudaErrorInvalidValue);
   const int2* tiles2 = reinterpret_cast<const int2*>(tiles);
   CUtensorMap tmap = {};  // read only by a launch with a ring
   CUtensorMap fmap = {};  // read only by a launch with the pipelined fill
-  void* args[] = {&A,        &tiles2,   &T,        &C,      &slots,  &ev_in,
-                  &v_in,     &lam_in,   &budget,   &ev_out, &v_out,  &adv_out,
-                  &lam_out,  &raw,      &part,     &part_t, &n,      &bt,
-                  &chunk,    &eps,      &init,     &rel,    &sym,    &split,
-                  &l2_tiles, &ring,     &mxu_from, &tmap,   &stamps, &fmap};
+  void* args[] = {&A, &tiles2, &T, &C, &slots, &ev_in, &v_in, &lam_in, &budget, &ev_out,
+                  &v_out, &adv_out, &lam_out, &rounds_out, &converged_out, &rounds0, &raw,
+                  &part, &part_t, &n, &bt, &chunk, &eps, &init, &rel, &sym, &split,
+                  &l2_tiles, &ring, &mxu_from, &tmap, &stamps, &fmap};
   return evt::with_elem(elem, [&](auto tag) {
     using E = typename decltype(tag)::type;
     if (ring) {

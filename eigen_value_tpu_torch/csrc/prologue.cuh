@@ -1,5 +1,6 @@
 // The once-per-round O(n) prologue of the persistent multiround kernels,
-// shared by multiround.cu and multiround_sym.cu so the two cannot drift.
+// and the solve's result they write where it ends, shared by multiround.cu
+// and multiround_sym.cu so the two cannot drift.
 //
 // Reproduces eigen_value_tpu/ops/pallas/kernels.py `_round_prologue`
 // expression for expression: v = raw / ev; tol = eps or eps * max|v|;
@@ -181,6 +182,36 @@ __device__ __forceinline__ bool round_prologue(
   __syncthreads();
   ++adv;
   return false;
+}
+
+// The solve's result, where the caller asks for it (`rounds_out` not null),
+// written after the launch's carry by the grid (kT threads a block, each
+// over the indices whose carry it wrote: ev_s to ev_out, v to v_out, lambda
+// to lam_out).  The solve's rounds are `rounds0` before this launch plus
+// `adv`, and it converged where the launch halted (advanced fewer than the
+// `runs` rounds its chunk holds) with budget left, solver._finish's rule
+// rounds < max_itr.  A converged launch writes the solve's ev and lambda
+// over the carry's: the update that round_prologue skipped where it halted,
+// ev_s * (v / m) with m = max(v), which it left in `stats[0]`, and v[0],
+// _finish's expressions in its f32 order, so its bits.  Any other launch
+// leaves the carry, which a next launch resumes from.  A call, not inlined:
+// inlined, the finish moved the registers or spills of 20 of the 33
+// instances of the two kernels (ptxas); called after the carry's writes, it
+// leaves every instance's as they were.
+template <int kT>
+__device__ __noinline__ void write_finish(const float* ev_s, const float* v_out, float* ev_out,
+                                          float* lam_out, int* rounds_out, bool* converged_out,
+                                          int n, int adv, int budget, int runs, int rounds0,
+                                          float m) {
+  const bool converged = adv < runs && adv < budget;
+  if (converged)
+    for (int j = blockIdx.x * kT + threadIdx.x; j < n; j += gridDim.x * kT)
+      ev_out[j] = ev_s[j] * (v_out[j] / m);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    if (converged) *lam_out = v_out[0];
+    *rounds_out = rounds0 + adv;
+    *converged_out = converged;
+  }
 }
 
 // Phase stamps for kernel_phases.py: with `stamps` set, thread 0 of every

@@ -37,21 +37,22 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # A, x, y, n, m, ld, elem, stream (elem: A's element type, kernels._ELEM)
     "evt_matvec": (_P, _P, _P, _I, _I, ctypes.c_longlong, _I, _P),
-    # A, ev_in, v_in, lam_in, budget, ev_out, v_out, adv_out, lam_out, raw,
-    # n, chunk, eps, init, rel, resident, l2_rows, ring, dot, part, work, stamps,
-    # elem, grid, stream
+    # A, ev_in, v_in, lam_in, budget, ev_out, v_out, adv_out, lam_out,
+    # rounds_out, converged_out, rounds0, raw, n, chunk, eps, init, rel, resident,
+    # l2_rows, ring, dot, part, work, stamps, elem, grid, stream
     "evt_multiround": (
-        _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, ctypes.c_float, _I, _I, _I, _I, _I,
-        _I, _P, _P, _P, _I, _I, _P,
+        _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, ctypes.c_float, _I, _I,
+        _I, _I, _I, _I, _P, _P, _P, _I, _I, _P,
     ),
     # n, resident, ring, elem, dot
     "evt_multiround_blocks": (_I, _I, _I, _I, _I),
     # A, tiles, T, C, slots, ev_in, v_in, lam_in, budget, ev_out, v_out,
-    # adv_out, lam_out, raw, part, part_t, n, bt, chunk, eps, init, rel, sym,
-    # split, l2_tiles, ring, form, mxu_from, fill, stamps, elem, grid, stream
+    # adv_out, lam_out, rounds_out, converged_out, rounds0, raw, part, part_t, n,
+    # bt, chunk, eps, init, rel, sym, split, l2_tiles, ring, form, mxu_from, fill,
+    # stamps, elem, grid, stream
     "evt_multiround_sym": (
-        _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-        ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P,
+        _P, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+        _I, ctypes.c_float, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I, _I, _P,
     ),
     # n, bt, slots, ring, elem, form (0 vpu, 1 dot, 2 mixed), fill (1: pipelined)
     "evt_multiround_sym_grid": (_I, _I, _I, _I, _I, _I, _I),

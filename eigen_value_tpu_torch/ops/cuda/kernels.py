@@ -19,7 +19,10 @@ the f32 kernel, so ``kernel(A_q)`` equals ``kernel(A_q.float())`` bit for
 bit; ev, v, λ and every sum stay f32.  (JAX's ``solve_matvec_storage``
 divides by a quantized vector instead; the port follows its kernels.)
 ``<wrapper>.launches`` counts kernel launches (a plain int; plain-version
-calls do not count).  The whole body of each wrapper that a route of
+calls do not count).  The two persistent kernels' wrappers also count in
+``finishes`` the solves whose result a launch wrote (``finish`` below), on
+the card or in the plain version: the solve that reads the launch's count
+adds it.  The whole body of each wrapper that a route of
 ``api.max_eigenvalue`` calls (``matvec``, ``multiround``,
 ``multiround_sym``, ``rowsum``, ``scale_rowsum``), checks, plan, buffers and
 launch or plain version, is the span ``launch.<wrapper>``
@@ -67,7 +70,7 @@ from ...device import (
     tensor_device,
 )
 from ...utils.profiling import spanned
-from ..solver import stop_check
+from ..solver import _finished, stop_check
 
 
 #: The element types a kernel's A may have, and their codes in the C
@@ -267,9 +270,10 @@ def _as_scalar(lam, dev: torch.device) -> torch.Tensor:
     return lam.reshape(())
 
 
-def _rounds_plain(matvec, ev, v, lam, budget, chunk, eps, init, eps_mode):
+def _rounds_plain(matvec, ev, v, lam, budget, chunk, eps, init, eps_mode, finish):
     """Up to ``chunk`` rounds over ``matvec(ev) -> A @ ev``: the round
-    structure of both multiround kernels, shared by their plain versions."""
+    structure of both multiround kernels, and their outputs
+    (csrc/prologue.cuh ``write_finish``), shared by their plain versions."""
     lam = _as_scalar(lam, ev.device)
     adv = 0
     frozen = False
@@ -288,7 +292,14 @@ def _rounds_plain(matvec, ev, v, lam, budget, chunk, eps, init, eps_mode):
         raw = matvec(ev)
     if not frozen:
         v = raw / ev
-    return ev, v, torch.tensor(adv, dtype=torch.int32, device=ev.device), lam
+    dev = ev.device
+    carry = (ev, v, torch.tensor(adv, dtype=torch.int32, device=dev), lam)
+    if finish is None:
+        return carry
+    converged = frozen and adv < budget
+    ev, lam = _finished(ev, v, lam, converged)
+    return (ev, v, carry[2], lam, torch.tensor(finish + adv, dtype=torch.int32, device=dev),
+            torch.tensor(converged, device=dev))
 
 
 def multiround_plain(
@@ -303,17 +314,20 @@ def multiround_plain(
     init: bool = False,
     eps_mode: str = "absolute",
     formulation: str = "vpu",
+    finish: Optional[int] = None,
 ):
     """Up to ``chunk`` matvec-form rounds, round for round what the kernel
     does.  Each round checks the stop BEFORE advancing and the solve freezes
     at the round that stops (or that reaches ``budget`` advanced rounds).
     ``init=True`` makes round 0 the row-sum pass (no check, not counted; v
     is then ignored).  ``formulation="dot"`` multiplies in 3xTF32
-    (:func:`matvec_tf32_plain`).  Returns ``(ev, v, advanced, λ)``."""
+    (:func:`matvec_tf32_plain`).  Returns ``(ev, v, advanced, λ)``, the
+    carry; with ``finish`` (the solve's rounds before this call) also the
+    solve's result, as :func:`multiround` returns it."""
     _check_formulation(formulation, A.shape[0])
     mv = matvec_tf32_plain if formulation == "dot" else matvec_plain
     return _rounds_plain(
-        lambda e: mv(A, e), ev, v, lam, budget, chunk, eps, init, eps_mode
+        lambda e: mv(A, e), ev, v, lam, budget, chunk, eps, init, eps_mode, finish
     )
 
 
@@ -360,6 +374,17 @@ def multiround_grid(device: torch.device, n: int) -> int:
     return multiround_launch_plan(device, n).grid
 
 
+def _solved(finish: Optional[int], dev: torch.device) -> tuple:
+    """``(outputs, args)``: the 0-d rounds (int32) and converged (bool) that
+    a launch asked for its solve's result (``finish`` not None) writes, none
+    otherwise; and the C entries' rounds_out, converged_out and rounds0."""
+    if finish is None:
+        return (), (None, None, 0)
+    out = (torch.empty((), dtype=torch.int32, device=dev),
+           torch.empty((), dtype=torch.bool, device=dev))
+    return out, (out[0].data_ptr(), out[1].data_ptr(), int(finish))
+
+
 @spanned("launch.multiround")
 def multiround(
     A: torch.Tensor,
@@ -373,6 +398,7 @@ def multiround(
     init: bool = False,
     eps_mode: str = "absolute",
     formulation: str = "vpu",
+    finish: Optional[int] = None,
 ):
     """Up to ``chunk`` matvec-form rounds in one launch of the persistent
     kernel; semantics of :func:`multiround_plain`.  A is float32, bfloat16
@@ -380,7 +406,18 @@ def multiround(
     are float32.  ``formulation="dot"`` (n % 128 == 0) takes the row sums
     on the tensor cores in 3xTF32: bit-identical across chunkings and
     between A_q and A_q.float(), within rounding of "vpu".  Returns ``(ev,
-    v, advanced, λ)`` with ``advanced`` an int32 tensor."""
+    v, advanced, λ)`` with ``advanced`` an int32 tensor: the carry, from
+    which a launch resumes.
+
+    ``finish``, the solve's rounds before this launch, asks for the solve's
+    result as well: ``(ev, v, advanced, λ, rounds, converged)``, rounds an
+    int32 and converged a bool, 0-d on the card.  rounds is ``finish +
+    advanced``, and converged whether the launch halted at the stop with
+    budget left (``solver._finish``'s rule).  A converged launch returns the
+    solve's eigenvector and λ in place of the carry's (the converging
+    round's update, ``solver._finished``, bit for bit); any other returns
+    the carry, which the next launch resumes from where the solve goes
+    on."""
     if A.dim() != 2 or A.shape[0] != A.shape[1]:
         raise ValueError(f"A must be square, got shape {tuple(A.shape)}")
     n = A.shape[0]
@@ -400,7 +437,7 @@ def multiround(
     if dev.type == "cpu":
         return multiround_plain(
             A, ev, v, lam, budget, chunk=chunk, eps=eps, init=init, eps_mode=eps_mode,
-            formulation=formulation,
+            formulation=formulation, finish=finish,
         )
     _check_aligned(n, A, v)
     if not multiround_fits(n, dev):
@@ -415,6 +452,7 @@ def multiround(
     v_out = torch.empty(n, dtype=torch.float32, device=dev)
     adv = torch.empty((), dtype=torch.int32, device=dev)
     lam_out = torch.empty((), dtype=torch.float32, device=dev)
+    solved, solved_args = _solved(finish, dev)
     raw = torch.empty(2 * n, dtype=torch.float32, device=dev)
     dot = formulation == "dot"
     # the dot formulation's segment sums, kDotSegments (8) floats a row, and
@@ -429,17 +467,18 @@ def multiround(
             A.data_ptr(), ev.data_ptr(), v.data_ptr(), lam.data_ptr(),
             min(budget, 2**31 - 1),
             ev_out.data_ptr(), v_out.data_ptr(), adv.data_ptr(), lam_out.data_ptr(),
-            raw.data_ptr(), n, min(chunk, 2**31 - 1), eps, int(init),
-            int(eps_mode == "relative"), plan.resident, plan.l2_rows, plan.ring, int(dot),
-            part.data_ptr() if dot else 0, work.data_ptr() if dot else 0, _stamps_ptr(),
-            _ELEM[A.dtype], plan.grid, stream,
+            *solved_args, raw.data_ptr(), n, min(chunk, 2**31 - 1), eps,
+            int(init), int(eps_mode == "relative"), plan.resident, plan.l2_rows, plan.ring,
+            int(dot), part.data_ptr() if dot else 0, work.data_ptr() if dot else 0,
+            _stamps_ptr(), _ELEM[A.dtype], plan.grid, stream,
         )
         _launch(rc, "multiround")
     multiround.launches += 1
-    return ev_out, v_out, adv, lam_out
+    return (ev_out, v_out, adv, lam_out) + solved
 
 
 multiround.launches = 0
+multiround.finishes = 0
 
 
 #: The triangle kernel's default tile edge on Hopper.  The JAX default (512)
@@ -674,6 +713,7 @@ def multiround_sym_plain(
     formulation: str = "vpu",
     mxu_tiles: Optional[int] = None,
     fill_mode: str = "prologue",
+    finish: Optional[int] = None,
 ):
     """The rounds of :func:`multiround_plain` over :func:`tiled_matvec_plain`
     (in 3xTF32 for ``formulation="dot"``; for "mixed", the last
@@ -690,7 +730,7 @@ def multiround_sym_plain(
         else None
     return _rounds_plain(
         lambda e: tiled_matvec_plain(A, e, bt, sym, formulation, mxu),
-        ev, v, lam, int(budget), chunk, eps, init, eps_mode,
+        ev, v, lam, int(budget), chunk, eps, init, eps_mode, finish,
     )
 
 
@@ -776,11 +816,13 @@ def multiround_sym(
     formulation: str = "vpu",
     mxu_tiles: Optional[int] = None,
     fill_mode: str = "prologue",
+    finish: Optional[int] = None,
 ):
     """Up to ``chunk`` matvec-form rounds in one launch of the tiled
-    kernel; semantics of :func:`multiround_plain`.  ``sym=True`` declares A
-    symmetric and reads only the upper block triangle; ``sym=False`` reads
-    all tiles (dense tiled mode).  ``cache_tiles`` tiles (off-diagonal
+    kernel; semantics of :func:`multiround_plain`, ``finish`` as in
+    :func:`multiround`.  ``sym=True`` declares A symmetric and reads only
+    the upper block triangle; ``sym=False`` reads all tiles (dense tiled
+    mode).  ``cache_tiles`` tiles (off-diagonal
     ones when ``sym``; clamped to the cacheable count, as in JAX) stay in
     shared memory across the launch's rounds.  Returns
     ``(ev, v, advanced, λ)``; results are bit-identical for every
@@ -812,7 +854,7 @@ def multiround_sym(
         return multiround_sym_plain(
             A, ev, v, lam, budget, chunk=chunk, eps=eps, init=init, eps_mode=eps_mode,
             tile=tile, cache_tiles=cache_tiles, sym=sym, formulation=formulation,
-            mxu_tiles=mxu_tiles, fill_mode=fill_mode,
+            mxu_tiles=mxu_tiles, fill_mode=fill_mode, finish=finish,
         )
     _check_aligned(n, A, v)
     if not multiround_sym_fits(n, bt, dev):
@@ -832,6 +874,7 @@ def multiround_sym(
     v_out = torch.empty(n, dtype=torch.float32, device=dev)
     adv = torch.empty((), dtype=torch.int32, device=dev)
     lam_out = torch.empty((), dtype=torch.float32, device=dev)
+    solved, solved_args = _solved(finish, dev)
     raw = torch.empty(n, dtype=torch.float32, device=dev)
     # one slot of bt floats per (row block, column block): the row terms, and
     # for a symmetric A the transpose terms of each of a tile's work items
@@ -844,17 +887,18 @@ def multiround_sym(
             A.data_ptr(), plan.table.data_ptr(), plan.T, plan.C, plan.slots,
             ev.data_ptr(), v.data_ptr(), lam.data_ptr(), min(budget, 2**31 - 1),
             ev_out.data_ptr(), v_out.data_ptr(), adv.data_ptr(), lam_out.data_ptr(),
-            raw.data_ptr(), part.data_ptr(), part_t.data_ptr(), n, bt,
-            min(chunk, 2**31 - 1), eps, int(init), int(eps_mode == "relative"), int(sym),
+            *solved_args, raw.data_ptr(), part.data_ptr(), part_t.data_ptr(),
+            n, bt, min(chunk, 2**31 - 1), eps, int(init), int(eps_mode == "relative"), int(sym),
             plan.split, plan.l2_tiles, plan.ring, _FORMS[formulation], plan.C - m,
             plan.split if pipelined else 0, _stamps_ptr(), _ELEM[A.dtype], plan.grid, stream,
         )
         _launch(rc, "multiround_sym")
     multiround_sym.launches += 1
-    return ev_out, v_out, adv, lam_out
+    return (ev_out, v_out, adv, lam_out) + solved
 
 
 multiround_sym.launches = 0
+multiround_sym.finishes = 0
 
 
 def prepare(

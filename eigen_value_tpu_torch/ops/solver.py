@@ -96,10 +96,24 @@ class _Carry(NamedTuple):
     i: int
 
 
+def _finished(ev, v, lam, converged: bool) -> tuple:
+    """``(ev, λ)`` of a frozen carry: where it converged, the stop fired on
+    ``v`` and the converging round's update is applied, ``ev · (v / m)``
+    with m = max(v), and λ = v[0]; at the cap the carry's ev and λ.  (The
+    persistent kernels evaluate the same expressions in the same f32 order
+    where a solve ends inside a launch, csrc/prologue.cuh
+    ``write_finish``.)"""
+    if converged:
+        m = torch.max(v)
+        return ev * (v / m), v[0]
+    return ev, lam
+
+
 @spanned("solver.finish")
 def _finish(out, max_itr: int) -> SolveResult:
-    """Post-loop epilogue shared by every solve form (``out`` is a loop
-    carry with ``ev``, ``v``, ``lam`` and ``i``).
+    """Post-loop epilogue shared by every solve form but the one-launch
+    solves, whose kernels write it (``out`` is a loop carry with ``ev``,
+    ``v``, ``lam`` and ``i``).
 
     * converged at round k < max_itr: the stop fired on ``out.v``; apply the
       converging round's ev update, λ = v[0], rounds = k.
@@ -109,11 +123,7 @@ def _finish(out, max_itr: int) -> SolveResult:
     """
     converged = out.i < max_itr
     dev = out.v.device
-    if converged:
-        m = torch.max(out.v)
-        ev, lam = out.ev * (out.v / m), out.v[0]
-    else:
-        ev, lam = out.ev, out.lam
+    ev, lam = _finished(out.ev, out.v, out.lam, converged)
     return SolveResult(
         lam,
         ev,

@@ -329,13 +329,16 @@ def solve_multiround(
     multiround kernel.
 
     Any split into chunks gives bit-identical results: the kernel checks
-    the stop before each round and freezes where it fires, and the
-    epilogue is the shared :func:`_finish`.  The first launch
-    (``init=True``) spends its round 0 on the row-sum pass.  A launch that
-    advanced fewer rounds than it had froze (stop or budget), so the host
-    reads only that count.  Once frozen the kernel leaves its round loop,
-    so an oversized chunk wastes no pass; the default (None) is the whole
-    budget, ``max_itr + 1`` rounds, in one launch.
+    the stop before each round and freezes where it fires.  The first
+    launch (``init=True``) spends its round 0 on the row-sum pass.  A
+    launch that advanced fewer rounds than it had froze (stop or budget),
+    so the host reads only that count, the solve's one read where it takes
+    one launch.  Once frozen the kernel leaves its round loop, so an
+    oversized chunk wastes no pass; the default (None) is the whole budget,
+    ``max_itr + 1`` rounds, in one launch.  Every launch is asked for the
+    solve's result (``finish``), and the one where the solve ends writes
+    it on the card by :func:`solver._finish`'s rule and expressions, bit for
+    bit, so nothing is launched or copied to the card after it.
 
     Without ``symmetric`` or a cache this is the stripes kernel, whose
     v-sequence is bit-identical to :func:`solve_matvec_kernel`.
@@ -403,15 +406,17 @@ def solve_multiround(
         chunk = max_itr + 1
     kw = dict(chunk=chunk, eps=eps, eps_mode=eps_mode)
     zero = torch.zeros((), dtype=dtype, device=A.device)
-    ev, v, adv, lam = kernel(A, ev0, ev0, zero, max_itr, init=True, **kw)
+    ev, v, adv, lam, rounds, converged = kernel(A, ev0, ev0, zero, max_itr, init=True,
+                                                finish=0, **kw)
     with span("solver.read"):
-        adv = int(adv)
-    c = _Carry(ev, v, lam, adv)
-    frozen = adv < chunk - 1  # round 0 of the first launch is the row-sum pass
-    while not frozen and c.i < max_itr:
-        ev, v, adv, lam = kernel(A, c.ev, c.v, c.lam, max_itr - c.i, init=False, **kw)
+        i = int(adv)
+    frozen = i < chunk - 1  # round 0 of the first launch is the row-sum pass
+    while not frozen and i < max_itr:
+        ev, v, adv, lam, rounds, converged = kernel(A, ev, v, lam, max_itr - i, init=False,
+                                                    finish=i, **kw)
         with span("solver.read"):
             adv = int(adv)
-        c = _Carry(ev, v, lam, c.i + adv)
+        i += adv
         frozen = adv < chunk
-    return _finish(c, max_itr)
+    kernel.func.finishes += 1
+    return SolveResult(lam, ev, rounds, converged)

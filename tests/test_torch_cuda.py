@@ -1605,3 +1605,86 @@ def test_the_pipelined_fill_refuses_a_misaligned_matrix(cuda):
     with pytest.raises(ValueError, match="16-byte aligned"):
         tk.multiround_sym(A, ev, ev, 0.0, 10, fill_mode="pipelined", **kw)
     assert tk.multiround_sym.launches == before
+
+
+# --- the solve's result written where it ends (csrc/prologue.cuh write_finish) -----
+
+
+def _parent_solve(A, max_itr, wrapper, chunk=None, **kw):
+    """``solve_multiround`` as it was before the kernels wrote the result:
+    the same launches, each returning its carry, then ``_finish``."""
+    from eigen_value_tpu_torch.ops.solver import _finish
+    from eigen_value_tpu_torch.ops.solver_matvec import _Carry
+
+    chunk = max_itr + 1 if chunk is None else chunk
+    kw = dict(chunk=chunk, eps=EPS, **kw)
+    ones = torch.ones(A.shape[0], device=A.device)
+    ev, v, adv, lam = wrapper(A, ones, ones, torch.zeros((), device=A.device), max_itr,
+                              init=True, **kw)
+    c = _Carry(ev, v, lam, int(adv))
+    frozen = c.i < chunk - 1
+    while not frozen and c.i < max_itr:
+        ev, v, adv, lam = wrapper(A, c.ev, c.v, c.lam, max_itr - c.i, init=False, **kw)
+        c = _Carry(ev, v, lam, c.i + int(adv))
+        frozen = int(adv) < chunk
+    return _finish(c, max_itr)
+
+
+#: every instance the two wrappers launch on a solve: (symmetric, cache:
+#: None, 0 or "auto", formulation, fill)
+FINISH_ROUTES = {
+    "stripes vpu": (False, None, "vpu", "prologue"),
+    "stripes dot": (False, None, "dot", "prologue"),
+    "triangle vpu, no cache": (True, 0, "vpu", "prologue"),
+    "triangle vpu": (True, "auto", "vpu", "prologue"),
+    "triangle dot": (True, "auto", "dot", "prologue"),
+    "triangle mixed": (True, "auto", "mixed", "prologue"),
+    "triangle pipelined": (True, "auto", "vpu", "pipelined"),
+    "triangle mixed pipelined": (True, "auto", "mixed", "pipelined"),
+    "dense tiled vpu": (False, "auto", "vpu", "prologue"),
+    "dense tiled pipelined": (False, "auto", "vpu", "pipelined"),
+}
+
+
+@pytest.mark.parametrize("chunk", [None, 3])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("route", list(FINISH_ROUTES))
+def test_the_kernels_write_finish_of_their_carry_bit_for_bit(cuda, route, dt, chunk):
+    """The solve's rounds, converged, λ and eigenvector, written by the
+    launch where the solve ends, equal ``_finish`` on the same launches'
+    carry bit for bit: at the stop (Hilbert 2048² and 8192², and 8192²
+    scaled at random) and at the cap; ``finishes`` rises by one a solve, and
+    the launches are the carry loop's."""
+    sym, cache, formulation, fill = FINISH_ROUTES[route]
+    for n, scaled in ((2048, False), (8192, False), (8192, True)):
+        A = tfx.hilbert_matrix(n, device=cuda)
+        if scaled:  # symmetric, as the triangle reads the upper half
+            R = 1 + 0.01 * torch.rand(n, n, generator=torch.Generator().manual_seed(n)).to(cuda)
+            A = A * ((R + R.T) / 2)
+            del R
+        A = A.to(dt)
+        kw, solve_kw = dict(formulation=formulation), dict(formulation=formulation)
+        if cache is None:
+            wrapper = tk.multiround
+        else:
+            wrapper = tk.multiround_sym
+            c = 0 if cache == 0 else sym_auto_cache_tiles(
+                n, 128, cuda, sym=sym, itemsize=dt.itemsize, ring=formulation == "vpu")
+            if fill == "pipelined":
+                c = _pipelined(n, c, sym, formulation == "mixed")
+            kw.update(cache_tiles=c, sym=sym, fill_mode=fill)
+            solve_kw.update(cache_tiles=c, symmetric=sym, fill_mode=fill)
+        for max_itr in (MAX_ITR, 5):
+            launches, finishes = wrapper.launches, wrapper.finishes
+            got = solve_multiround(A, EPS, max_itr, chunk=chunk, **solve_kw)
+            torch.cuda.synchronize()
+            assert wrapper.finishes == finishes + 1
+            mid = wrapper.launches
+            want = _parent_solve(A, max_itr, wrapper, chunk, **kw)
+            assert wrapper.launches - mid == mid - launches
+            assert got.rounds.dtype == torch.int32 and got.rounds.shape == ()
+            assert got.converged.dtype == torch.bool and got.converged.shape == ()
+            assert got.rounds.device == got.converged.device == A.device
+            assert bool(got.converged) == (max_itr == MAX_ITR)
+            assert bool(got.converged) == bool(want.converged)
+            _same(got, want)
