@@ -22,8 +22,10 @@ divides by a quantized vector instead; the port follows its kernels.)
 calls do not count).  The two persistent kernels' wrappers also count in
 ``finishes`` the solves whose result a launch wrote (``finish`` below), on
 the card or in the plain version: the solve that reads the launch's count
-adds it.  The whole body of each wrapper that a route of
-``api.max_eigenvalue`` calls (``matvec``, ``multiround``,
+adds it.  ``multiround_sym.plan`` keeps the :class:`SymPlan` of the
+triangle wrapper's last launch on the card (None before one), whose
+``hbm_bytes`` the benchmark reads.  The whole body of each wrapper that a
+route of ``api.max_eigenvalue`` calls (``matvec``, ``multiround``,
 ``multiround_sym``, ``rowsum``, ``scale_rowsum``), checks, plan, buffers and
 launch or plain version, is the span ``launch.<wrapper>``
 (``utils/profiling.py``).
@@ -748,6 +750,25 @@ class SymPlan(NamedTuple):
     split: int  # work items per tile (device.sym_split)
     l2_tiles: int  # streamed tiles read with the L2 evict_last policy
     ring: int = 0  # bulk-copy stages a warp for the streamed tiles (device.sym_ring)
+    hbm_bytes: int = 0  # bytes of A a round reads from HBM (sym_hbm_bytes)
+
+
+def sym_hbm_bytes(
+    device: torch.device, n: int, bt: int, cache_tiles: int, sym: bool,
+    dtype: torch.dtype = torch.float32,
+) -> int:
+    """Bytes of A that a round of the triangle kernel reads from HBM under
+    the plan of (device, n, bt, cache_tiles, sym, A's dtype): the streamed
+    tiles less those the L2 is asked to keep (:func:`sym_l2_tiles`), whole
+    bt x bt tiles as stored; the resident tiles stay in shared memory.
+    Reads the card's limits and nothing else, so it holds on any machine
+    that knows them.  At 8192² with the auto caches on an H100: 952 bf16
+    tiles of 32 KiB (2080 tiles, 528 resident, 600 in L2), 31,195,136
+    bytes; 1384 f32 tiles of 64 KiB (396 resident, 300 in L2),
+    90,701,824."""
+    T = len(_tile_split(n, bt, cache_tiles, sym)[0])
+    l2 = sym_l2_tiles(bt, device, T, **_sized(dtype, "itemsize"))
+    return (T - l2) * bt * bt * dtype.itemsize
 
 
 @functools.lru_cache(maxsize=None)
@@ -795,7 +816,8 @@ def multiround_sym_plan(
     slots = -(-C // grid) if C else 0
     tab = torch.tensor(streamed + cached, dtype=torch.int32, device=device).reshape(-1, 2)
     return SymPlan(tab.contiguous(), T, C, grid, slots, split,
-                   sym_l2_tiles(bt, device, T, **_sized(dtype, "itemsize")), ring)
+                   sym_l2_tiles(bt, device, T, **_sized(dtype, "itemsize")), ring,
+                   sym_hbm_bytes(device, n, bt, cache_tiles, sym, dtype))
 
 
 @spanned("launch.multiround_sym")
@@ -894,11 +916,13 @@ def multiround_sym(
         )
         _launch(rc, "multiround_sym")
     multiround_sym.launches += 1
+    multiround_sym.plan = plan
     return (ev_out, v_out, adv, lam_out) + solved
 
 
 multiround_sym.launches = 0
 multiround_sym.finishes = 0
+multiround_sym.plan = None
 
 
 def prepare(

@@ -307,6 +307,29 @@ def test_the_plans_on_this_card_match_what_the_kernels_run(cuda):
             assert sp.split == tdev.sym_split(n, 128, cuda, sym)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_a_sym_solve_keeps_its_plan_and_hbm_bytes(cuda, dtype):
+    """After a declared-symmetric 8192² solve the triangle wrapper keeps its
+    launch's plan, whose HBM bytes a round are the pure helper's: on an
+    H100, 952 bf16 tiles of 32 KiB (31,195,136 bytes) and 1384 f32 tiles
+    of 64 KiB (90,701,824)."""
+    from eigen_value_tpu_torch import device as tdev
+
+    n = 8192
+    A = tfx.hilbert_matrix(n, device=cuda).to(dtype)
+    stored = {} if dtype == torch.float32 else {"storage_dtype": dtype}
+    tk.multiround_sym.plan = None
+    evt.max_eigenvalue(A, evt.SolverConfig(symmetric=True, **stored))
+    plan = tk.multiround_sym.plan
+    bt = tk.sym_tile(n, tk.SYM_TILE)
+    auto = sym_auto_cache_tiles(n, bt, cuda, itemsize=dtype.itemsize)
+    assert plan is not None and plan.C == auto
+    assert plan.hbm_bytes == tk.sym_hbm_bytes(cuda, n, bt, auto, True, dtype)
+    assert plan.hbm_bytes == (plan.T - plan.l2_tiles) * bt * bt * dtype.itemsize
+    if tuple(tdev.cuda_limits(cuda)) == (132, 232448, 52428800):  # an H100 SXM's
+        assert plan.hbm_bytes == {torch.bfloat16: 31_195_136, torch.float32: 90_701_824}[dtype]
+
+
 def test_phase_stamps_cover_every_round(cuda):
     """With ``kernels.STAMPS`` set both persistent kernels write increasing
     timer values for every phase of every round, and results stay the same."""
