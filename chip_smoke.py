@@ -41,7 +41,11 @@ and every round's v of the 8192² Hilbert solve); ``round_matvec`` and
 ``round_fused`` (csrc/round.cu) against their plain versions and their bit
 identities (``ev' == ev * (v / m)``, ``v' == matvec(A, ev') / ev'``,
 ``round_fused == round_matvec`` at ``m = max v`` with ``stop_check`` and
-``v[0]``); then, with the launch counters read around exactly these calls,
+``v[0]``); ``round_glue`` (csrc/round_glue.cu) against its plain version
+bit for bit at n = 65536, 65539, 1000 and 1 (a v that goes on, one that
+stops, one with a NaN; rounds 0 and 9; both stop modes), and its time at
+65536 beside the plain version's and the host loop's PyTorch chain's;
+then, with the launch counters read around exactly these calls,
 ``solve_matvec_kernel_fused`` and ``solve_fused_round`` over the Hilbert
 table, the caps 0/1/5 and the 3×3 anchor, bit-identical to the matvec
 kernel loop; and the ``vector`` and ``e2e`` bench suites
@@ -191,6 +195,7 @@ from __future__ import annotations
 
 import contextlib
 import importlib.util
+import itertools
 import json
 import os
 import statistics
@@ -1860,7 +1865,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     wrappers = {name: getattr(kernels, name) for name in (
         "matvec", "multiround", "multiround_sym", "rowsum", "rowsum_bias", "scale",
-        "scale_rowsum", "stop", "round_matvec", "round_fused")}
+        "scale_rowsum", "stop", "round_matvec", "round_fused", "round_glue")}
 
     def reset_counts() -> None:
         torch.cuda.synchronize()
@@ -2144,6 +2149,63 @@ def main() -> int:
           "round_fused on a v that stops")
     del round_cases, A, keep, want, want_f, fused, ref, v_next, ev_new, H8
 
+    # --- 2f. the round glue against its plain version on the same y and a
+    # clone of ev, bit for bit (a NaN's payload aside): at the main path's
+    # 65536, at n % 4 != 0 and at n = 1; a v that goes on, one that stops,
+    # one with a NaN; round 0 and a later one; both stop modes ---
+    def glue_bits(t: torch.Tensor) -> torch.Tensor:
+        t = t.reshape(-1)
+        return t.masked_fill(t.isnan(), float("nan")).view(torch.int32)
+
+    def glue_out() -> tuple:
+        return (torch.empty((), device=dev), torch.empty((), dtype=torch.int32, device=dev),
+                torch.empty((), dtype=torch.bool, device=dev))
+
+    glue_cases = 0
+    for gn in (BIG_N, BIG_N + 3, 1000, 1):
+        ev0 = (torch.rand(gn, generator=gen) + 0.5).to(dev)
+        ys = {"goes on": (torch.rand(gn, generator=gen) + 0.5).to(dev),
+              "stops": ev0 * (1 + 1e-5 * torch.rand(gn, generator=gen).to(dev)),
+              "nan": (torch.rand(gn, generator=gen) + 0.5).to(dev)}
+        ys["nan"][gn // 2] = float("nan")
+        for (what, y), i, mode in itertools.product(ys.items(), (0, 9), ("absolute", "relative")):
+            got, want = [], []
+            for fn, into in ((kernels.round_glue, got), (kernels.round_glue_plain, want)):
+                e, (lam, r, c) = ev0.clone(), glue_out()
+                fn(y, e, eps_t, i, lam, r, c, mode)
+                into.extend((e, lam, r, c))
+            torch.cuda.synchronize()
+            case = f"round_glue n={gn} {what} i={i} {mode}"
+            stops = what == "stops" or (gn == 1 and what != "nan")
+            check(bool(got[3]) == bool(want[3]) == stops, f"{case}: converged")
+            check(int(got[2]) == int(want[2]) == (i if stops else i + 1), f"{case}: rounds")
+            check(torch.equal(glue_bits(got[1]), glue_bits(want[1])), f"{case}: λ")
+            check(torch.equal(glue_bits(got[0]), glue_bits(want[0])), f"{case}: ev")
+            glue_cases += 1
+    # timed at the main path's shape, each way on its own copy of ev (after
+    # the first call the update leaves ev where it is, so every call does the
+    # same work); the yardstick is the host loop's PyTorch chain that the
+    # glue replaced
+    ev_c = (torch.rand(BIG_N, generator=gen) + 0.5).to(dev)
+    ev_k, ev_p = ev_c.clone(), ev_c.clone()
+    y_g = (torch.rand(BIG_N, generator=gen) + 0.5).to(dev)
+    out_k, out_p = glue_out(), glue_out()
+
+    def glue_chain():
+        v = y_g / ev_c
+        stop = stop_check(v, eps_t)
+        return ev_c * (v / torch.max(v)), v[0], stop
+
+    t_glue = [time_call(lambda: kernels.round_glue(y_g, ev_k, eps_t, 9, *out_k), reps=50).median_ms,
+              time_call(lambda: kernels.round_glue_plain(y_g, ev_p, eps_t, 9, *out_p),
+                        reps=50).median_ms,
+              time_call(glue_chain, reps=50).median_ms]
+    say(f"round_glue: {glue_cases} cases equal to round_glue_plain bit for bit (n = {BIG_N}, "
+        f"{BIG_N + 3}, 1000, 1; goes on / stops / NaN; rounds 0 and 9; both modes); at {BIG_N} "
+        f"kernel median {t_glue[0]:.4f} ms, plain {t_glue[1]:.4f} ms, the host loop's chain "
+        f"{t_glue[2]:.4f} ms (each a call, host-paced)")
+    del ys, ev0, ev_k, ev_p, ev_c, y_g
+
     # --- 3. the main path, through the public API, backend "auto" only ---
     mats = {n: fixtures.hilbert_matrix(n, device=dev) for n in fixtures.HILBERT_ROUNDS}
     routes = {n: resolve_backend(evt.DEFAULT_CONFIG, n, dev) for n in (*mats, BIG_N)}
@@ -2157,7 +2219,7 @@ def main() -> int:
     launches = read_counts()
     say(f"main path launches: {launches}")
     for name, count in launches.items():
-        if name in ("matvec", "multiround"):
+        if name in ("matvec", "multiround", "round_glue"):
             check(count > 0, f"the main path launched no {name} kernel")
         else:
             check(count == 0, f"a dense auto solve launched {name}")
@@ -2608,7 +2670,7 @@ def main() -> int:
     say(f"storage path launches: {st_launches} (bf16 solves {bf16_launches}, f16 solves "
         f"{f16_launches})")
     for name, count in st_launches.items():
-        if name in ("matvec", "multiround", "multiround_sym"):
+        if name in ("matvec", "multiround", "multiround_sym", "round_glue"):
             check(bf16_launches[name] > 0, f"the bf16 storage path launched no {name} kernel")
         else:
             check(count == 0, f"the storage path launched {name}")
@@ -3028,6 +3090,16 @@ def main() -> int:
         record("round_fused", "round.cu", f"{jk}:1434", fused_launches["round_fused"],
                round_err["round_fused"], *t_it["round_fused"],
                bound(4 * nn + 4 * vec + 5, 2 * nn + 7 * n), matvec_ms=t_mv.median_ms),
+        # y and ev read, ev written at 65536 (and eps, λ, rounds, converged);
+        # a divide, two maxima, a subtraction, an abs and the update's divide
+        # and multiply per element.  Replaces no Pallas kernel: JAX's
+        # lax.while_loop leaves this glue to XLA.  max_abs_err: every case of
+        # step 2f equalled round_glue_plain bit for bit
+        record("round_glue", "round_glue.cu", "none (XLA's fusion in lax.while_loop)",
+               launches["round_glue"] + bf16_launches["round_glue"], 0.0, *t_glue,
+               bound(3 * 4 * BIG_N + 13, 7 * BIG_N), size=BIG_N,
+               library_is="the host loop's PyTorch chain: y / ev, stop_check, max, ev * (v / m), "
+                          "v[0]"),
         # A in bf16 (2 bytes an element), ev and every sum f32; launches are
         # the bf16 storage solves' (the f16 ones: f16_launches, printed above)
         record("matvec[bf16]", "matvec.cu", f"{jk}:227", bf16_launches["matvec"],

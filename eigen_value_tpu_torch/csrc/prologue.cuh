@@ -24,6 +24,24 @@ __device__ __forceinline__ float nanmax(float a, float b) {
   return (a > b || isnan(a)) ? a : b;
 }
 
+// The stop's statistics, max v, max |v| and max |v[k] - v[k+1]|, taken on
+// from a chunk of four values w and the value after it (stats4) or from
+// one value and the next (stats1); every kernel that checks the stop on a
+// thread's values takes them through these (round_prologue, round_glue.cu).
+__device__ __forceinline__ void stats4(float4 w, float next, float& mx, float& mabs,
+                                       float& md) {
+  mx = nanmax(nanmax(nanmax(mx, w.x), nanmax(w.y, w.z)), w.w);
+  mabs = nanmax(nanmax(nanmax(mabs, fabsf(w.x)), nanmax(fabsf(w.y), fabsf(w.z))), fabsf(w.w));
+  md = nanmax(nanmax(nanmax(md, fabsf(w.x - w.y)), nanmax(fabsf(w.y - w.z), fabsf(w.z - w.w))),
+              fabsf(w.w - next));
+}
+
+__device__ __forceinline__ void stats1(float v, float next, float& mx, float& mabs, float& md) {
+  mx = nanmax(mx, v);
+  mabs = nanmax(mabs, fabsf(v));
+  md = nanmax(md, fabsf(v - next));
+}
+
 __device__ __forceinline__ float warp_max(float a) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -128,13 +146,7 @@ __device__ __forceinline__ bool round_prologue(
             const int jn = c + 1 == n4 ? 0 : 4 * c + 4;
             vn = first ? edge[u] : edge[u] / ev_s[jn];
           }
-          const float4 w = v[u];
-          mx = nanmax(nanmax(nanmax(mx, w.x), nanmax(w.y, w.z)), w.w);
-          mabs = nanmax(nanmax(nanmax(mabs, fabsf(w.x)), nanmax(fabsf(w.y), fabsf(w.z))),
-                        fabsf(w.w));
-          md = nanmax(nanmax(nanmax(md, fabsf(w.x - w.y)),
-                             nanmax(fabsf(w.y - w.z), fabsf(w.z - w.w))),
-                      fabsf(w.w - vn));
+          stats4(v[u], vn, mx, mabs, md);
         }
       }
     }
@@ -143,9 +155,7 @@ __device__ __forceinline__ bool round_prologue(
       const int jn = j + 1 == n ? 0 : j + 1;
       const float vj = first ? v_in[j] : __ldcg(raw + j) / ev_s[j];
       const float vn = first ? v_in[jn] : __ldcg(raw + jn) / ev_s[jn];
-      mx = nanmax(mx, vj);
-      mabs = nanmax(mabs, fabsf(vj));
-      md = nanmax(md, fabsf(vj - vn));
+      stats1(vj, vn, mx, mabs, md);
     }
   }
   block_max3<kT>(mx, mabs, md, red, stats);

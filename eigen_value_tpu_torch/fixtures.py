@@ -65,6 +65,19 @@ def random_positive_matrix(
     return (a * (1.0 - 1e-4) + 1e-4).to(device)
 
 
+def scaled_hilbert_matrix(
+    n: int, generator: torch.Generator | None = None, scale: float = 0.01, dtype=torch.float32,
+    device="cpu",
+) -> torch.Tensor:
+    """The Hilbert matrix scaled entry by entry by ``1 + scale·s``, s
+    symmetric and U(0, 1): symmetric and positive, with the Hilbert
+    matrix's spectrum nearly and other bits, the kind of matrix the
+    benchmark's cells solve.  Formed in float32 from the generator's draw
+    (CPU by default), then cast and moved."""
+    u = torch.rand((n, n), generator=generator)
+    return (hilbert_matrix(n) * (1.0 + scale * ((u + u.T) / 2))).to(dtype).to(device)
+
+
 #: The 3×3 cross-implementation anchor (reference tests/test.cpp:79-104).
 ANCHOR_3X3 = np.array([[1.0, 1.0, 2.0], [2.0, 1.0, 3.0], [2.0, 3.0, 5.0]])
 ANCHOR_3X3_EIGENVALUE = 7.531129

@@ -23,8 +23,8 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = (
-    "matvec.cu", "multiround.cu", "multiround_sym.cu", "round.cu", "rowsum.cu", "scale.cu",
-    "stop.cu",
+    "matvec.cu", "multiround.cu", "multiround_sym.cu", "round.cu", "round_glue.cu", "rowsum.cu",
+    "scale.cu", "stop.cu",
 )
 HEADERS = ("bulk.cuh", "mma_tf32.cuh", "prologue.cuh", "rowdot.cuh", "rowsum.cuh")
 NVCC_FLAGS = (
@@ -61,6 +61,8 @@ _SIGNATURES = {
     "evt_round_matvec": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     # A, ev, v, eps, v_next, ev_new, done, lam, n, grid, stream
     "evt_round_fused": (_P, _P, _P, ctypes.c_float, _P, _P, _P, _P, _I, _I, _P),
+    # y, ev, eps, rel, n, round, ticket, scratch, slots, lam, rounds, converged, stream
+    "evt_round_glue": (_P, _P, _P, _I, _I, _I, _P, _P, _I, _P, _P, _P, _P),
     # A, out, n, stream
     "evt_rowsum": (_P, _P, _I, _P),
     # A, bias, out, n, stream

@@ -7,9 +7,13 @@ the bench's ``_rowsum_bias_pallas``: same arguments and returns, except that
 ``scale`` and ``scale_rowsum`` take an ``out=`` (JAX arrays are immutable,
 tensors are not: the caller says where A' goes, and its own matrix is never
 written unless it names it), and that no kernel takes a tile shape or an
-``interpret`` flag.  A wrapper checks device, dtype, shape and contiguity
-and raises on anything else.  For CPU tensors it runs the plain version; for
-CUDA tensors it launches the kernel or raises — there is no fallback.
+``interpret`` flag.  ``matvec_bound`` binds one ``matvec`` launch on kept
+buffers for a loop to repeat.  ``round_glue`` has no JAX counterpart: it is
+the O(n) glue of a matvec-loop round, which JAX's ``lax.while_loop`` leaves
+to XLA, as one kernel (csrc/round_glue.cu).  A wrapper checks device,
+dtype, shape and contiguity and raises on anything else.  For CPU tensors
+it runs the plain version; for CUDA tensors it launches the kernel or
+raises — there is no fallback.
 
 Every tensor is float32, except the A of ``matvec``, ``multiround`` and
 ``multiround_sym``, which may also be bfloat16 or float16 (reduced-precision
@@ -25,9 +29,9 @@ the card or in the plain version: the solve that reads the launch's count
 adds it.  ``multiround_sym.plan`` keeps the :class:`SymPlan` of the
 triangle wrapper's last launch on the card (None before one), whose
 ``hbm_bytes`` the benchmark reads.  The whole body of each wrapper that a
-route of ``api.max_eigenvalue`` calls (``matvec``, ``multiround``,
-``multiround_sym``, ``rowsum``, ``scale_rowsum``), checks, plan, buffers and
-launch or plain version, is the span ``launch.<wrapper>``
+route of ``api.max_eigenvalue`` calls (``matvec``, ``round_glue``,
+``multiround``, ``multiround_sym``, ``rowsum``, ``scale_rowsum``), checks,
+plan, buffers and launch or plain version, is the span ``launch.<wrapper>``
 (``utils/profiling.py``).
 
 The two persistent kernels can report where a launch's time went: with
@@ -226,6 +230,56 @@ def _leading_dim(A: torch.Tensor) -> int:
     return ld
 
 
+def _matvec_checks(A: torch.Tensor, x: torch.Tensor, out: Optional[torch.Tensor] = None) -> tuple:
+    """:func:`matvec`'s checks, and :func:`matvec_bound`'s with its
+    ``out``; ``(n, m, ld, device)``."""
+    if A.dim() != 2:
+        raise ValueError(f"A must be 2-D, got shape {tuple(A.shape)}")
+    n, m = A.shape
+    ld = _leading_dim(A)
+    _check_f32("x", x, (m,))
+    if out is None:
+        dev = tensor_device(A, x)
+    else:
+        _check_f32("out", out, (n,))
+        dev = tensor_device(A, x, out)
+        if _overlap(out, x):
+            raise ValueError("out must not overlap x")
+    if dev.type == "cuda":
+        _check_aligned(m, A, x)
+        if m % 4 == 0 and ld % 4:
+            raise ValueError(f"A's rows are {ld} elements apart: the chunked kernel needs a "
+                             f"multiple of 4")
+    return n, m, ld, dev
+
+
+def _matvec_launcher(A: torch.Tensor, x: torch.Tensor, y: torch.Tensor, n: int, m: int,
+                     ld: int, dev: torch.device):
+    """A function that launches ``y = A @ x`` on the stream that is ``dev``'s
+    current one now, counts it in ``matvec.launches`` and returns y: the one
+    launch body of :func:`matvec` and :func:`matvec_bound`.  The library's
+    entry and every argument are bound here, so a call only launches."""
+    from . import build
+
+    with torch.cuda.device(dev):
+        entry = functools.partial(
+            build.load().evt_matvec, A.data_ptr(), x.data_ptr(), y.data_ptr(), n, m, ld,
+            _ELEM[A.dtype], torch.cuda.current_stream(dev).cuda_stream)
+    here = torch.cuda.current_device() == dev.index
+
+    def run() -> torch.Tensor:
+        if here:
+            rc = entry()
+        else:
+            with torch.cuda.device(dev):
+                rc = entry()
+        _launch(rc, "matvec")
+        matvec.launches += 1
+        return y
+
+    return run
+
+
 @spanned("launch.matvec")
 def matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` for A (n, m) float32, bfloat16 or float16 and x (m,)
@@ -236,33 +290,32 @@ def matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     == 0 the base address and ld must keep every row aligned to four
     elements (16 bytes of f32, 8 of bf16 / f16): the kernel reads rows in
     chunks of four."""
-    if A.dim() != 2:
-        raise ValueError(f"A must be 2-D, got shape {tuple(A.shape)}")
-    n, m = A.shape
-    ld = _leading_dim(A)
-    _check_f32("x", x, (m,))
-    dev = tensor_device(A, x)
+    n, m, ld, dev = _matvec_checks(A, x)
     if dev.type == "cpu":
         return matvec_plain(A, x)
-    _check_aligned(m, A, x)
-    if m % 4 == 0 and ld % 4:
-        raise ValueError(f"A's rows are {ld} elements apart: the chunked kernel needs a "
-                         f"multiple of 4")
-    from . import build
-
     y = torch.empty(n, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch(
-            build.load().evt_matvec(A.data_ptr(), x.data_ptr(), y.data_ptr(), n, m, ld,
-                                    _ELEM[A.dtype], stream),
-            "matvec",
-        )
-    matvec.launches += 1
-    return y
+    return _matvec_launcher(A, x, y, n, m, ld, dev)()
 
 
 matvec.launches = 0
+
+
+def matvec_bound(A: torch.Tensor, x: torch.Tensor, out: torch.Tensor):
+    """``out = A @ x`` as :func:`matvec` computes it, bound once for a loop
+    that reruns one product on buffers it keeps (``out`` (n,) float32, not
+    overlapping x): the checks, the library's entry and the current stream
+    are taken here, and each call of the returned function launches the
+    kernel on that stream, reading x as it is then, and returns ``out`` (the
+    span ``launch.matvec`` and the count are :func:`matvec`'s).  The loop
+    must leave the current device as it was here.  On the CPU each call runs
+    the plain version into ``out``."""
+    n, m, ld, dev = _matvec_checks(A, x, out)
+    if dev.type == "cpu":
+        def run():
+            return out.copy_(matvec_plain(A, x))
+    else:
+        run = _matvec_launcher(A, x, out, n, m, ld, dev)
+    return spanned("launch.matvec")(run)
 
 
 def _as_scalar(lam, dev: torch.device) -> torch.Tensor:
@@ -1170,6 +1223,87 @@ def stop(v: torch.Tensor, eps) -> torch.Tensor:
 
 
 stop.launches = 0
+
+
+#: Blocks of a ``round_glue`` launch at most, each with a slot of three
+#: partial maxima in the scratch: eight for each of an H100's 132 SMs.
+GLUE_SLOTS = 1056
+
+
+def round_glue_plain(y, ev, eps, i: int, lam, rounds, converged, eps_mode: str = "absolute"):
+    """:func:`round_glue` with PyTorch's operations: the host loop's
+    expressions in their order (``v = y / ev``, ``solver.stop_check``,
+    ``m = torch.max(v)``, ``ev · (v / m)``, ``λ = v[0]``), written into the
+    same buffers."""
+    v = y / ev
+    stop = stop_check(v, eps, eps_mode)
+    m = torch.max(v)
+    ev.copy_(ev * (v / m))
+    lam.copy_(v[0])
+    converged.copy_(stop)
+    rounds.fill_(i + 1).sub_(stop.to(rounds.dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _glue_state(device: torch.device, stream: int) -> tuple:
+    """``(ticket, scratch)`` through which the blocks of a ``round_glue``
+    launch combine their partial maxima (csrc/round_glue.cu): one word the
+    kernel leaves zero, so it is zeroed once, here, and m with
+    :data:`GLUE_SLOTS` slots of three floats.  Launches on one stream are
+    ordered, so each (device, stream) has its own."""
+    return (torch.zeros(1, dtype=torch.int32, device=device),
+            torch.empty(1 + 3 * GLUE_SLOTS, dtype=torch.float32, device=device))
+
+
+@spanned("launch.round_glue")
+def round_glue(y: torch.Tensor, ev: torch.Tensor, eps, i: int, lam: torch.Tensor,
+               rounds: torch.Tensor, converged: torch.Tensor, eps_mode: str = "absolute"):
+    """Round ``i``'s glue of the matvec-form loop after its matvec
+    ``y = A @ ev``, all on the card: ``v = y / ev``; the wraparound stop on
+    v (strict, a NaN fails; ``eps_mode`` as ``solver.stop_check``);
+    ``m = max(v)`` (NaN propagating); then, whatever the stop,
+    ``ev ← ev · (v / m)`` in place, ``lam ← v[0]``,
+    ``rounds ← stop ? i : i + 1`` and ``converged ← stop``.  After the
+    glue of the round where the loop ends (the stop, or ``i + 1 ==
+    max_itr``) the four buffers hold ``solver._finish``'s result bit for
+    bit.  y and ev are float32 (n,), lam float32, rounds int32 and
+    converged bool 0-d; ``eps`` is a 0-d float32 tensor on their device,
+    read there (a number is wrapped into one).  Two launches (the check,
+    then the update) on the current stream; nothing is read back."""
+    if y.dim() != 1 or y.shape[0] < 1:
+        raise ValueError(f"y must be a non-empty vector, got shape {tuple(y.shape)}")
+    n = y.shape[0]
+    _check_f32("y", y, (n,))
+    _check_f32("ev", ev, (n,))
+    _check_f32("lam", lam, ())
+    _check_f32("rounds", rounds, (), (torch.int32,))
+    _check_f32("converged", converged, (), (torch.bool,))
+    if eps_mode not in ("absolute", "relative"):
+        raise ValueError(f"eps_mode must be 'absolute' or 'relative', got {eps_mode!r}")
+    dev = tensor_device(y, ev, lam, rounds, converged)
+    eps = _operand(eps, dev, "eps")
+    if _overlap(y, ev):
+        raise ValueError("y must not overlap ev")
+    if dev.type == "cpu":
+        return round_glue_plain(y, ev, eps, i, lam, rounds, converged, eps_mode)
+    _check_aligned(n, y, ev)
+    from . import build
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ticket, scratch = _glue_state(dev, stream)
+        _launch(
+            build.load().evt_round_glue(
+                y.data_ptr(), ev.data_ptr(), eps.data_ptr(), int(eps_mode == "relative"), n, i,
+                ticket.data_ptr(), scratch.data_ptr(), GLUE_SLOTS, lam.data_ptr(),
+                rounds.data_ptr(), converged.data_ptr(), stream,
+            ),
+            "round_glue",
+        )
+    round_glue.launches += 2
+
+
+round_glue.launches = 0
 
 
 def round_matvec_plain(A: torch.Tensor, ev: torch.Tensor, v: torch.Tensor, m):

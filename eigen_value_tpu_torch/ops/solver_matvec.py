@@ -12,11 +12,14 @@ reference's: the stop is checked BEFORE the update, λ = v[0], rounds are
 0-based, and the cap reports the last checked round (``solver._finish``).
 
 Here the loop runs on the host with one stop read per round (JAX runs it
-as a ``lax.while_loop`` on the device); :func:`solve_multiround` moves up
-to ``chunk`` rounds into one kernel launch (the stripes kernel, or the
-tiled triangle kernel for a declared-symmetric matrix) and reads one count
-per launch.  :func:`solve_matvec_kernel_fused` and :func:`solve_fused_round`
-keep the host loop and fuse a round's O(n) glue into its one O(n²) launch.
+as a ``lax.while_loop`` on the device); :func:`solve_matvec_kernel` issues
+each round's stop, max, update and λ as one glue kernel before that read,
+so after it the host only launches the next matvec.
+:func:`solve_multiround` moves up to ``chunk`` rounds into one kernel
+launch (the stripes kernel, or the tiled triangle kernel for a
+declared-symmetric matrix) and reads one count per launch.
+:func:`solve_matvec_kernel_fused` and :func:`solve_fused_round` keep the
+host loop and fuse a round's O(n) glue into its one O(n²) launch.
 :func:`solve_operator` runs the same loop over any ``matvec`` (the
 matrix-free solve), and the ``*_traced`` solves record λ each round.
 
@@ -157,13 +160,43 @@ def solve_matvec_kernel(
     round (the ``solve_matvec_pallas`` counterpart).  With ``storage_dtype``
     the kernel reads A in 2 bytes: the storage route of ``matvec_pallas``
     and ``matvec``, and the only single-card route past n = 57856 (65536² is
-    8 GiB in bf16)."""
+    8 GiB in bf16).
+
+    A round is the matvec ``y = A @ ev`` and ``kernels.round_glue``, which
+    forms v = y / ev, checks the stop, and writes the update of ev, λ,
+    rounds and converged whatever the stop, all before the round's one
+    read; so the host's only step after a read is the next matvec launch,
+    and no ``_finish`` follows: after the glue of the last round the buffers
+    hold the result, bit for bit ``_finish(_run_rounds(...))`` over
+    ``kernels.matvec``.  The matvec after the last round at the cap would
+    be unused and is not launched; nor is the read of that round.  The
+    matvec is bound once (``kernels.matvec_bound``), so the launch after a
+    read repeats none of its checks."""
     A, _ = _stored(A, storage_dtype)
-
-    def matvec(ev):
-        return kernels.matvec(A, ev) / ev
-
-    return solve_matvec_loop(A, matvec, eps, max_itr, ev0=ev0, eps_mode=eps_mode)
+    n, dev = A.shape[0], A.device
+    f32 = torch.float32
+    if ev0 is None:
+        ev = torch.ones(n, dtype=f32, device=dev)
+    else:  # updated in place below: never the caller's tensor
+        ev = torch.as_tensor(ev0, dtype=f32, device=dev).contiguous().clone()
+    lam = torch.empty((), dtype=f32, device=dev)
+    rounds = torch.empty((), dtype=torch.int32, device=dev)
+    converged = torch.empty((), dtype=torch.bool, device=dev)
+    if max_itr <= 0:
+        return SolveResult(lam.zero_(), ev, rounds.zero_(), converged.zero_())
+    e = torch.full((), eps, dtype=f32, device=dev)  # a fill: no host-to-device copy
+    y = torch.empty(n, dtype=f32, device=dev)
+    matvec = kernels.matvec_bound(A, ev, y)  # y = A @ ev, the checks paid once
+    matvec()
+    for i in range(max_itr):
+        kernels.round_glue(y, ev, e, i, lam, rounds, converged, eps_mode)
+        if i + 1 == max_itr:
+            break
+        with span("solver.read"):
+            if bool(converged):
+                break
+        matvec()
+    return SolveResult(lam, ev, rounds, converged)
 
 
 def solve_operator(

@@ -11,7 +11,8 @@ Spans mark the port's layer boundaries on the single-card path of
   ``solver.matvec_kernel``, ``solver.matvec``, ``solver.xla``,
   ``solver.kernel``); ``solver.read``: each synchronising read a solve
   makes; ``solver.finish``: the host's epilogue (none on
-  ``solver.multiround``, whose kernels write the result);
+  ``solver.multiround`` and ``solver.matvec_kernel``, whose kernels write
+  the result);
 * ``launch.<wrapper>``: the whole body of a kernel wrapper that these
   routes call (checks, plan, buffers, the launch; on the CPU the plain
   version it runs instead).

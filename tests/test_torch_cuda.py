@@ -727,6 +727,171 @@ def test_65536_bf16_solve_and_its_peak_memory(cuda):
     assert abs(int(got.rounds) - 21) <= 1 and bool(got.converged)
     assert float(got.eigenvalue) == pytest.approx(2.70946, rel=2e-3)
     assert _residual_f64(A_q, got) < 1e-3
+    # the loop's device work is the matvec and the glue kernels and the
+    # start vector's and eps's fills: no PyTorch reduction, compare or abs
+    names = _kernel_names(lambda: evt.max_eigenvalue(
+        A_q, evt.SolverConfig(storage_dtype=torch.bfloat16)))
+    rounds = int(got.rounds)
+    assert sum("matvec_kernel" in k for k in names) == rounds + 1
+    assert sum("round_glue_check" in k for k in names) == rounds + 1
+    assert sum("round_glue_update" in k for k in names) == rounds + 1
+    others = [k for k in names if "matvec_kernel" not in k and "round_glue" not in k]
+    assert len(others) == 2 and all("Fill" in k for k in others), others
+
+
+def _kernel_names(fn):
+    """The names of the kernels that ``fn()`` ran on the card, in order."""
+    import json
+    import os
+    import tempfile
+
+    from eigen_value_tpu_torch.utils import profiling
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as d:
+            fn()
+            torch.cuda.synchronize()
+        events = json.load(open(os.path.join(d, profiling.TRACE_FILE)))["traceEvents"]
+    kernels = sorted((e["ts"], e["name"]) for e in events if e.get("cat") == "kernel")
+    return [name for _, name in kernels]
+
+
+# --- the matvec loop's round glue (csrc/round_glue.cu): the stop, the max,
+# the ev update and λ on the card before each read ------------------------
+
+
+def _host_loop(A, max_itr, eps_mode="absolute"):
+    """``solve_matvec_kernel`` as it was before the glue kernel: the shared
+    host loop (``_run_rounds``) over ``kernels.matvec``, then ``_finish``."""
+    from eigen_value_tpu_torch.ops.solver import _finish
+    from eigen_value_tpu_torch.ops.solver_matvec import _init_carry, _run_rounds
+
+    def next_v(ev):
+        return tk.matvec(A, ev) / ev
+
+    c = _init_carry(A.shape[0], next_v, torch.float32, A.device)
+    return _finish(_run_rounds(next_v, c, EPS, max_itr, eps_mode)[0], max_itr)
+
+
+def _bits(t):
+    """A float tensor's bits, its NaNs as one pattern (a NaN's payload is
+    the operation's, not the algorithm's)."""
+    return t.reshape(-1).masked_fill(t.reshape(-1).isnan(), float("nan")).view(torch.int32)
+
+
+def _same_bits(got, want):
+    assert got.rounds.dtype == torch.int32 and got.converged.dtype == torch.bool
+    assert int(got.rounds) == int(want.rounds)
+    assert bool(got.converged) == bool(want.converged)
+    assert torch.equal(_bits(got.eigenvalue), _bits(want.eigenvalue))
+    assert torch.equal(_bits(got.eigenvector), _bits(want.eigenvector))
+
+
+def _glue_matrix(kind, n, dt, cuda):
+    if kind == "hilbert_scaled":  # the kind of matrix the benchmark's cells solve
+        return tfx.scaled_hilbert_matrix(n, torch.Generator().manual_seed(n), dtype=dt,
+                                         device=cuda)
+    return tfx.random_positive_matrix(n, torch.Generator().manual_seed(n), device=cuda).to(dt)
+
+
+def _counts():
+    torch.cuda.synchronize()
+    return tk.matvec.launches, tk.round_glue.launches
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [3, 1000, 1027])
+def test_a_bound_matvec_is_matvec(cuda, n, dt):
+    A = _random_pos(n, cuda, n).to(dt)
+    x = torch.rand(n, generator=torch.Generator().manual_seed(3)).to(cuda) + 0.5
+    y = torch.empty(n, device=cuda)
+    launch = tk.matvec_bound(A, x, y)
+    before = tk.matvec.launches
+    for _ in range(3):
+        assert launch() is y
+    torch.cuda.synchronize()
+    assert tk.matvec.launches == before + 3
+    assert torch.equal(y, tk.matvec(A, x))
+    x.mul_(2)  # the bound launch reads the buffers as they are at each call
+    launch()
+    assert torch.equal(y, tk.matvec(A, x))
+
+
+@pytest.mark.parametrize("kind", ["hilbert_scaled", "random"])
+@pytest.mark.parametrize("n", [384, 1000, 1027, 8192])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16, torch.float16])
+def test_the_glue_loop_is_the_host_loop_bit_for_bit(cuda, dt, n, kind):
+    """rounds, converged, λ and ev equal ``_finish(_run_rounds(...))`` over
+    ``kernels.matvec`` bit for bit; a round is one matvec and two glue
+    launches, and no matvec follows the cap's last round."""
+    A = _glue_matrix(kind, n, dt, cuda)
+    before = _counts()
+    got = solve_matvec_kernel(A, EPS, MAX_ITR)
+    after = _counts()
+    rounds = int(got.rounds)
+    glued = rounds + 1 if bool(got.converged) else MAX_ITR
+    assert (after[0] - before[0], after[1] - before[1]) == (glued, 2 * glued)
+    _same_bits(got, _host_loop(A, MAX_ITR))
+
+
+@pytest.mark.parametrize("eps_mode", ["absolute", "relative"])
+@pytest.mark.parametrize("cap", [0, 1, 3, MAX_ITR])
+def test_the_glue_loop_at_the_cap_and_in_relative_mode(cuda, cap, eps_mode):
+    for dt in (torch.float32, torch.bfloat16):
+        A = _glue_matrix("hilbert_scaled", 1024, dt, cuda)
+        before = _counts()
+        got = solve_matvec_kernel(A, EPS, cap, eps_mode=eps_mode)
+        after = _counts()
+        want = _host_loop(A, cap, eps_mode)
+        _same_bits(got, want)
+        assert bool(got.converged) == (cap == MAX_ITR)
+        glued = int(got.rounds) + 1 if bool(got.converged) else cap
+        assert (after[0] - before[0], after[1] - before[1]) == (glued, 2 * glued)
+    got = solve_matvec_kernel(A, EPS, 0)
+    assert torch.equal(got.eigenvector, torch.ones(1024, device=cuda))
+    assert float(got.eigenvalue) == 0.0 and int(got.rounds) == 0 and not bool(got.converged)
+
+
+@pytest.mark.parametrize("where", [(17, 5), (0, 3)])
+def test_a_nan_in_a_gives_the_host_loops_nans(cuda, where):
+    for dt in (torch.float32, torch.bfloat16):
+        A = tfx.hilbert_matrix(1000, device=cuda).to(dt)
+        A[where] = float("nan")
+        got = solve_matvec_kernel(A, EPS, 12)
+        _same_bits(got, _host_loop(A, 12))
+        assert not bool(got.converged) and int(got.rounds) == 12
+        assert bool(got.eigenvector.isnan().all())
+
+
+@pytest.mark.parametrize("eps_mode", ["absolute", "relative"])
+@pytest.mark.parametrize("n", [1, 3, 4, 1000, 1027, 65536])
+def test_round_glue_matches_its_plain_version(cuda, n, eps_mode):
+    g = torch.Generator().manual_seed(n)
+    ev = (torch.rand(n, generator=g) + 0.5).to(cuda)
+    cases = {
+        "fails": (torch.rand(n, generator=g) + 0.5).to(cuda),
+        "passes": ev * (1 + 1e-5 * torch.rand(n, generator=g).to(cuda)),
+        "nan": (torch.rand(n, generator=g) + 0.5).to(cuda).index_fill_(0, torch.tensor(
+            [n // 2], device=cuda), float("nan")),
+    }
+    for name, y in cases.items():
+        for i in (0, 7):
+            outs = []
+            for fn in (tk.round_glue, tk.round_glue_plain):
+                e = ev.clone()
+                lam = torch.empty((), device=cuda)
+                rounds = torch.empty((), dtype=torch.int32, device=cuda)
+                conv = torch.empty((), dtype=torch.bool, device=cuda)
+                launches = tk.round_glue.launches
+                fn(y, e, torch.tensor(EPS, device=cuda), i, lam, rounds, conv, eps_mode=eps_mode)
+                torch.cuda.synchronize()
+                assert tk.round_glue.launches - launches == (2 if fn is tk.round_glue else 0)
+                outs.append((e, lam, int(rounds), bool(conv)))
+            (e, lam, r, c), (e0, lam0, r0, c0) = outs
+            assert (r, c) == (r0, c0), (name, i)
+            assert r == (i if c else i + 1)
+            assert c == (name == "passes" or (n == 1 and name != "nan")), (name, i)
+            assert torch.equal(_bits(e), _bits(e0)) and torch.equal(_bits(lam), _bits(lam0))
 
 
 def test_a_misaligned_view_is_solved(cuda):

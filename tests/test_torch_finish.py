@@ -5,7 +5,10 @@ the same launch's carry, at the stop, at the cap, where the stop and the
 cap fall on one round, at the first check of a resumed launch, in
 relative mode and over chunkings; a launch not asked for the result returns
 its carry (what ``checkpoint.step`` resumes from); ``finishes`` counts one a
-solve.  The card's kernels are held to the same in ``test_torch_cuda.py``."""
+solve.  The matvec kernel loop (``solve_matvec_kernel``), whose glue
+writes the result round by round (csrc/round_glue.cu), is held bit for bit
+to the host loop it replaced, ``_finish(_run_rounds(...))``, on the plain
+versions.  The card's kernels are held to the same in ``test_torch_cuda.py``."""
 
 import pytest
 
@@ -13,8 +16,14 @@ torch = pytest.importorskip("torch")
 
 from eigen_value_tpu_torch import fixtures as tfx  # noqa: E402
 from eigen_value_tpu_torch.ops.cuda import kernels as tk  # noqa: E402
-from eigen_value_tpu_torch.ops.solver import _finish  # noqa: E402
-from eigen_value_tpu_torch.ops.solver_matvec import _Carry, solve_multiround  # noqa: E402
+from eigen_value_tpu_torch.ops.solver import _finish, stop_check  # noqa: E402
+from eigen_value_tpu_torch.ops.solver_matvec import (  # noqa: E402
+    _Carry,
+    _init_carry,
+    _run_rounds,
+    solve_matvec_kernel,
+    solve_multiround,
+)
 
 EPS = 1e-3
 #: the solve's knobs → (wrapper, the wrapper's knobs)
@@ -152,3 +161,113 @@ def test_finishes_counts_one_a_solve(kernel, chunk):
         solve_multiround(H, EPS, max_itr, chunk=chunk, **knobs)
     assert wrapper.finishes == before + 2
     assert wrapper.launches == launches  # the plain versions launch nothing
+
+
+# --- the matvec kernel loop: the round glue writes the result ----------------
+
+
+def host_loop(A, max_itr, eps_mode="absolute", ev0=None):
+    """``solve_matvec_kernel`` as it was before its glue wrote the result:
+    the shared host loop over ``kernels.matvec``, then ``_finish``."""
+
+    def next_v(ev):
+        return tk.matvec(A, ev) / ev
+
+    c = _init_carry(A.shape[0], next_v, torch.float32, A.device, ev0)
+    return _finish(_run_rounds(next_v, c, EPS, max_itr, eps_mode)[0], max_itr)
+
+
+def glue_matrix(kind, n):
+    if kind == "hilbert_scaled":  # the kind of matrix the benchmark's cells solve
+        return tfx.scaled_hilbert_matrix(n, torch.Generator().manual_seed(n))
+    return tfx.random_positive_matrix(n, torch.Generator().manual_seed(n))
+
+
+@pytest.mark.parametrize("eps_mode", ["absolute", "relative"])
+@pytest.mark.parametrize("n", [384, 1024])
+@pytest.mark.parametrize("kind", ["hilbert_scaled", "random"])
+def test_the_matvec_loop_is_finish_of_its_rounds_bit_for_bit(kind, n, eps_mode):
+    A = glue_matrix(kind, n)
+    launches = (tk.matvec.launches, tk.round_glue.launches)
+    for max_itr in (0, 1, 3, 1000):
+        got = solve_matvec_kernel(A, EPS, max_itr, eps_mode=eps_mode)
+        want = host_loop(A, max_itr, eps_mode)
+        same_result(got, want)
+        # the random matrices stop in 2-3 rounds in relative mode
+        assert bool(got.converged) == (max_itr == 1000) or kind == "random"
+    assert bool(got.converged)
+    assert (tk.matvec.launches, tk.round_glue.launches) == launches  # the plain versions
+
+
+def test_the_matvec_loop_keeps_the_callers_start_vector():
+    H = tfx.hilbert_matrix(N)
+    ev0 = torch.linspace(1.0, 2.0, N)
+    keep = ev0.clone()
+    got = solve_matvec_kernel(H, EPS, 1000, ev0=ev0)
+    assert torch.equal(ev0, keep) and got.eigenvector.data_ptr() != ev0.data_ptr()
+    same_result(got, host_loop(H, 1000, ev0=ev0))
+
+
+def glue_buffers(n, seed):
+    g = torch.Generator().manual_seed(seed)
+    y, ev = torch.rand(n, generator=g) + 0.5, torch.rand(n, generator=g) + 0.5
+    scalars = [torch.empty((), dtype=dt) for dt in (torch.float32, torch.int32, torch.bool)]
+    return (y, ev, *scalars)
+
+
+@pytest.mark.parametrize("eps_mode", ["absolute", "relative"])
+@pytest.mark.parametrize("n", [1, 3, 1000])
+def test_round_glue_writes_the_rounds_expressions(n, eps_mode):
+    """``round_glue`` on the CPU (its plain version): v = y / ev, the stop,
+    then ev · (v / m), λ = v[0] and the round's count whatever the stop."""
+    for close in (False, True):
+        y, ev, lam, rounds, conv = glue_buffers(n, n)
+        if close:
+            y = ev * (1 + 1e-5 * torch.rand(n, generator=torch.Generator().manual_seed(1)))
+        v = y / ev
+        want_ev = ev * (v / torch.max(v))
+        stop = bool(stop_check(v, EPS, eps_mode))
+        assert stop == (close or n == 1)
+        launches = tk.round_glue.launches
+        tk.round_glue(y, ev, EPS, 6, lam, rounds, conv, eps_mode=eps_mode)
+        assert tk.round_glue.launches == launches
+        assert torch.equal(ev, want_ev) and torch.equal(lam, v[0])
+        assert int(rounds) == (6 if stop else 7) and bool(conv) == stop
+
+
+def _rejects(**bad):
+    y, ev, lam, rounds, conv = glue_buffers(8, 0)
+    kw = dict(y=y, ev=ev, eps=EPS, i=0, lam=lam, rounds=rounds, converged=conv)
+    kw.update(bad)
+    if kw["ev"] is None:  # y as ev too
+        kw["ev"] = y
+    return kw
+
+
+@pytest.mark.parametrize("kw, match", [
+    (_rejects(y=torch.ones(8, dtype=torch.float64)), "y must be float32"),
+    (_rejects(y=torch.ones(())), "non-empty vector"),
+    (_rejects(ev=torch.ones(9)), "ev must have shape"),
+    (_rejects(lam=torch.zeros(1)), "lam must have shape"),
+    (_rejects(rounds=torch.zeros((), dtype=torch.int64)), "rounds must be int32"),
+    (_rejects(converged=torch.zeros((), dtype=torch.uint8)), "converged must be bool"),
+    (_rejects(eps_mode="rel"), "eps_mode must be"),
+    (_rejects(ev=None), "must not overlap"),
+], ids=lambda x: x if isinstance(x, str) else None)
+def test_round_glue_rejects(kw, match):
+    with pytest.raises(ValueError, match=match):
+        tk.round_glue(**kw)
+
+
+def test_a_bound_matvec_writes_into_its_buffer():
+    H = tfx.hilbert_matrix(64)
+    x = torch.linspace(0.5, 1.5, 64)
+    out = torch.empty(64)
+    bound = tk.matvec_bound(H, x, out)
+    assert bound() is out and torch.equal(out, tk.matvec(H, x))
+    x.mul_(2)  # each call reads x as it is then
+    assert torch.equal(bound(), tk.matvec(H, x))
+    with pytest.raises(ValueError, match="out must not overlap x"):
+        tk.matvec_bound(H, x, x)
+    with pytest.raises(ValueError, match="out must have shape"):
+        tk.matvec_bound(H, x, torch.empty(63))

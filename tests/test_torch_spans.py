@@ -3,8 +3,9 @@ off, they record nothing and cost one shared object; on, every route of
 ``max_eigenvalue``'s single-card path gives its span tree, its reads, and
 self times that add up to the call; spans close on an exception; and
 ``trace()`` shows them as ranges in its chrome trace.  The one-launch
-routes (``solver.multiround``) open no ``solver.finish``: their kernels
-write the result; every other route runs ``_finish`` once."""
+routes (``solver.multiround``) and the matvec kernel loop
+(``solver.matvec_kernel``, whose glue kernel writes the result each round)
+open no ``solver.finish``; every other route runs ``_finish`` once."""
 
 import json
 import os
@@ -31,7 +32,8 @@ ROUTES = {
     "stripes_chunk4": (dict(backend="multiround", chunk=4), "solver.multiround",
                        {"launch.multiround": 3}, 3),
     "matvec_kernel_loop": (dict(backend="matvec_pallas"), "solver.matvec_kernel",
-                           {"launch.matvec": ROUNDS + 1}, ROUNDS + 1),
+                           {"launch.matvec": ROUNDS + 1, "launch.round_glue": ROUNDS + 1},
+                           ROUNDS + 1),
     "torch_mv_loop": (dict(backend="matvec"), "solver.matvec", {}, ROUNDS + 1),
     "xla": (dict(backend="xla"), "solver.xla", {}, ROUNDS + 1),
     "pallas": (dict(backend="pallas"), "solver.kernel",
@@ -88,7 +90,7 @@ def test_each_route_gives_its_span_tree(H, route):
     got = Counter((s.name, s.parent) for s in rec)
     want = Counter({("api.call", None): 1, ("api.prepare", "api.call"): 1,
                     (solver, "api.call"): 1, ("solver.read", solver): reads})
-    if solver != "solver.multiround":
+    if solver not in ("solver.multiround", "solver.matvec_kernel"):
         want[("solver.finish", solver)] = 1
     want.update({(name, solver): k for name, k in launches.items()})
     assert got == want
