@@ -28,51 +28,18 @@ from __future__ import annotations
 import dataclasses
 import time
 from functools import partial
-from typing import Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .config import DEFAULT_CONFIG, SolverConfig
 from .device import multiround_fits, multiround_sym_fits, solve_device, sym_auto_cache_tiles
-from .ops.cuda.kernels import SYM_TILE, sym_tile
-from .ops.solver import SolveResult
+from .ops import solver_matvec as sm
+from .ops.cuda import kernels
+from .ops.solver import SolveResult, solve_xla
+from .ops.solver_kernel import solve_kernel
 from .utils.profiling import span
-
-
-def _tile(config: SolverConfig) -> int:
-    """The tiled kernel's tile edge: ``block_rows`` when set (as in JAX),
-    else the port's own default (``kernels.SYM_TILE``)."""
-    return config.block_rows or SYM_TILE
-
-
-def _takes_triangle(config: SolverConfig, n: int, device: torch.device) -> bool:
-    """Whether a declared-symmetric dim-n solve on ``device`` can run the
-    triangle kernel: n has a 128-aligned square tile, and on a card the
-    kernel's state fits one block."""
-    bt = sym_tile(n, _tile(config))
-    return bt is not None and (device.type != "cuda" or multiround_sym_fits(n, bt, device))
-
-
-def resolve_backend(config: SolverConfig, n: int, device: torch.device) -> str:
-    """Resolve "auto" to a concrete backend for a dim-n solve on ``device``.
-
-    On a CUDA device "auto" takes the multiround backend at every n whose
-    state fits its kernel: the triangle kernel for a declared-symmetric,
-    sym-tileable n, else the stripes kernel, whose ev copy must fit shared
-    memory (the JAX package's 6144 boundary is a TPU VMEM-residency cliff
-    with no counterpart here); the matvec kernel loop beyond.  On the CPU
-    it takes the ``torch.mv`` loop, as JAX does off-TPU.  A ``dtype`` other
-    than float32 takes the ``torch.mv`` loop everywhere: the kernels take
-    float32 (or a 2-byte ``storage_dtype``) only.
-    """
-    if config.backend != "auto":
-        return config.backend
-    if device.type == "cuda" and config.dtype == torch.float32:
-        if config.symmetric and _takes_triangle(config, n, device):
-            return "multiround"
-        return "multiround" if multiround_fits(n, device) else "matvec_pallas"
-    return "matvec"
 
 
 def _cache_unservable(cache_tiles: int, n: int, tile: int, consequence: str) -> ValueError:
@@ -82,7 +49,7 @@ def _cache_unservable(cache_tiles: int, n: int, tile: int, consequence: str) -> 
     why = (
         f"kernels.sym_tile(n, {tile}) is None — "
         f"{'raise block_rows to >= 128' if tile < 128 else 'this dim has no such divisor'}"
-        if sym_tile(n, tile) is None
+        if kernels.sym_tile(n, tile) is None
         else "the triangle kernel's state does not fit one block on this card"
     )
     return ValueError(
@@ -98,16 +65,27 @@ _KERNEL_BACKENDS = ("matvec_pallas", "multiround", "pallas")
 _STORAGE = (torch.bfloat16, torch.float16, torch.float32)
 
 
-def _itemsize(config: SolverConfig) -> int:
-    """Bytes an element of A takes in the kernels under this config."""
-    return config.storage_dtype.itemsize if config.storage_dtype is not None else 4
+class Route(NamedTuple):
+    """Where a dim-n solve under a config goes on a device (:func:`route`).
+    ``kernel`` is "triangle", "tiled" (the dense tiled kernel), "stripes",
+    "matvec" (the matvec kernel loop), "iterated" (rowsum and scale_rowsum)
+    or None (torch operations alone).  ``fits``: whether the card holds the
+    persistent kernel's state at n (always off the card and for the loops);
+    a launch that does not fit raises."""
+
+    backend: str  # "auto" resolved: resolve_backend's answer
+    solve: Callable  # solve(mat) -> SolveResult, every knob bound
+    kernel: Optional[str]
+    bt: Optional[int]  # the tiled kernels' tile edge (None elsewhere, or with no tile)
+    cache_tiles: int  # the tiled kernels' resident tiles of the storage type (0 elsewhere)
+    storage: torch.dtype  # A's element type as the solve reads it
+    fits: bool
 
 
-def _solve_fn(config: SolverConfig, backend: str, n: int, device: torch.device):
-    """The solve callable for ``backend`` at dim ``n`` on ``device``.  Every
-    knob is honored or rejected with a ValueError (the JAX package's
-    contract); the knobs this port has not implemented name their ROADMAP
-    item."""
+def _check_knobs(config: SolverConfig, backend: str) -> None:
+    """Every knob is honored by ``backend`` or rejected with a ValueError
+    (the JAX package's contract); the knobs this port has not implemented
+    name their ROADMAP item."""
     if config.dtype != torch.float32 and backend in _KERNEL_BACKENDS:
         raise ValueError(
             f"dtype={config.dtype} with backend={backend!r}: the kernels take float32 "
@@ -155,23 +133,63 @@ def _solve_fn(config: SolverConfig, backend: str, n: int, device: torch.device):
             f"cache_tiles={config.cache_tiles} is a multiround-backend knob but "
             f"the backend is {backend!r}; it would be silently dropped"
         )
-    from .ops import solver_matvec as sm
 
+
+def auto_cache_tiles(
+    n: int, bt: Optional[int], device: torch.device, storage: torch.dtype = torch.float32,
+    sym: bool = True,
+) -> int:
+    """The resident tiles an unset ``cache_tiles`` takes on the triangle
+    kernel (``sym=False``: the dense tiled one, which no route sizes): the
+    card's budget at (n, bt) in tiles of ``storage``; 0 with no tile."""
+    return sym_auto_cache_tiles(n, bt, device, sym, storage.itemsize) if bt else 0
+
+
+def route(config: SolverConfig, n: int, device: torch.device) -> Route:
+    """The route of a dim-n solve under ``config`` on ``device``: its
+    backend, bound solve, kernel, tile edge, resident cache and storage
+    type, each decided here once.  Raises the ValueError of any knob the
+    route cannot honor.
+
+    "auto" on a CUDA device takes the multiround backend at every n whose
+    state fits its kernel: the triangle kernel for a declared-symmetric,
+    sym-tileable n, else the stripes kernel, whose ev copy must fit shared
+    memory (the JAX package's 6144 boundary is a TPU VMEM-residency cliff
+    with no counterpart here); the matvec kernel loop beyond.  On the CPU
+    it takes the ``torch.mv`` loop, as JAX does off-TPU.  A ``dtype`` other
+    than float32 takes the ``torch.mv`` loop everywhere: the kernels take
+    float32 (or a 2-byte ``storage_dtype``) only.  An unset ``cache_tiles``
+    on the triangle kernel is :func:`auto_cache_tiles`."""
+    on_card = device.type == "cuda"
+    tile = config.block_rows or kernels.SYM_TILE  # the tiled kernels' tile edge, as in JAX
+    bt = kernels.sym_tile(n, tile)
+    # whether the card holds the state of the tiled kernel that the config
+    # asks for, and of the stripes kernel (asked only where a route needs it)
+    tiled_fits = (config.symmetric or bool(config.cache_tiles)) and bt is not None and (
+        not on_card or multiround_sym_fits(n, bt, device))
+    stripes_fits = None
+    backend = config.backend
+    if backend == "auto":
+        if not on_card or config.dtype != torch.float32:
+            backend = "matvec"
+        elif config.symmetric and tiled_fits:
+            backend = "multiround"
+        else:
+            stripes_fits = multiround_fits(n, device)
+            backend = "multiround" if stripes_fits else "matvec_pallas"
+    _check_knobs(config, backend)
+    storage = config.dtype if config.storage_dtype is None else config.storage_dtype
     kw = dict(eps=config.eps, max_itr=config.max_itr, eps_mode=config.eps_mode)
     stored = dict(storage_dtype=config.storage_dtype)
     tiled = {}
     if backend == "multiround":
-        tile = _tile(config)
-        bt = sym_tile(n, tile)
-        if config.symmetric and (config.backend != "auto" or _takes_triangle(config, n, device)):
+        if config.symmetric and (config.backend != "auto" or tiled_fits):
             # the triangle kernel; block_rows is its tile edge, and an unset
             # cache_tiles takes the card's auto budget (0 streams)
-            tiled = dict(symmetric=True, tile=tile, cache_tiles=config.cache_tiles)
-            if tiled["cache_tiles"] is None:
-                # the auto cache is counted in tiles of the storage type
-                tiled["cache_tiles"] = (
-                    sym_auto_cache_tiles(n, bt, device, itemsize=_itemsize(config)) if bt else 0
-                )
+            cache = config.cache_tiles
+            if cache is None:
+                cache = auto_cache_tiles(n, bt, device, storage)
+            tiled = dict(symmetric=True, tile=tile, cache_tiles=cache)
         elif config.symmetric:
             # auto consumed the declaration, but the triangle kernel cannot
             # take this dim: the stripes kernel keeps the job, and has no cache
@@ -196,29 +214,39 @@ def _solve_fn(config: SolverConfig, backend: str, n: int, device: torch.device):
             f"tile shape, so it would be silently dropped"
         )
     if backend == "multiround":
-        return partial(sm.solve_multiround, chunk=config.chunk, **tiled, **stored, **kw)
+        solve = partial(sm.solve_multiround, chunk=config.chunk, **tiled, **stored, **kw)
+        if not tiled:
+            if stripes_fits is None:
+                stripes_fits = not on_card or multiround_fits(n, device)
+            return Route(backend, solve, "stripes", None, 0, storage, stripes_fits)
+        kernel = "triangle" if config.symmetric else "tiled"
+        return Route(backend, solve, kernel, bt, tiled["cache_tiles"], storage, tiled_fits)
     if backend == "matvec_pallas":
-        return partial(sm.solve_matvec_kernel, **stored, **kw)
-    if backend == "pallas":
-        from .ops.solver_kernel import solve_kernel
-
-        return partial(solve_kernel, eps=config.eps, max_itr=config.max_itr)
-    if backend == "xla":
-        from .ops.solver import solve_xla
-
-        return partial(solve_xla, **kw)
-    return partial(sm.solve_matvec, **stored, **kw)
+        kernel, solve = "matvec", partial(sm.solve_matvec_kernel, **stored, **kw)
+    elif backend == "pallas":
+        kernel, solve = "iterated", partial(solve_kernel, eps=config.eps, max_itr=config.max_itr)
+    elif backend == "xla":
+        kernel, solve = None, partial(solve_xla, **kw)
+    else:
+        kernel, solve = None, partial(sm.solve_matvec, **stored, **kw)
+    return Route(backend, solve, kernel, None, 0, storage, True)
 
 
-def _promotion(config: SolverConfig, n: int, device: torch.device) -> Optional[SolverConfig]:
-    """The symmetric config that ``validate=True`` promotes an undeclared
-    ``auto`` solve to, if the matrix proves bitwise symmetric: only where
-    the triangle route would then be taken (on a card, at a sym-tileable n
+def resolve_backend(config: SolverConfig, n: int, device: torch.device) -> str:
+    """Resolve "auto" to a concrete backend for a dim-n solve on ``device``
+    (:func:`route`'s rule)."""
+    return route(config, n, device).backend
+
+
+def _promotion(config: SolverConfig, n: int, device: torch.device) -> Optional[Route]:
+    """The route that ``validate=True`` promotes an undeclared ``auto``
+    solve to, if the matrix proves bitwise symmetric: the declared route,
+    only where it takes the triangle kernel (on a card, at a sym-tileable n
     whose state fits), as at the JAX package's ``max_eigenvalue``."""
-    if config.symmetric or config.backend != "auto":
+    if config.symmetric or config.backend != "auto" or device.type != "cuda":
         return None
-    cand = dataclasses.replace(config, symmetric=True)
-    return cand if device.type == "cuda" and _takes_triangle(cand, n, device) else None
+    cand = route(dataclasses.replace(config, symmetric=True), n, device)
+    return cand if cand.kernel == "triangle" else None
 
 
 def _validate_on_device(mat: torch.Tensor, check_sym: bool) -> Tuple[bool, bool]:
@@ -289,8 +317,7 @@ def max_eigenvalue(
         with span("api.prepare"):
             mat = _as_matrix(mat, config, device)
             n = mat.shape[0]
-            backend = resolve_backend(config, n, mat.device)
-            solve = _solve_fn(config, backend, n, mat.device)
+            solve = route(config, n, mat.device).solve
             if validate:
                 cand = _promotion(config, n, mat.device)
                 pos, sym_ok = _validate_on_device(mat, config.symmetric or cand is not None)
@@ -301,7 +328,7 @@ def max_eigenvalue(
                         "symmetric=True declared but the matrix is not bitwise symmetric"
                     )
                 if cand is not None and sym_ok:
-                    solve = _solve_fn(cand, "multiround", n, mat.device)
+                    solve = cand.solve
         return solve(mat)
 
 
@@ -536,8 +563,6 @@ def max_eigenvalue_operator(
     only through ``matvec``, so the dense-backend knobs are rejected rather
     than silently dropped, with the JAX package's words.
     """
-    from .ops.solver_matvec import solve_operator
-
     _reject_unsupported(
         config,
         "max_eigenvalue_operator",
@@ -563,7 +588,7 @@ def max_eigenvalue_operator(
              "exploiting symmetry belongs inside the caller's matvec"),
         ),
     )
-    return solve_operator(
+    return sm.solve_operator(
         matvec,
         n,
         config.eps,
@@ -606,9 +631,9 @@ class EigenValue:
         """Prepare the solves of these dims so that the first timed call
         does not pay for it (the JAX class compiles them here): on a card,
         build the kernel library (``ops/cuda/build.load``: nvcc, seconds)
-        and the launch plans of the route ``resolve_backend`` takes at each
+        and the launch plans of the :func:`route` a solve takes at each
         dim, in the config's storage type.  Everywhere, resolve the
-        backends and raise now on a config that a solve would reject.
+        routes and raise now on a config that a solve would reject.
         ``dtype`` is the matrices' dtype (JAX's argument; default
         ``config.dtype``): a matrix is cast by the config, or kept when it
         is already in ``storage_dtype``, so the routes and plans are the
@@ -622,19 +647,11 @@ class EigenValue:
         if dev.type == "cuda" and dev.index is None:  # the plans are kept per card
             dev = torch.device("cuda", torch.cuda.current_device())
         for n in dims:
-            backend = resolve_backend(self.config, n, dev)
-            solve = _solve_fn(self.config, backend, n, dev)
-            if dev.type != "cuda" or backend not in _KERNEL_BACKENDS:
-                continue
-            from .ops.cuda import kernels
-
-            kw = solve.keywords
-            storage = kw.get("storage_dtype") or torch.float32
-            if backend == "multiround" and "tile" in kw:
-                kernels.prepare(dev, n, storage, tile=kw["tile"], cache_tiles=kw["cache_tiles"],
-                                sym=kw.get("symmetric", False))
-            else:
-                kernels.prepare(dev, n, storage, stripes=backend == "multiround")
+            r = route(self.config, n, dev)
+            if dev.type == "cuda" and r.kernel is not None:
+                # a plan the card cannot hold is left to the launch, which raises
+                kernels.prepare(dev, n, r.storage, kernel=r.kernel if r.fits else None,
+                                bt=r.bt, cache_tiles=r.cache_tiles)
 
     def similarity_transform(self, mat) -> Tuple[np.float32, np.ndarray, float, int]:
         mat = _as_matrix(mat, self.config, self.device)

@@ -311,10 +311,8 @@ def measure(s: Settings) -> dict:
     import torch
 
     from .. import DEFAULT_CONFIG, SolverConfig, fixtures, max_eigenvalue, max_eigenvalue_operator
-    from ..api import _takes_triangle, resolve_backend
-    from ..device import sym_auto_cache_tiles
+    from ..api import route
     from ..ops.cuda import kernels
-    from ..ops.cuda.kernels import SYM_TILE, sym_tile
     from ..ops.structured import hilbert_matvec
     from ..utils.timing import card_identity, card_state, detect_peak_f32_tflops, detect_peak_hbm_gbps
     from .suite import _e2e_chain_step, sym_traffic_frac
@@ -333,19 +331,18 @@ def measure(s: Settings) -> dict:
     H = fixtures.hilbert_matrix(n, device=dev)
     expected = fixtures.HILBERT_ROUNDS.get(n, ROUNDS_EXPECTED)
     sym_cfg = SolverConfig(symmetric=True)
+    sym_route = route(sym_cfg, n, dev)
     # the guard, on the card: a benchmark that declares structure checks it
     # holds (one O(n²) pass, once) before it takes the triangle kernel
-    use_sym = on_card and _takes_triangle(sym_cfg, n, dev) and torch.equal(H, H.T)
-    bt = sym_tile(n, SYM_TILE)
-    cache = sym_auto_cache_tiles(n, bt, dev) if use_sym else 0
+    use_sym = sym_route.kernel == "triangle" and torch.equal(H, H.T)
+    cfg, r = (sym_cfg, sym_route) if use_sym else (DEFAULT_CONFIG, route(DEFAULT_CONFIG, n, dev))
+    cache = r.cache_tiles
     passes = expected + 1
-    frac = sym_traffic_frac(n, bt, cache, passes) if use_sym else 1.0
-    cfg = sym_cfg if use_sym else DEFAULT_CONFIG
+    frac = sym_traffic_frac(n, r.bt, cache, passes) if use_sym else 1.0
     if use_sym:
         backend = "multiround_sym_cached_pallas" if cache else "multiround_sym_pallas"
     else:
-        route = resolve_backend(cfg, n, dev)
-        backend = "multiround_pallas" if route == "multiround" else route
+        backend = "multiround_pallas" if r.backend == "multiround" else r.backend
 
     def solve(A):
         return max_eigenvalue(A, cfg)

@@ -26,8 +26,8 @@ import numpy as np
 import torch
 
 from .. import fixtures
-from ..config import EPS, MAX_ITR
-from ..device import sym_auto_cache_tiles
+from ..api import auto_cache_tiles, route
+from ..config import EPS, MAX_ITR, SolverConfig
 from ..ops.cuda import kernels
 from ..ops.solver import solve_xla, stop_check
 from ..ops.solver_kernel import solve_kernel
@@ -158,15 +158,17 @@ STORAGE_RUNGS = {"matvec_bf16": torch.bfloat16, "multiround_sym_bf16": torch.bfl
 def _tiled(name: str, cached: bool) -> Callable:
     tile, sym = TILED_RUNGS[name]
     storage = STORAGE_RUNGS.get(name)
-    size = storage.itemsize if storage is not None else 4
 
     def solve(A):
-        n, cache = A.shape[0], 0
-        if cached:
-            cache = sym_auto_cache_tiles(n, kernels.sym_tile(n, tile) or 128, A.device, sym=sym,
-                                         itemsize=size)
-        return solve_multiround(A, EPS, MAX_ITR, symmetric=sym, tile=tile, cache_tiles=cache,
-                                storage_dtype=storage)
+        n = A.shape[0]
+        if sym:
+            cfg = SolverConfig(backend="multiround", symmetric=True, block_rows=tile,
+                               storage_dtype=storage, cache_tiles=None if cached else 0)
+        else:  # the dense tiled kernel at the card's budget, which no route sizes
+            cache = auto_cache_tiles(n, kernels.sym_tile(n, tile), A.device, sym=False)
+            cfg = SolverConfig(backend="multiround", block_rows=tile, storage_dtype=storage,
+                               cache_tiles=cache)
+        return route(cfg, n, A.device).solve(A)
 
     return solve
 
@@ -209,11 +211,8 @@ def _sym_alignable(backend: str, n: int, device) -> bool:
         return True
     tile, sym = TILED_RUNGS[backend]
     bt = kernels.sym_tile(n, tile)
-    if bt is None:
-        return False
-    if backend == "multiround_cached":
-        return sym_auto_cache_tiles(n, bt, torch.device(device), sym=sym) > 0
-    return True
+    return bt is not None and (backend != "multiround_cached"
+                               or auto_cache_tiles(n, bt, torch.device(device), sym=sym) > 0)
 
 
 def _e2e_skip(backend: str, n: int, device) -> Optional[str]:
@@ -858,16 +857,18 @@ def large_rows(device, configs=None, reps: int = 3) -> List[dict]:
     """The rows of :func:`bench_large` for ``configs`` (default
     :data:`LARGE_CONFIGS`) on ``device``; on the CPU the plain versions
     run (what the tests step through at small dims)."""
-    from ..api import _takes_triangle, max_eigenvalue
-    from ..config import SolverConfig
+    from ..api import max_eigenvalue
 
     device = torch.device(device)
     oracles = {}
     rows = []
     for name, n, dtype, sym in configs or LARGE_CONFIGS:
         storage = None if dtype == torch.float32 else dtype
-        cfg = SolverConfig(symmetric=sym, storage_dtype=storage)
-        if sym and not _takes_triangle(cfg, n, device):
+        # a symmetric row is the triangle kernel's: auto's route on a card
+        cfg = SolverConfig(backend="multiround" if sym else "auto", symmetric=sym,
+                           storage_dtype=storage)
+        r = route(cfg, n, device)
+        if not r.fits:
             rows.append({"bench": "large", "backend": name, "dim": n,
                          "skipped": _SKIP_SYM_TOO_LARGE})
             continue
@@ -882,11 +883,7 @@ def large_rows(device, configs=None, reps: int = 3) -> List[dict]:
             res = solve(A)  # build and warm up
             dev_ms, _, _ = _marginal_resolved(_e2e_chain_step(solve), (A, res.eigenvalue),
                                               k=2, reps=reps)
-            plan = None
-            if sym:
-                bt = kernels.sym_tile(n, kernels.SYM_TILE)
-                plan = (bt, sym_auto_cache_tiles(n, bt, device,
-                                                 itemsize=torch.tensor([], dtype=dtype).element_size()))
+            plan = (r.bt, r.cache_tiles) if sym else None
             rows.append(large_row(name, n, res, oracles[(n, dtype)], dev_ms, plan))
         except torch.cuda.OutOfMemoryError as e:
             rows.append({"bench": "large", "backend": name, "dim": n, "error": str(e)})

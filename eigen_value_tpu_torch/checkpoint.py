@@ -180,34 +180,28 @@ def step(
     k′ is bit-identical to one chunk of k + k′.
 
     On the one-launch route the kernel freezes where the stop fires or the
-    budget ends; a launch that advanced fewer rounds than it had, with
-    budget left, found the stop, and the converging round's update is then
-    applied here with ``solver._finish``'s expression (same bits).  Every
-    other route runs ``solver_matvec._run_rounds`` over its round: the
-    matvec kernel loop, or a sharded A's body (see the module's
+    budget ends, and the launch, asked for the solve's result (``finish``),
+    writes the state's ev, λ, rounds and done (the converging round's
+    update where the stop fired: ``solver._finish``'s expressions, the same
+    bits).  Every other route runs ``solver_matvec._run_rounds`` over its
+    round: the matvec kernel loop, or a sharded A's body (see the module's
     docstring)."""
     rounds = int(state.rounds)
     if bool(state.done) or rounds >= max_itr or num_rounds < 1:
         return state
     M, next_v = _route(state.A)
-    dev = state.v.device
     if M is not None and _one_launch(M):
-        ev, v, adv, lam = kernels.multiround(
+        ev, v, _, lam, i, done = kernels.multiround(
             M, state.ev, state.v, state.lam, max_itr - rounds,
-            chunk=num_rounds, eps=eps, init=False,
+            chunk=num_rounds, eps=eps, init=False, finish=rounds,
         )
-        adv = int(adv)
-        i = rounds + adv
-        done = adv < num_rounds and i < max_itr
-        if done:
-            m = torch.max(v)
-            ev, lam = ev * (v / m), v[0]
-    else:
-        c, done = _run_rounds(next_v, _Carry(state.ev, state.v, state.lam, rounds), eps,
-                              max_itr, budget=num_rounds)
-        ev, v, lam, i = c
-        if done:
-            lam, ev = _finish(c, max_itr)[:2]
+        return SolverState(state.A, ev, v, lam, i, done)
+    c, done = _run_rounds(next_v, _Carry(state.ev, state.v, state.lam, rounds), eps,
+                          max_itr, budget=num_rounds)
+    ev, v, lam, i = c
+    if done:
+        lam, ev = _finish(c, max_itr)[:2]
+    dev = state.v.device
     return SolverState(
         state.A, ev, v, lam,
         torch.tensor(i, dtype=torch.int32, device=dev),

@@ -13,7 +13,7 @@ kernels; ``"xla"`` means plain PyTorch.
 CONSISTENCY CONTRACT (as in the JAX package): every entry point either
 honors a knob or rejects it with a ValueError; nothing is silently dropped.
 The knobs this port does not implement yet are rejected at solve time by
-``api._solve_fn``, each naming its ROADMAP item.  Construction checks the
+``api.route``, each naming its ROADMAP item.  Construction checks the
 same fields as the JAX config, so a config is valid in both packages or in
 neither (float64 aside: JAX needs x64 mode for it, the port does not).
 """

@@ -23,11 +23,8 @@ the f32 kernel, so ``kernel(A_q)`` equals ``kernel(A_q.float())`` bit for
 bit; ev, v, λ and every sum stay f32.  (JAX's ``solve_matvec_storage``
 divides by a quantized vector instead; the port follows its kernels.)
 ``<wrapper>.launches`` counts kernel launches (a plain int; plain-version
-calls do not count).  The two persistent kernels' wrappers also count in
-``finishes`` the solves whose result a launch wrote (``finish`` below), on
-the card or in the plain version: the solve that reads the launch's count
-adds it.  ``multiround_sym.plan`` keeps the :class:`SymPlan` of the
-triangle wrapper's last launch on the card (None before one), whose
+calls do not count).  ``multiround_sym.plan`` keeps the :class:`SymPlan`
+of the triangle wrapper's last launch on the card (None before one), whose
 ``hbm_bytes`` the benchmark reads.  The whole body of each wrapper that a
 route of ``api.max_eigenvalue`` calls (``matvec``, ``round_glue``,
 ``multiround``, ``multiround_sym``, ``rowsum``, ``scale_rowsum``), checks,
@@ -533,7 +530,6 @@ def multiround(
 
 
 multiround.launches = 0
-multiround.finishes = 0
 
 
 #: The triangle kernel's default tile edge on Hopper.  The JAX default (512)
@@ -974,27 +970,24 @@ def multiround_sym(
 
 
 multiround_sym.launches = 0
-multiround_sym.finishes = 0
 multiround_sym.plan = None
 
 
 def prepare(
     device: torch.device, n: int, dtype: torch.dtype = torch.float32, *,
-    stripes: bool = False, tile: Optional[int] = None, cache_tiles: int = 0, sym: bool = False,
+    kernel: Optional[str] = None, bt: Optional[int] = None, cache_tiles: int = 0,
 ) -> None:
     """What a first launch at dim ``n`` on A of ``dtype`` would otherwise
-    pay for, done now: the kernel library, and the launch plan of the
-    stripes kernel (``stripes``) or of the tiled kernel (``tile``, with the
-    cache and mode of the solve), cached as the wrappers look them up.  A
-    plan the card cannot hold is left to the launch, which raises."""
+    pay for, done now: the kernel library, and the launch plan of a route's
+    persistent kernel (``api.Route``: "stripes", or "triangle" / "tiled" at
+    tile edge ``bt`` with ``cache_tiles``) that fits the card, cached as the
+    wrappers look them up."""
     from . import build
 
     build.load()
-    if tile is not None:
-        bt = sym_tile(n, tile)
-        if bt is not None and multiround_sym_fits(n, bt, device):
-            multiround_sym_plan(device, n, bt, int(cache_tiles), bool(sym), **_sized(dtype))
-    elif stripes and multiround_fits(n, device):
+    if kernel in ("triangle", "tiled"):
+        multiround_sym_plan(device, n, bt, int(cache_tiles), kernel == "triangle", **_sized(dtype))
+    elif kernel == "stripes":
         multiround_launch_plan(device, n, **_sized(dtype))
 
 

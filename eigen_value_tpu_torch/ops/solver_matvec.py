@@ -451,5 +451,4 @@ def solve_multiround(
             adv = int(adv)
         i += adv
         frozen = adv < chunk
-    kernel.func.finishes += 1
     return SolveResult(lam, ev, rounds, converged)

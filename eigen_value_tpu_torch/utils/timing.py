@@ -1,9 +1,9 @@
 """Device timing with CUDA events (counterpart of
 ``eigen_value_tpu.utils.timing``).
 
-A CUDA call returns before the card finishes, so a host clock would time
-the enqueue.  Events recorded on the stream around each call and read
-after a synchronise time the card's work.  There is no CPU fallback: a
+A CUDA call returns before the card has done its work, so a host clock
+would time the enqueue.  Events recorded on the stream around each call
+and read after a synchronise time the card's work.  There is no CPU fallback: a
 time taken on the CPU is not a device time.
 """
 

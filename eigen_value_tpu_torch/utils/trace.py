@@ -99,10 +99,9 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("FAILED: no CUDA device")
 
-    from .. import EPS, MAX_ITR, fixtures
+    from .. import EPS, MAX_ITR, SolverConfig, fixtures
+    from ..api import auto_cache_tiles, route
     from ..bench.suite import operator_rungs
-    from ..device import sym_auto_cache_tiles
-    from ..ops.cuda.kernels import SYM_TILE, sym_tile
     from ..ops.solver_kernel import solve_kernel
     from ..ops.solver_matvec import (
         solve_fused_round,
@@ -113,12 +112,11 @@ def main(argv=None) -> int:
     )
 
     H = fixtures.hilbert_matrix(args.n, device="cuda")
-    bt = sym_tile(args.n, SYM_TILE)
+    tri = route(SolverConfig(symmetric=True), args.n, H.device)
     multi = partial(solve_multiround, H, EPS, MAX_ITR)
     arms = {"multiround kernel": multi}
-    if bt is not None:
-        cache = sym_auto_cache_tiles(args.n, bt, H.device)
-        dense_cache = sym_auto_cache_tiles(args.n, bt, H.device, sym=False)
+    if tri.kernel == "triangle":
+        cache, dense_cache = tri.cache_tiles, auto_cache_tiles(args.n, tri.bt, H.device, sym=False)
         arms.update({
             "triangle kernel, streaming": partial(multi, symmetric=True, cache_tiles=0),
             f"triangle kernel, cache {cache}": partial(multi, symmetric=True, cache_tiles=cache),
@@ -134,8 +132,9 @@ def main(argv=None) -> int:
     Hq = H.to(torch.bfloat16)
     multi_q = partial(solve_multiround, Hq, EPS, MAX_ITR)
     arms["multiround kernel, bf16 A"] = multi_q
-    if bt is not None:
-        cache_q = sym_auto_cache_tiles(args.n, bt, H.device, itemsize=2)
+    if tri.kernel == "triangle":
+        cache_q = route(SolverConfig(symmetric=True, storage_dtype=torch.bfloat16), args.n,
+                        H.device).cache_tiles
         arms[f"triangle kernel, bf16 A, cache {cache_q}"] = partial(
             multi_q, symmetric=True, cache_tiles=cache_q)
     arms["matvec kernel loop, bf16 A"] = lambda: solve_matvec_kernel(Hq, EPS, MAX_ITR)

@@ -18,6 +18,7 @@ import eigen_value_tpu_torch as evt  # noqa: E402
 from eigen_value_tpu_torch import api, device  # noqa: E402
 from eigen_value_tpu_torch.ops import solver_matvec  # noqa: E402
 from eigen_value_tpu_torch.ops.cuda import kernels as tk  # noqa: E402
+from eigen_value_tpu_torch.utils.profiling import recording  # noqa: E402
 from evbench import compare, pool, reference  # noqa: E402
 
 EPS, MAX_ITR = 1e-3, 1000
@@ -89,10 +90,22 @@ def test_a_prequantized_matrix_reaches_the_solver_as_it_is(monkeypatch):
         return real(mat, *args, **kw)
 
     monkeypatch.setattr(solver_matvec, "solve_multiround", spy)
-    finishes = tk.multiround_sym.finishes
-    evt.max_eigenvalue(A, CONFIG)
+    launched = []
+    launch = tk.multiround_sym
+
+    def launch_spy(*args, **kw):
+        launched.append(launch(*args, **kw))
+        return launched[-1]
+
+    monkeypatch.setattr(tk, "multiround_sym", launch_spy)
+    with recording() as spans:
+        got = evt.max_eigenvalue(A, CONFIG)
     assert len(seen) == 1 and seen[0][0] is A and seen[0][1:] == (True, torch.bfloat16)
-    assert tk.multiround_sym.finishes == finishes + 1  # the triangle wrapper wrote it
+    # the triangle wrapper wrote the result: the solve returns its tensors
+    ev, _, _, lam, rounds, converged = launched[-1]
+    assert got.eigenvector is ev and got.eigenvalue is lam
+    assert got.rounds is rounds and got.converged is converged
+    assert "solver.finish" not in {s.name for s in spans}
 
 
 @pytest.fixture

@@ -114,6 +114,44 @@ def test_a_step_is_one_multiround_call_with_chunk_num_rounds(monkeypatch, hilber
     assert calls[-1] == (35, 5, False)
 
 
+def _parent_step(state, num_rounds, max_itr):
+    """``cp.step``'s one-launch route as it was before the launch wrote the
+    state: the carry launch, then the converging round's update on the host
+    (``ev · (v / max(v))``, λ = v[0]) and the rounds and done it counted."""
+    rounds = int(state.rounds)
+    if bool(state.done) or rounds >= max_itr:
+        return state
+    ev, v, adv, lam = tk.multiround(state.A, state.ev, state.v, state.lam, max_itr - rounds,
+                                    chunk=num_rounds, eps=EPS, init=False)
+    adv = int(adv)
+    done = adv < num_rounds and rounds + adv < max_itr
+    if done:
+        ev, lam = ev * (v / torch.max(v)), v[0]
+    return cp.SolverState(state.A, ev, v, lam, torch.tensor(rounds + adv, dtype=torch.int32),
+                          torch.tensor(done))
+
+
+@pytest.mark.parametrize("max_itr", [MAX_ITR, 7], ids=["stop", "cap"])
+def test_a_step_writes_the_state_the_host_finish_wrote(max_itr):
+    """Hilbert 256² stepped 3, 5, then the rest: each state's ev, λ, rounds
+    and done are the pre-change arithmetic's bit for bit, and the last is
+    JAX's stepping in rounds, λ and ev."""
+    H = tfx.hilbert_matrix(256)
+    state = want = cp.init_state(H)
+    jstate = jcp.init_state(jfx.hilbert_matrix(256))
+    for chunk in (3, 5, 1000):
+        state, want = cp.step(state, chunk, max_itr=max_itr), _parent_step(want, chunk, max_itr)
+        jstate = jcp.step(jstate, chunk, max_itr=max_itr)
+        assert state.rounds.dtype == torch.int32 and state.done.dtype == torch.bool
+        for got_t, want_t in zip(state[1:], want[1:]):
+            assert torch.equal(got_t, want_t)
+        assert int(state.rounds) == int(jstate.rounds) and bool(state.done) == bool(jstate.done)
+    assert bool(state.done) == (max_itr == MAX_ITR)
+    assert int(state.rounds) == (tfx.HILBERT_ROUNDS[256] if max_itr == MAX_ITR else max_itr)
+    assert float(state.lam) == pytest.approx(float(jstate.lam), rel=LAM_REL)
+    np.testing.assert_allclose(state.ev.numpy(), np.asarray(jstate.ev), atol=EV_ATOL)
+
+
 def test_step_is_noop_after_convergence(hilbert, monkeypatch):
     state = cp.step(cp.init_state(hilbert), 1000)
     assert bool(state.done)

@@ -4,8 +4,8 @@ the persistent kernels' plain versions return what the kernels write
 the same launch's carry, at the stop, at the cap, where the stop and the
 cap fall on one round, at the first check of a resumed launch, in
 relative mode and over chunkings; a launch not asked for the result returns
-its carry (what ``checkpoint.step`` resumes from); ``finishes`` counts one a
-solve.  The matvec kernel loop (``solve_matvec_kernel``), whose glue
+its carry; the solve returns its last launch's result tensors and opens no
+``solver.finish`` span.  The matvec kernel loop (``solve_matvec_kernel``), whose glue
 writes the result round by round (csrc/round_glue.cu), is held bit for bit
 to the host loop it replaced, ``_finish(_run_rounds(...))``, on the plain
 versions.  The card's kernels are held to the same in ``test_torch_cuda.py``."""
@@ -24,6 +24,7 @@ from eigen_value_tpu_torch.ops.solver_matvec import (  # noqa: E402
     solve_matvec_kernel,
     solve_multiround,
 )
+from eigen_value_tpu_torch.utils.profiling import recording  # noqa: E402
 
 EPS = 1e-3
 #: the solve's knobs → (wrapper, the wrapper's knobs)
@@ -153,13 +154,28 @@ def test_a_launch_asked_for_the_result_writes_finish_of_its_carry(kernel, case):
 
 @pytest.mark.parametrize("chunk", [None, 5])
 @pytest.mark.parametrize("kernel", list(KERNELS))
-def test_finishes_counts_one_a_solve(kernel, chunk):
+def test_the_solve_returns_its_last_launchs_result(monkeypatch, kernel, chunk):
     knobs, wrapper, _ = KERNELS[kernel]
     H = tfx.hilbert_matrix(N)
-    before, launches = wrapper.finishes, wrapper.launches
+    launches = wrapper.launches
+    outs = []
+
+    def spy(*args, **kw):
+        outs.append(wrapper(*args, **kw))
+        return outs[-1]
+
+    monkeypatch.setattr(tk, wrapper.__name__, spy)
     for max_itr in (1000, 4):
-        solve_multiround(H, EPS, max_itr, chunk=chunk, **knobs)
-    assert wrapper.finishes == before + 2
+        outs.clear()
+        with recording() as spans:
+            got = solve_multiround(H, EPS, max_itr, chunk=chunk, **knobs)
+        assert (len(outs) > 1) == (chunk is not None and max_itr > chunk)
+        assert all(len(out) == 6 for out in outs)  # every launch is asked for the result
+        ev, _, _, lam, rounds, converged = outs[-1]
+        assert got.eigenvector is ev and got.eigenvalue is lam
+        assert got.rounds is rounds and got.converged is converged
+        names = {s.name for s in spans}
+        assert "solver.multiround" in names and "solver.finish" not in names
     assert wrapper.launches == launches  # the plain versions launch nothing
 
 

@@ -108,9 +108,8 @@ def test_the_api_honors_storage_dtype(backend, dt):
     assert int(got.rounds) == int(want.rounds) == tfx.HILBERT_ROUNDS[256]
     assert torch.equal(got.eigenvalue, want.eigenvalue)
     assert torch.equal(got.eigenvector, want.eigenvector)
-    # the partial names the storage it was given
-    fn = api._solve_fn(cfg, api.resolve_backend(cfg, 256, H.device), 256, H.device)
-    assert fn.keywords["storage_dtype"] is tdt
+    # the route names the storage it was given
+    assert api.route(cfg, 256, H.device).storage is tdt
 
 
 def test_a_prequantized_matrix_is_solved_as_it_is():
@@ -326,15 +325,15 @@ def test_the_l2_tiles_and_the_split_for_2_byte_tiles(h100):
 def test_the_api_sizes_the_auto_cache_by_the_storage_type(h100):
     for storage, want in ((None, 396), (torch.bfloat16, 528), (torch.float16, 528)):
         cfg = evt.SolverConfig(symmetric=True, storage_dtype=storage)
-        assert api.resolve_backend(cfg, 8192, h100) == "multiround"
-        fn = api._solve_fn(cfg, "multiround", 8192, h100)
-        assert fn.keywords["cache_tiles"] == want and fn.keywords["storage_dtype"] is storage
+        r = api.route(cfg, 8192, h100)
+        assert r.backend == "multiround" and r.kernel == "triangle"
+        assert r.cache_tiles == want and r.storage is (storage or torch.float32)
     # dense auto with storage: the stripes kernel up to 57856, the matvec kernel loop past it
     cfg = evt.SolverConfig(storage_dtype=torch.bfloat16)
     assert api.resolve_backend(cfg, 57856, h100) == "multiround"
     assert api.resolve_backend(cfg, 65536, h100) == "matvec_pallas"
-    assert api._solve_fn(cfg, "matvec_pallas", 65536, h100).keywords["storage_dtype"] is (
-        torch.bfloat16)
+    r = api.route(cfg, 65536, h100)
+    assert r.kernel == "matvec" and r.storage is torch.bfloat16
 
 
 # --- carrying a 2-byte matrix across from the JAX package ----------------------

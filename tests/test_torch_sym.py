@@ -361,6 +361,19 @@ def test_solve_multiround_knob_rules():
 # --- routing: the honored-or-rejected contract -------------------------------
 
 
+def _kernel_tile(r):
+    return r.kernel, r.bt
+
+
+def _backend_kernel(r):
+    return r.backend, r.kernel
+
+
+def _plan(r):
+    """What a route launches: its kernel, tile edge and resident cache."""
+    return r.kernel, r.bt, r.cache_tiles
+
+
 def test_explicit_multiround_uses_the_triangle():
     a = _sym(256)
     cfg = evt.SolverConfig(backend="multiround", symmetric=True, block_rows=128)
@@ -370,10 +383,10 @@ def test_explicit_multiround_uses_the_triangle():
 
 def test_block_rows_is_the_tile_edge():
     cpu = torch.device("cpu")
-    fn = api._solve_fn(evt.SolverConfig(backend="multiround", symmetric=True, block_rows=256),
-                       "multiround", 384, cpu)
-    assert fn.keywords["tile"] == 256 and fn.keywords["symmetric"] is True
+    cfg = evt.SolverConfig(backend="multiround", symmetric=True, block_rows=256)
+    assert _kernel_tile(api.route(cfg, 512, cpu)) == ("triangle", 256)
     # 384 has no 128-multiple divisor at most 256 but 128: sym_tile picks 128
+    assert _kernel_tile(api.route(cfg, 384, cpu)) == ("triangle", 128)
     res = evt.max_eigenvalue(tfx.hilbert_matrix(384), evt.SolverConfig(
         backend="multiround", symmetric=True, block_rows=256))
     assert bool(res.converged)
@@ -383,23 +396,21 @@ def test_block_rows_is_the_tile_edge():
 
 
 def test_cache_tiles_routing(fake_h100):
-    def kw(n=8192, **cfg):
-        return api._solve_fn(evt.SolverConfig(**cfg), "multiround", n, fake_h100).keywords
+    def r(n=8192, **cfg):
+        return api.route(evt.SolverConfig(**cfg), n, fake_h100)
 
-    assert kw(backend="multiround", symmetric=True)["cache_tiles"] == 396  # the card's budget
-    assert kw(backend="multiround", symmetric=True)["tile"] == tk.SYM_TILE
-    assert kw(backend="multiround", symmetric=True, cache_tiles=0)["cache_tiles"] == 0
-    assert kw(backend="multiround", symmetric=True, cache_tiles=7)["cache_tiles"] == 7
+    assert r(backend="multiround", symmetric=True).cache_tiles == 396  # the card's budget
+    assert r(backend="multiround", symmetric=True).bt == tk.SYM_TILE
+    assert r(backend="multiround", symmetric=True, cache_tiles=0).cache_tiles == 0
+    assert r(backend="multiround", symmetric=True, cache_tiles=7).cache_tiles == 7
     # dense: the stripes kernel unless a cache is asked for explicitly
-    assert "cache_tiles" not in kw(backend="multiround")
-    assert "cache_tiles" not in kw(backend="multiround", cache_tiles=0)
-    dense = kw(backend="multiround", cache_tiles=5)
-    assert dense["cache_tiles"] == 5 and "symmetric" not in dense
+    assert _plan(r(backend="multiround")) == ("stripes", None, 0)
+    assert _plan(r(backend="multiround", cache_tiles=0)) == ("stripes", None, 0)
+    assert _plan(r(backend="multiround", cache_tiles=5)) == ("tiled", tk.SYM_TILE, 5)
     with pytest.raises(ValueError, match="128-aligned"):
-        kw(8200, backend="multiround", cache_tiles=4)
+        r(8200, backend="multiround", cache_tiles=4)
     with pytest.raises(ValueError, match="cache_tiles"):
-        api._solve_fn(evt.SolverConfig(backend="matvec", cache_tiles=4), "matvec", 512,
-                      torch.device("cpu"))
+        api.route(evt.SolverConfig(backend="matvec", cache_tiles=4), 512, torch.device("cpu"))
     # the explicit and the auto cache give the same answer (CPU: plain version)
     H = tfx.hilbert_matrix(512)
     _same(evt.max_eigenvalue(H, evt.SolverConfig(backend="multiround", symmetric=True)),
@@ -410,36 +421,94 @@ def test_cache_tiles_routing(fake_h100):
 def test_auto_routes_a_declared_symmetric_matrix_to_the_triangle_on_a_card(fake_h100):
     sym = evt.SolverConfig(symmetric=True)
     for n in (128, 384, 8192):
-        assert api.resolve_backend(sym, n, fake_h100) == "multiround"
-        assert api._solve_fn(sym, "multiround", n, fake_h100).keywords["symmetric"] is True
+        assert _backend_kernel(api.route(sym, n, fake_h100)) == ("multiround", "triangle")
     # an unalignable n keeps the stripes kernel, which has no cache
-    assert api.resolve_backend(sym, 8200, fake_h100) == "multiround"
-    assert "symmetric" not in api._solve_fn(sym, "multiround", 8200, fake_h100).keywords
+    assert _backend_kernel(api.route(sym, 8200, fake_h100)) == ("multiround", "stripes")
     with pytest.raises(ValueError, match="128-aligned"):
-        api._solve_fn(evt.SolverConfig(symmetric=True, cache_tiles=4), "multiround", 8200,
-                      fake_h100)
+        api.route(evt.SolverConfig(symmetric=True, cache_tiles=4), 8200, fake_h100)
     # both multiround kernels keep ev and nothing else of the O(n) state in
     # shared memory, so the triangle reaches as far as the stripes (57856);
     # past that the declaration is consumed by the matvec kernel loop
     assert device.multiround_sym_fits(54272, 128, fake_h100)
-    assert api._solve_fn(sym, "multiround", 54272, fake_h100).keywords["symmetric"] is True
+    assert api.route(sym, 54272, fake_h100).kernel == "triangle"
     assert api.resolve_backend(sym, 54272, fake_h100) == "multiround"
     assert not device.multiround_sym_fits(58368, 128, fake_h100)
     assert api.resolve_backend(sym, 58368, fake_h100) == "matvec_pallas"
+    assert api.route(sym, 58368, fake_h100).kernel == "matvec"
     # dense auto stays on the stripes kernel
-    assert "tile" not in api._solve_fn(evt.SolverConfig(), "multiround", 8192, fake_h100).keywords
+    assert api.route(evt.SolverConfig(), 8192, fake_h100).kernel == "stripes"
     assert api.resolve_backend(sym, 8192, torch.device("cpu")) == "matvec"
 
 
 def test_validate_promotes_only_where_the_triangle_would_run(fake_h100):
     auto = evt.SolverConfig()
     cand = api._promotion(auto, 8192, fake_h100)
-    assert cand is not None and cand.symmetric and cand.backend == "auto"
+    assert cand is not None and _backend_kernel(cand) == ("multiround", "triangle")
+    assert _plan(cand) == _plan(api.route(evt.SolverConfig(symmetric=True), 8192, fake_h100))
     assert api._promotion(auto, 8200, fake_h100) is None  # unalignable
-    assert api._promotion(evt.SolverConfig(block_rows=96), 8192, fake_h100) is None
+    # float64 routes to the torch.mv loop, declared or not: nothing to promote to
+    assert api._promotion(evt.SolverConfig(dtype=torch.float64), 8192, fake_h100) is None
+    # a block_rows that gives no tile: the config's own route rejects it first
+    with pytest.raises(ValueError, match="block_rows=96"):
+        api.route(evt.SolverConfig(block_rows=96), 8192, fake_h100)
+    with pytest.raises(ValueError, match="block_rows=96"):
+        api._promotion(evt.SolverConfig(block_rows=96), 8192, fake_h100)
     assert api._promotion(evt.SolverConfig(backend="multiround"), 8192, fake_h100) is None
     assert api._promotion(evt.SolverConfig(symmetric=True), 8192, fake_h100) is None
     assert api._promotion(auto, 8192, torch.device("cpu")) is None  # off the card, as JAX
+
+
+BF16 = torch.bfloat16
+#: the (config, n) that the route's readers take on a card: the cells of the
+#: benchmark and the headline with its secondaries (at 8192 and 65536), the
+#: large rows (``bench.suite.large_rows``) and ``EigenValue.warmup``'s card test
+READ_ROUTES = {
+    "sym": (evt.SolverConfig(symmetric=True), 8192),
+    "dense": (evt.SolverConfig(), 8192),
+    "bf16_sym": (evt.SolverConfig(symmetric=True, storage_dtype=BF16), 8192),
+    "stream": (evt.SolverConfig(storage_dtype=BF16), 65536),
+    "sym_stream": (evt.SolverConfig(symmetric=True, cache_tiles=0), 8192),
+    "large_f32": (evt.SolverConfig(), 32768),
+    "large_sym_f32": (evt.SolverConfig(backend="multiround", symmetric=True), 32768),
+    "large_sym_bf16": (evt.SolverConfig(backend="multiround", symmetric=True,
+                                        storage_dtype=BF16), 65536),
+    "warmup_sym_bf16": (evt.SolverConfig(symmetric=True, storage_dtype=BF16), 4096),
+    "warmup_bf16_unaligned": (evt.SolverConfig(symmetric=True, storage_dtype=BF16), 1000),
+}
+#: the solver each kernel's route binds
+SOLVERS = {"triangle": "solve_multiround", "tiled": "solve_multiround",
+           "stripes": "solve_multiround", "matvec": "solve_matvec_kernel", None: "solve_matvec"}
+
+
+@pytest.mark.parametrize("case", list(READ_ROUTES))
+def test_the_route_its_readers_take_is_the_one_the_solve_runs(fake_h100, monkeypatch, case):
+    """What ``max_eigenvalue`` runs (its solver spied on, its matrix a
+    stand-in of the right shape on the card) is the route's backend,
+    kernel, tile, cache and storage; ``EigenValue.warmup`` prepares that
+    route's plan."""
+    from types import SimpleNamespace
+
+    from eigen_value_tpu_torch.ops import solver_matvec as sm
+
+    cfg, n = READ_ROUTES[case]
+    r = api.route(cfg, n, fake_h100)
+    ran = {}
+    for name in set(SOLVERS.values()):
+        monkeypatch.setattr(sm, name, lambda mat, _name=name, **kw: ran.update(kw, solver=_name))
+    monkeypatch.setattr(api, "_as_matrix", lambda mat, config, device=None: mat)
+    evt.max_eigenvalue(SimpleNamespace(shape=(n, n), device=fake_h100), cfg)
+    assert ran["solver"] == SOLVERS[r.kernel]
+    assert ran.get("symmetric", False) == (r.kernel == "triangle")
+    bt = tk.sym_tile(n, ran["tile"]) if "tile" in ran else None
+    assert (bt, ran.get("cache_tiles", 0)) == (r.bt, r.cache_tiles)
+    assert (ran["storage_dtype"] or torch.float32) == r.storage
+    assert r.backend == api.resolve_backend(cfg, n, fake_h100)
+    prepared = []
+    monkeypatch.setattr(tk, "prepare", lambda *a, **kw: prepared.append((a, kw)))
+    evt.EigenValue(cfg, device=fake_h100).warmup([n])
+    kernel = r.kernel if r.fits else None
+    assert prepared == [((fake_h100, n, r.storage),
+                         dict(kernel=kernel, bt=r.bt, cache_tiles=r.cache_tiles))]
 
 
 def test_auto_consumes_the_declaration_on_cpu():
