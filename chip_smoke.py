@@ -12,7 +12,11 @@ auto runs the matvec kernel loop), and EigenValue solves 8192²; the kernel
 launch counters are read around exactly these calls.  It checks rounds,
 λ and the eigen-residual, checks that the "matvec_pallas" backend and
 every chunking of the multiround solve are bit-identical to the matvec
-kernel loop at 8192², and times the arms at 8192².
+kernel loop at 8192², and times the arms at 8192².  The one-launch solves
+go through a binding kept per (device, stream) (``kernels.multiround_solve``
+/ ``multiround_sym_solve``); at 8192² each is held bit for bit to its
+wrapper's launch (f32 triangle, bf16 triangle, f32 stripes), and "main
+path launches" gives the bindings made beside the launches.
 
 The symmetric path has its own steps: the triangle kernel
 (csrc/multiround_sym.cu) against its plain version at n = 128, 384, 4096
@@ -2217,7 +2221,8 @@ def main() -> int:
     auto_big = evt.max_eigenvalue(big)
     lam_c, vec_c, ms_c, rounds_c = evt.EigenValue().similarity_transform(mats[8192])
     launches = read_counts()
-    say(f"main path launches: {launches}")
+    binds = {name: wrappers[name].binds for name in ("multiround", "multiround_sym")}
+    say(f"main path launches: {launches}; binds {binds}")
     for name, count in launches.items():
         if name in ("matvec", "multiround", "round_glue"):
             check(count > 0, f"the main path launched no {name} kernel")
@@ -2279,6 +2284,31 @@ def main() -> int:
     say(f"EigenValue().similarity_transform(8192): λ {float(lam_c)!r}, rounds {rounds_c}, "
         f"ms {ms_c:.3f}")
     check(rounds_c == 17 and ms_c > 0, "similarity_transform at 8192")
+
+    # --- 4a. the bound one-launch solve at 8192²: bit for bit the wrapper's
+    # one launch, the binding kept from call to call ---
+    ones8, zero8 = torch.ones(8192, device=dev), torch.zeros((), device=dev)
+    bf16_cache = sym_auto_cache_tiles(8192, 128, dev, itemsize=2)
+    for what, A_, knobs, wrapper, wkw in (
+        ("f32 triangle", H, dict(symmetric=True), kernels.multiround_sym,
+         dict(cache_tiles=sym_auto_cache_tiles(8192, 128, dev))),
+        ("bf16 triangle", H.to(torch.bfloat16), dict(symmetric=True), kernels.multiround_sym,
+         dict(cache_tiles=bf16_cache)),
+        ("f32 stripes", H, {}, kernels.multiround, {}),
+    ):
+        kernels.drop_bindings()
+        binds0 = wrapper.binds
+        runs = [solve_multiround(A_, evt.EPS, evt.MAX_ITR, **knobs, **wkw) for _ in range(3)]
+        ev_w, _, _, lam_w, rounds_w, conv_w = wrapper(
+            A_, ones8, ones8, zero8, evt.MAX_ITR, chunk=evt.MAX_ITR + 1, eps=evt.EPS, init=True,
+            finish=0, **wkw)
+        ok = all(torch.equal(r.eigenvector, ev_w) and torch.equal(r.eigenvalue, lam_w)
+                 and torch.equal(r.rounds, rounds_w) and torch.equal(r.converged, conv_w)
+                 for r in runs)
+        say(f"bound one-launch solve, {what} at 8192²: bit-identical to the wrapper's launch "
+            f"{ok}, rounds {int(rounds_w)}; binds {wrapper.binds - binds0} for 3 solves")
+        check(ok, f"the bound {what} solve differs from its wrapper's launch")
+        check(wrapper.binds - binds0 == 1, f"the {what} solves did not keep one binding")
 
     # --- 4b. the symmetric path: symmetric=True and the validate promotion ---
     sym_cfg = evt.SolverConfig(symmetric=True)

@@ -24,12 +24,21 @@ bit; ev, v, λ and every sum stay f32.  (JAX's ``solve_matvec_storage``
 divides by a quantized vector instead; the port follows its kernels.)
 ``<wrapper>.launches`` counts kernel launches (a plain int; plain-version
 calls do not count).  ``multiround_sym.plan`` keeps the :class:`SymPlan`
-of the triangle wrapper's last launch on the card (None before one), whose
+of the triangle kernel's last launch on the card (None before one), whose
 ``hbm_bytes`` the benchmark reads.  The whole body of each wrapper that a
 route of ``api.max_eigenvalue`` calls (``matvec``, ``round_glue``,
 ``multiround``, ``multiround_sym``, ``rowsum``, ``scale_rowsum``), checks,
 plan, buffers and launch or plain version, is the span ``launch.<wrapper>``
 (``utils/profiling.py``).
+
+``multiround_solve`` and ``multiround_sym_solve`` are a whole solve in one
+launch of a persistent kernel, bound once per (device, current stream):
+the binding keeps the plan, the library's entry with its fixed arguments,
+the scratch and the constant inputs, and a call with the same key (n, A's
+dtype, the kernel and its knobs, eps) and the same plan only checks A,
+allocates what it returns and launches, under its wrapper's span and
+launch count.  ``multiround.binds`` / ``multiround_sym.binds`` count the
+bindings made; :func:`drop_bindings` frees them.
 
 The two persistent kernels can report where a launch's time went: with
 ``STAMPS`` set to an int64 tensor on the card ((32 rounds x 6 phases + 2)
@@ -96,6 +105,12 @@ def _check_f32(name: str, t: torch.Tensor, shape: tuple, dtypes=(torch.float32,)
 def _check_stored(name: str, A: torch.Tensor, shape: tuple) -> None:
     """The checks of a kernel's A: float32, or bfloat16 / float16 storage."""
     _check_f32(name, A, shape, tuple(_ELEM))
+
+
+def _square(A: torch.Tensor) -> int:
+    if A.dim() != 2 or A.shape[0] != A.shape[1]:
+        raise ValueError(f"A must be square, got shape {tuple(A.shape)}")
+    return A.shape[0]
 
 
 def _check_aligned(cols: int, *tensors: torch.Tensor) -> None:
@@ -212,6 +227,33 @@ def matvec_tf32_plain(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return torch.cat(out)
 
 
+def _entry(dev: torch.device, name: str) -> tuple:
+    """The library's entry ``name`` and the stream that is ``dev``'s
+    current one now."""
+    from . import build
+
+    with torch.cuda.device(dev):
+        entry = getattr(build.load(), name)
+    return entry, _stream(dev)
+
+
+def _stream(dev: torch.device) -> int:
+    """The raw handle of ``dev``'s current stream (torch.cuda.current_stream
+    builds a Stream object: 6.4 µs a call on an H100's host, against 0.4)."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+def _call(dev: torch.device, entry, args: tuple, what: str) -> None:
+    """``entry(*args)`` with ``dev`` the current device, entered only when
+    it is not."""
+    if torch.cuda.current_device() == dev.index:
+        rc = entry(*args)
+    else:
+        with torch.cuda.device(dev):
+            rc = entry(*args)
+    _launch(rc, what)
+
+
 def _leading_dim(A: torch.Tensor) -> int:
     """The distance in elements between the rows of a 2-D A whose rows are
     contiguous (``stride(1) == 1``): ``A.stride(0)``, at least the row
@@ -256,21 +298,11 @@ def _matvec_launcher(A: torch.Tensor, x: torch.Tensor, y: torch.Tensor, n: int, 
     current one now, counts it in ``matvec.launches`` and returns y: the one
     launch body of :func:`matvec` and :func:`matvec_bound`.  The library's
     entry and every argument are bound here, so a call only launches."""
-    from . import build
-
-    with torch.cuda.device(dev):
-        entry = functools.partial(
-            build.load().evt_matvec, A.data_ptr(), x.data_ptr(), y.data_ptr(), n, m, ld,
-            _ELEM[A.dtype], torch.cuda.current_stream(dev).cuda_stream)
-    here = torch.cuda.current_device() == dev.index
+    entry, stream = _entry(dev, "evt_matvec")
+    args = (A.data_ptr(), x.data_ptr(), y.data_ptr(), n, m, ld, _ELEM[A.dtype], stream)
 
     def run() -> torch.Tensor:
-        if here:
-            rc = entry()
-        else:
-            with torch.cuda.device(dev):
-                rc = entry()
-        _launch(rc, "matvec")
+        _call(dev, entry, args, "matvec")
         matvec.launches += 1
         return y
 
@@ -427,14 +459,107 @@ def multiround_grid(device: torch.device, n: int) -> int:
 
 
 def _solved(finish: Optional[int], dev: torch.device) -> tuple:
-    """``(outputs, args)``: the 0-d rounds (int32) and converged (bool) that
-    a launch asked for its solve's result (``finish`` not None) writes, none
-    otherwise; and the C entries' rounds_out, converged_out and rounds0."""
+    """The 0-d rounds (int32) and converged (bool) that a launch asked for
+    its solve's result (``finish`` not None) writes; none otherwise."""
     if finish is None:
-        return (), (None, None, 0)
-    out = (torch.empty((), dtype=torch.int32, device=dev),
-           torch.empty((), dtype=torch.bool, device=dev))
-    return out, (out[0].data_ptr(), out[1].data_ptr(), int(finish))
+        return ()
+    return (torch.empty((), dtype=torch.int32, device=dev),
+            torch.empty((), dtype=torch.bool, device=dev))
+
+
+def _carry_out(n: int, dev: torch.device) -> tuple:
+    """Fresh outputs of a launch's carry: ev, v, advanced (int32) and λ."""
+    return (torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty((), dtype=torch.int32, device=dev),
+            torch.empty((), dtype=torch.float32, device=dev))
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _check_chunk(chunk: int) -> None:
+    if chunk < 1:
+        raise ValueError(f"chunk must be >= 1, got {chunk}")
+
+
+def _operands(A, ev, v, n: int) -> None:
+    """The persistent kernels' checks of A (n, n), ev and v, in their
+    order."""
+    _check_stored("A", A, (n, n))
+    _check_f32("ev", ev, (n,))
+    _check_f32("v", v, (n,))
+
+
+def _stripes_checks(A, ev, v, chunk, eps_mode, formulation) -> tuple:
+    """The stripes wrapper's checks of its operands and knobs, in its
+    order; ``(n, device)``."""
+    n = _square(A)
+    if n == 0:
+        raise ValueError("A must be non-empty")
+    _check_chunk(chunk)
+    if eps_mode not in ("absolute", "relative"):
+        raise ValueError(f"unknown eps_mode {eps_mode!r}")
+    _check_formulation(formulation, n)
+    _operands(A, ev, v, n)
+    return n, tensor_device(A, ev, v)
+
+
+def _stripes_plan(dev: torch.device, n: int, dtype: torch.dtype, formulation: str):
+    return multiround_launch_plan(dev, n, **_sized(dtype), **_formulated(formulation))
+
+
+def _stripes_card(A, v, n: int, dev: torch.device, formulation: str) -> tuple:
+    """The card's checks of a stripes launch, its plan and its scratch:
+    ``(plan, raw)``."""
+    _check_aligned(n, A, v)
+    if not multiround_fits(n, dev):
+        raise ValueError(
+            f"n={n}: the multiround kernel keeps ev ({4 * n} bytes) in one "
+            f"block's shared memory, more than this card allows; use "
+            f"backend='matvec_pallas'"
+        )
+    plan = _stripes_plan(dev, n, A.dtype, formulation)
+    _check_ring_aligned(plan.ring, A)
+    return plan, torch.empty(2 * n, dtype=torch.float32, device=dev)
+
+
+def _stripes_launcher(dev, plan, n: int, dtype: torch.dtype, eps, eps_mode: str,
+                      formulation: str, raw):
+    """A function that launches the stripes kernel under ``plan`` on the
+    stream that is ``dev``'s current one now, over ``raw`` (which the
+    caller keeps alive), and counts it in ``multiround.launches``: the one
+    launch body of :func:`multiround` and of the bound solve
+    :func:`multiround_solve`.  A call passes what may change between
+    launches: A, the inputs, the budget, the chunk, ``init``, the outputs
+    (rounds and converged None where the result is not asked for) and the
+    rounds before the launch."""
+    entry, stream = _entry(dev, "evt_multiround")
+    dot = formulation == "dot"
+    scratch = (raw.data_ptr(), n)
+    knobs = (int(eps_mode == "relative"), plan.resident, plan.l2_rows, plan.ring, int(dot))
+    elem = _ELEM[dtype]
+
+    def run(A, ev, v, lam, budget, chunk, init, ev_out, v_out, adv, lam_out,
+            rounds_out=None, converged_out=None, rounds0=0):
+        # the dot formulation's segment sums, kDotSegments (8) floats a row,
+        # and its rounds' work counters, which must read 0 at the launch: the
+        # kernel leaves its last rounds' counts there, and a zeroing of kept
+        # counters would be a step apart from the launch, which two threads
+        # on one stream could interleave; so both are the launch's own
+        part = torch.empty(8 * n, dtype=torch.float32, device=dev) if dot else None
+        work = torch.zeros(2, dtype=torch.int32, device=dev) if dot else None
+        _call(dev, entry, (
+            A.data_ptr(), ev.data_ptr(), v.data_ptr(), lam.data_ptr(), min(budget, 2**31 - 1),
+            ev_out.data_ptr(), v_out.data_ptr(), adv.data_ptr(), lam_out.data_ptr(),
+            _ptr(rounds_out), _ptr(converged_out), rounds0, *scratch, min(chunk, 2**31 - 1),
+            eps, int(init), *knobs, _ptr(part), _ptr(work), _stamps_ptr(), elem, plan.grid,
+            stream,
+        ), "multiround")
+        multiround.launches += 1
+
+    return run
 
 
 @spanned("launch.multiround")
@@ -470,20 +595,7 @@ def multiround(
     round's update, ``solver._finished``, bit for bit); any other returns
     the carry, which the next launch resumes from where the solve goes
     on."""
-    if A.dim() != 2 or A.shape[0] != A.shape[1]:
-        raise ValueError(f"A must be square, got shape {tuple(A.shape)}")
-    n = A.shape[0]
-    if n == 0:
-        raise ValueError("A must be non-empty")
-    if chunk < 1:
-        raise ValueError(f"chunk must be >= 1, got {chunk}")
-    if eps_mode not in ("absolute", "relative"):
-        raise ValueError(f"unknown eps_mode {eps_mode!r}")
-    _check_formulation(formulation, n)
-    _check_stored("A", A, (n, n))
-    _check_f32("ev", ev, (n,))
-    _check_f32("v", v, (n,))
-    dev = tensor_device(A, ev, v)
+    n, dev = _stripes_checks(A, ev, v, chunk, eps_mode, formulation)
     lam = _as_scalar(lam, dev)
     budget = int(budget)
     if dev.type == "cpu":
@@ -491,45 +603,16 @@ def multiround(
             A, ev, v, lam, budget, chunk=chunk, eps=eps, init=init, eps_mode=eps_mode,
             formulation=formulation, finish=finish,
         )
-    _check_aligned(n, A, v)
-    if not multiround_fits(n, dev):
-        raise ValueError(
-            f"n={n}: the multiround kernel keeps ev ({4 * n} bytes) in one "
-            f"block's shared memory, more than this card allows; use "
-            f"backend='matvec_pallas'"
-        )
-    from . import build
-
-    ev_out = torch.empty(n, dtype=torch.float32, device=dev)
-    v_out = torch.empty(n, dtype=torch.float32, device=dev)
-    adv = torch.empty((), dtype=torch.int32, device=dev)
-    lam_out = torch.empty((), dtype=torch.float32, device=dev)
-    solved, solved_args = _solved(finish, dev)
-    raw = torch.empty(2 * n, dtype=torch.float32, device=dev)
-    dot = formulation == "dot"
-    # the dot formulation's segment sums, kDotSegments (8) floats a row, and
-    # its rounds' work counters (zero at the launch)
-    part = torch.empty(8 * n, dtype=torch.float32, device=dev) if dot else None
-    work = torch.zeros(2, dtype=torch.int32, device=dev) if dot else None
-    plan = multiround_launch_plan(dev, n, **_sized(A.dtype), **_formulated(formulation))
-    _check_ring_aligned(plan.ring, A)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = build.load().evt_multiround(
-            A.data_ptr(), ev.data_ptr(), v.data_ptr(), lam.data_ptr(),
-            min(budget, 2**31 - 1),
-            ev_out.data_ptr(), v_out.data_ptr(), adv.data_ptr(), lam_out.data_ptr(),
-            *solved_args, raw.data_ptr(), n, min(chunk, 2**31 - 1), eps,
-            int(init), int(eps_mode == "relative"), plan.resident, plan.l2_rows, plan.ring,
-            int(dot), part.data_ptr() if dot else 0, work.data_ptr() if dot else 0,
-            _stamps_ptr(), _ELEM[A.dtype], plan.grid, stream,
-        )
-        _launch(rc, "multiround")
-    multiround.launches += 1
-    return (ev_out, v_out, adv, lam_out) + solved
+    plan, raw = _stripes_card(A, v, n, dev, formulation)
+    out = _carry_out(n, dev)
+    solved = _solved(finish, dev)
+    _stripes_launcher(dev, plan, n, A.dtype, eps, eps_mode, formulation, raw)(
+        A, ev, v, lam, budget, chunk, init, *out, *solved, rounds0=finish or 0)
+    return out + solved
 
 
 multiround.launches = 0
+multiround.binds = 0
 
 
 #: The triangle kernel's default tile edge on Hopper.  The JAX default (512)
@@ -727,16 +810,11 @@ def pipelined_depth(n: int, bt: int, cache_tiles: int, sym: bool, m: int = 0) ->
 
 def _check_tiled(A, ev, v, chunk, eps_mode, tile) -> int:
     """Shape/dtype checks of the tiled kernel; returns its tile edge."""
-    if A.dim() != 2 or A.shape[0] != A.shape[1]:
-        raise ValueError(f"A must be square, got shape {tuple(A.shape)}")
-    n = A.shape[0]
-    if chunk < 1:
-        raise ValueError(f"chunk must be >= 1, got {chunk}")
+    n = _square(A)
+    _check_chunk(chunk)
     if eps_mode not in ("absolute", "relative"):
         raise ValueError(f"unknown eps_mode {eps_mode!r}")
-    _check_stored("A", A, (n, n))
-    _check_f32("ev", ev, (n,))
-    _check_f32("v", v, (n,))
+    _operands(A, ev, v, n)
     bt = sym_tile(n, tile)
     if bt is None:
         raise ValueError(
@@ -869,6 +947,77 @@ def multiround_sym_plan(
                    sym_hbm_bytes(device, n, bt, cache_tiles, sym, dtype))
 
 
+def _sym_checks(A, ev, v, chunk, eps_mode, tile, cache_tiles, sym, formulation, mxu_tiles,
+                fill_mode) -> tuple:
+    """The tiled wrapper's checks of its operands and knobs, in its order;
+    ``(n, tile edge, "mixed" share, device)``."""
+    _check_formulation_name(formulation)
+    bt = _check_tiled(A, ev, v, chunk, eps_mode, tile)
+    n = A.shape[0]
+    m = _check_tiled_knobs(n, bt, int(cache_tiles), bool(sym), formulation, mxu_tiles, fill_mode)
+    return n, bt, m, tensor_device(A, ev, v)
+
+
+def _sym_plan(dev: torch.device, n: int, bt: int, cache_tiles: int, sym: bool,
+              dtype: torch.dtype, formulation: str, fill_mode: str) -> SymPlan:
+    return multiround_sym_plan(dev, n, bt, int(cache_tiles), bool(sym), **_sized(dtype),
+                               **_formulated(formulation),
+                               **({"pipelined": True} if fill_mode == "pipelined" else {}))
+
+
+def _sym_card(A, v, n: int, bt: int, dev: torch.device, cache_tiles: int, sym: bool,
+              formulation: str, fill_mode: str) -> tuple:
+    """The card's checks of a tiled launch, its plan and its scratch:
+    ``(plan, raw, part, part_t)``."""
+    _check_aligned(n, A, v)
+    if not multiround_sym_fits(n, bt, dev):
+        raise ValueError(
+            f"n={n}: the triangle kernel keeps ev ({sym_smem_bytes(n, bt)} bytes) in "
+            f"one block's shared memory, more than this card allows; use the matvec "
+            f"kernel"
+        )
+    plan = _sym_plan(dev, n, bt, cache_tiles, sym, A.dtype, formulation, fill_mode)
+    _check_ring_aligned(plan.ring or fill_mode == "pipelined", A)
+    raw = torch.empty(n, dtype=torch.float32, device=dev)
+    # one slot of bt floats per (row block, column block): the row terms, and
+    # for a symmetric A the transpose terms of each of a tile's work items
+    part = torch.empty((n // bt) * n, dtype=torch.float32, device=dev)
+    part_t = torch.empty((n // bt) * n * plan.split if sym else 1, dtype=torch.float32,
+                         device=dev)
+    return plan, raw, part, part_t
+
+
+def _sym_launcher(dev, plan, n: int, bt: int, dtype: torch.dtype, eps, eps_mode: str, sym: bool,
+                  formulation: str, m: int, fill_mode: str, raw, part, part_t):
+    """A function that launches the tiled kernel under ``plan`` on the
+    stream that is ``dev``'s current one now, over this scratch (which the
+    caller keeps alive), counts it in ``multiround_sym.launches`` and keeps
+    ``plan`` as ``multiround_sym.plan``: the one launch body of
+    :func:`multiround_sym` and of the bound solve
+    :func:`multiround_sym_solve`.  A call passes what may change between
+    launches, as :func:`_stripes_launcher`'s does."""
+    entry, stream = _entry(dev, "evt_multiround_sym")
+    tiles = (plan.table.data_ptr(), plan.T, plan.C, plan.slots)
+    scratch = (raw.data_ptr(), part.data_ptr(), part_t.data_ptr(), n, bt)
+    knobs = (int(eps_mode == "relative"), int(sym), plan.split, plan.l2_tiles, plan.ring,
+             _FORMS[formulation], plan.C - m, plan.split if fill_mode == "pipelined" else 0)
+    elem = _ELEM[dtype]
+
+    def run(A, ev, v, lam, budget, chunk, init, ev_out, v_out, adv, lam_out,
+            rounds_out=None, converged_out=None, rounds0=0):
+        _call(dev, entry, (
+            A.data_ptr(), *tiles, ev.data_ptr(), v.data_ptr(), lam.data_ptr(),
+            min(budget, 2**31 - 1), ev_out.data_ptr(), v_out.data_ptr(), adv.data_ptr(),
+            lam_out.data_ptr(), _ptr(rounds_out), _ptr(converged_out), rounds0, *scratch,
+            min(chunk, 2**31 - 1), eps, int(init), *knobs, _stamps_ptr(), elem, plan.grid,
+            stream,
+        ), "multiround_sym")
+        multiround_sym.launches += 1
+        multiround_sym.plan = plan
+
+    return run
+
+
 @spanned("launch.multiround_sym")
 def multiround_sym(
     A: torch.Tensor,
@@ -914,11 +1063,8 @@ def multiround_sym(
     auto caches, NVIDIA H100 80GB HBM3 at 700 W: -0.9..+1.6% of the
     prologue fill's launch, whose fill takes 8.9-10.5 µs; PERF.md §6.)
     Both raise where the JAX kernel does (:func:`_check_tiled_knobs`)."""
-    _check_formulation_name(formulation)
-    bt = _check_tiled(A, ev, v, chunk, eps_mode, tile)
-    n = A.shape[0]
-    m = _check_tiled_knobs(n, bt, int(cache_tiles), bool(sym), formulation, mxu_tiles, fill_mode)
-    dev = tensor_device(A, ev, v)
+    n, bt, m, dev = _sym_checks(A, ev, v, chunk, eps_mode, tile, cache_tiles, sym, formulation,
+                                mxu_tiles, fill_mode)
     lam = _as_scalar(lam, dev)
     budget = int(budget)
     if dev.type == "cpu":
@@ -927,50 +1073,160 @@ def multiround_sym(
             tile=tile, cache_tiles=cache_tiles, sym=sym, formulation=formulation,
             mxu_tiles=mxu_tiles, fill_mode=fill_mode, finish=finish,
         )
-    _check_aligned(n, A, v)
-    if not multiround_sym_fits(n, bt, dev):
-        raise ValueError(
-            f"n={n}: the triangle kernel keeps ev ({sym_smem_bytes(n, bt)} bytes) in "
-            f"one block's shared memory, more than this card allows; use the matvec "
-            f"kernel"
-        )
-    from . import build
-
-    pipelined = fill_mode == "pipelined"
-    plan = multiround_sym_plan(dev, n, bt, int(cache_tiles), bool(sym), **_sized(A.dtype),
-                               **_formulated(formulation),
-                               **({"pipelined": True} if pipelined else {}))
-    _check_ring_aligned(plan.ring or pipelined, A)
-    ev_out = torch.empty(n, dtype=torch.float32, device=dev)
-    v_out = torch.empty(n, dtype=torch.float32, device=dev)
-    adv = torch.empty((), dtype=torch.int32, device=dev)
-    lam_out = torch.empty((), dtype=torch.float32, device=dev)
-    solved, solved_args = _solved(finish, dev)
-    raw = torch.empty(n, dtype=torch.float32, device=dev)
-    # one slot of bt floats per (row block, column block): the row terms, and
-    # for a symmetric A the transpose terms of each of a tile's work items
-    part = torch.empty((n // bt) * n, dtype=torch.float32, device=dev)
-    part_t = torch.empty((n // bt) * n * plan.split if sym else 1, dtype=torch.float32,
-                         device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = build.load().evt_multiround_sym(
-            A.data_ptr(), plan.table.data_ptr(), plan.T, plan.C, plan.slots,
-            ev.data_ptr(), v.data_ptr(), lam.data_ptr(), min(budget, 2**31 - 1),
-            ev_out.data_ptr(), v_out.data_ptr(), adv.data_ptr(), lam_out.data_ptr(),
-            *solved_args, raw.data_ptr(), part.data_ptr(), part_t.data_ptr(),
-            n, bt, min(chunk, 2**31 - 1), eps, int(init), int(eps_mode == "relative"), int(sym),
-            plan.split, plan.l2_tiles, plan.ring, _FORMS[formulation], plan.C - m,
-            plan.split if pipelined else 0, _stamps_ptr(), _ELEM[A.dtype], plan.grid, stream,
-        )
-        _launch(rc, "multiround_sym")
-    multiround_sym.launches += 1
-    multiround_sym.plan = plan
-    return (ev_out, v_out, adv, lam_out) + solved
+    plan, *scratch = _sym_card(A, v, n, bt, dev, cache_tiles, sym, formulation, fill_mode)
+    out = _carry_out(n, dev)
+    solved = _solved(finish, dev)
+    _sym_launcher(dev, plan, n, bt, A.dtype, eps, eps_mode, sym, formulation, m, fill_mode,
+                  *scratch)(A, ev, v, lam, budget, chunk, init, *out, *solved,
+                            rounds0=finish or 0)
+    return out + solved
 
 
 multiround_sym.launches = 0
+multiround_sym.binds = 0
 multiround_sym.plan = None
+
+
+# --- the one-launch solve, bound once per (device, stream) -----------------
+
+
+class _Binding:
+    """What a (device, stream) keeps for the one-launch solves of one key:
+    the plan and ``replan``, which looks it up again as a launch would (so
+    a new plan, after a cleared plan cache or a patched plan function,
+    shows as another object); the launch body with the plan, the library's
+    entry, the stream and the scratch bound (``run``); the scratch itself,
+    the carry's v (which a one-launch solve never returns) and the constant
+    inputs ev0 = ones(n) and λ0 = 0, which the kernels read and never
+    write.  A call checks A and ev0 with the wrapper's checks as far as
+    this binding's launch may take them, allocates only what it returns and
+    launches."""
+
+    def __init__(self, key: tuple, n: int, dev: torch.device, ones: torch.Tensor, plan, replan,
+                 run, ring: bool, scratch: tuple):
+        self.key, self.n, self.dev, self.ones = key, n, dev, ones
+        self.plan, self.replan, self.run, self.ring = plan, replan, run, ring
+        self.zero = torch.zeros((), dtype=torch.float32, device=dev)
+        self.v = torch.empty(n, dtype=torch.float32, device=dev)
+        self.scratch = scratch  # the buffers that run's pointers point into
+
+    def __call__(self, A: torch.Tensor, ev0: Optional[torch.Tensor], budget: int, chunk: int):
+        n, dev = self.n, self.dev
+        _check_chunk(chunk)
+        ev = self.ones if ev0 is None else ev0
+        _operands(A, ev, ev, n)
+        if ev0 is not None:
+            tensor_device(A, ev0)
+        _check_aligned(n, A, ev)
+        _check_ring_aligned(self.ring, A)
+        ev_out = torch.empty(n, dtype=torch.float32, device=dev)
+        adv = torch.empty((), dtype=torch.int32, device=dev)
+        lam = torch.empty((), dtype=torch.float32, device=dev)
+        rounds = torch.empty((), dtype=torch.int32, device=dev)
+        converged = torch.empty((), dtype=torch.bool, device=dev)
+        self.run(A, ev, ev, self.zero, int(budget), chunk, True, ev_out, self.v, adv, lam,
+                 rounds, converged, 0)
+        return ev_out, adv, lam, rounds, converged
+
+
+#: The bindings of the one-launch solves, one at most for each (device,
+#: current stream): a key of another n, dtype, kernel or knob, or another
+#: plan for the same key, replaces it.
+_BINDINGS: dict = {}
+
+
+def drop_bindings() -> None:
+    """Drop every binding of the one-launch solves (:func:`multiround_solve`,
+    :func:`multiround_sym_solve`) and the scratch and constant inputs each
+    keeps, one binding for each (device, stream) that has solved: the
+    triangle kernel's two slot buffers hold (n / bt) · n floats or more
+    each, 4 MiB in all at 8192² and 200 MiB at 57856², bt 128.  The next
+    solve binds anew."""
+    _BINDINGS.clear()
+
+
+def _bound(wrapper, A: torch.Tensor, key: tuple, bind, *args) -> _Binding:
+    """The binding of (A's device, its current stream) if it holds ``key``
+    and the plan a launch would look up now; else ``bind(key, A, *args)``,
+    which replaces the slot's binding and is counted in
+    ``wrapper.binds``.  Two threads that find a slot without the key at
+    once may each bind: the later binding replaces the earlier, and each
+    call launches over its own binding's scratch."""
+    dev = A.device
+    slot = (dev, _stream(dev) if dev.type == "cuda" else None)
+    held = _BINDINGS.get(slot)
+    if held is None or held.key != key or held.replan() is not held.plan:
+        _BINDINGS.pop(slot, None)  # its memory goes back before the new binding takes its own
+        held = _BINDINGS[slot] = bind(key, A, *args)
+        wrapper.binds += 1
+    return held
+
+
+def _bind_stripes(key, A, chunk, eps, eps_mode, formulation) -> _Binding:
+    ones = torch.ones(A.shape[0], dtype=torch.float32, device=A.device)
+    n, dev = _stripes_checks(A, ones, ones, chunk, eps_mode, formulation)
+    plan, raw = _stripes_card(A, ones, n, dev, formulation)
+    dtype = A.dtype
+    run = _stripes_launcher(dev, plan, n, dtype, eps, eps_mode, formulation, raw)
+    return _Binding(key, n, dev, ones, plan, lambda: _stripes_plan(dev, n, dtype, formulation),
+                    run, bool(plan.ring), (raw,))
+
+
+@spanned("launch.multiround")
+def multiround_solve(A: torch.Tensor, ev0: Optional[torch.Tensor], budget: int, *, chunk: int,
+                     eps: float, eps_mode: str = "absolute", formulation: str = "vpu"):
+    """A whole solve in one launch of the stripes kernel on the card: what
+    ``multiround(A, ev0, ev0, 0, budget, chunk=chunk, eps=eps, init=True,
+    eps_mode=eps_mode, formulation=formulation, finish=0)`` returns, bit
+    for bit, less the carry's v: ``(ev, advanced, λ, rounds, converged)``.
+    ``ev0`` None starts from ones.
+
+    It launches through the binding of (A's device, its current stream),
+    made by the first call of a key (n, A's dtype, the kernel, the
+    formulation, eps and eps_mode) and replaced by a call of another key or
+    under another plan: the plan, the library's entry with every argument
+    that does not change between calls, the scratch, the carry's v and ev0
+    = ones, λ0 = 0 are kept there (:func:`drop_bindings`), so a call checks
+    A, allocates the five tensors it returns and launches.  Launches on one
+    stream run in order, so their calls share the scratch; each returns its
+    own tensors.  (The dot formulation's segment sums and work counters are
+    each launch's own, as the wrapper's are.)"""
+    key = ("stripes", _square(A), A.dtype, formulation, eps, eps_mode)
+    return _bound(multiround, A, key, _bind_stripes, chunk, eps, eps_mode,
+                  formulation)(A, ev0, budget, chunk)
+
+
+def _bind_sym(key, A, chunk, eps, eps_mode, tile, cache_tiles, sym, formulation, mxu_tiles,
+              fill_mode) -> _Binding:
+    ones = torch.ones(A.shape[0], dtype=torch.float32, device=A.device)
+    n, bt, m, dev = _sym_checks(A, ones, ones, chunk, eps_mode, tile, cache_tiles, sym,
+                                formulation, mxu_tiles, fill_mode)
+    plan, *scratch = _sym_card(A, ones, n, bt, dev, cache_tiles, sym, formulation, fill_mode)
+    dtype = A.dtype
+    run = _sym_launcher(dev, plan, n, bt, dtype, eps, eps_mode, sym, formulation, m, fill_mode,
+                        *scratch)
+    return _Binding(key, n, dev, ones, plan,
+                    lambda: _sym_plan(dev, n, bt, cache_tiles, sym, dtype, formulation, fill_mode),
+                    run, bool(plan.ring) or fill_mode == "pipelined", tuple(scratch))
+
+
+@spanned("launch.multiround_sym")
+def multiround_sym_solve(A: torch.Tensor, ev0: Optional[torch.Tensor], budget: int, *,
+                         chunk: int, eps: float, eps_mode: str = "absolute",
+                         tile: int = SYM_TILE, cache_tiles: int = 0, sym: bool = True,
+                         formulation: str = "vpu", mxu_tiles: Optional[int] = None,
+                         fill_mode: str = "prologue"):
+    """A whole solve in one launch of the tiled kernel on the card: what
+    ``multiround_sym(A, ev0, ev0, 0, budget, ..., init=True, finish=0)``
+    returns, bit for bit, less the carry's v, through the binding of (A's
+    device, its current stream) as :func:`multiround_solve`'s; the key adds
+    the tiled kernel's knobs (triangle or dense tiled, tile, cache_tiles,
+    mxu_tiles, fill_mode).  Each launch keeps its plan as
+    ``multiround_sym.plan``."""
+    key = ("triangle" if sym else "tiled", _square(A), A.dtype, tile, cache_tiles, formulation,
+           mxu_tiles, fill_mode, eps, eps_mode)
+    return _bound(multiround_sym, A, key, _bind_sym, chunk, eps, eps_mode, tile, cache_tiles,
+                  sym, formulation, mxu_tiles, fill_mode)(A, ev0, budget, chunk)
 
 
 def prepare(
@@ -995,9 +1251,7 @@ def prepare(
 
 
 def _check_square(A: torch.Tensor) -> int:
-    if A.dim() != 2 or A.shape[0] != A.shape[1]:
-        raise ValueError(f"A must be square, got shape {tuple(A.shape)}")
-    n = A.shape[0]
+    n = _square(A)
     _check_f32("A", A, (n, n))
     return n
 

@@ -37,7 +37,6 @@ not follow it.  The fused-round solves keep float32 A only, as in JAX.
 
 from __future__ import annotations
 
-from functools import partial
 from typing import NamedTuple, Optional
 
 import torch
@@ -371,7 +370,12 @@ def solve_multiround(
     ``max_itr + 1`` rounds, in one launch.  Every launch is asked for the
     solve's result (``finish``), and the one where the solve ends writes
     it on the card by :func:`solver._finish`'s rule and expressions, bit for
-    bit, so nothing is launched or copied to the card after it.
+    bit, so nothing is launched or copied to the card after it.  On a card
+    a solve of one launch (``chunk`` None or > ``max_itr``) launches through
+    :func:`kernels.multiround_solve` / :func:`kernels.multiround_sym_solve`,
+    whose binding keeps the plan, the scratch and ev0 = ones, λ0 = 0 from
+    call to call, so it allocates only what it returns; a chunked solve, whose
+    launches feed each other, and a CPU solve call the wrappers.
 
     Without ``symmetric`` or a cache this is the stripes kernel, whose
     v-sequence is bit-identical to :func:`solve_matvec_kernel`.
@@ -402,8 +406,7 @@ def solve_multiround(
     """
     A, dtype = _stored(A, storage_dtype)
     if symmetric or cache_tiles > 0:
-        kernel = partial(
-            kernels.multiround_sym,
+        knobs = dict(
             tile=kernels.SYM_TILE if tile is None else tile,
             cache_tiles=cache_tiles,
             sym=symmetric,
@@ -411,6 +414,7 @@ def solve_multiround(
             mxu_tiles=mxu_tiles,
             fill_mode=fill_mode,
         )
+        kernel, once = kernels.multiround_sym, kernels.multiround_sym_solve
     else:
         if mxu_tiles is not None:
             raise ValueError(
@@ -429,15 +433,23 @@ def solve_multiround(
                 f"tile={tile} is a tiled-kernel knob (symmetric=True or "
                 f"cache_tiles > 0); the stripes kernel streams full-width rows"
             )
-        kernel = partial(kernels.multiround, formulation=formulation)
-    n = A.shape[0]
-    if ev0 is None:
-        ev0 = torch.ones(n, dtype=dtype, device=A.device)
-    else:
+        knobs = dict(formulation=formulation)
+        kernel, once = kernels.multiround, kernels.multiround_solve
+    if ev0 is not None:
         ev0 = torch.as_tensor(ev0, dtype=dtype, device=A.device).contiguous()
     if chunk is None:
         chunk = max_itr + 1
-    kw = dict(chunk=chunk, eps=eps, eps_mode=eps_mode)
+    if A.device.type == "cuda" and chunk > max_itr:
+        # one launch, through the binding that keeps its plan, scratch and
+        # constant inputs between calls
+        ev, adv, lam, rounds, converged = once(A, ev0, max_itr, chunk=chunk, eps=eps,
+                                               eps_mode=eps_mode, **knobs)
+        with span("solver.read"):
+            int(adv)
+        return SolveResult(lam, ev, rounds, converged)
+    if ev0 is None:
+        ev0 = torch.ones(A.shape[0], dtype=dtype, device=A.device)
+    kw = dict(chunk=chunk, eps=eps, eps_mode=eps_mode, **knobs)
     zero = torch.zeros((), dtype=dtype, device=A.device)
     ev, v, adv, lam, rounds, converged = kernel(A, ev0, ev0, zero, max_itr, init=True,
                                                 finish=0, **kw)

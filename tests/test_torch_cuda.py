@@ -9,6 +9,8 @@ needs a CUDA device and skips without one.
 """
 
 import contextlib
+import threading
+import time
 
 import pytest
 
@@ -1840,14 +1842,20 @@ class _Spy:
         setattr(self.wrapper, name, value)
 
 
-def _last_launch_result(monkeypatch, wrapper, solve):
-    """``solve()`` with a spy on ``wrapper``: its result is the last
-    launch's result tensors, and no ``solver.finish`` span opens."""
-    spy = _Spy(wrapper)
+def _last_launch_result(monkeypatch, wrapper, solve, bound=False):
+    """``solve()`` with a spy on ``wrapper`` (``bound``: on its bound
+    one-launch solve, ``kernels.<wrapper>_solve``, which a one-launch solve
+    on the card calls): its result is the last launch's result tensors, and
+    no ``solver.finish`` span opens."""
+    name = f"{wrapper.__name__}_solve" if bound else wrapper.__name__
+    spy = _Spy(getattr(tk, name))
     with monkeypatch.context() as m, recording() as spans:
-        m.setattr(tk, wrapper.__name__, spy)
+        m.setattr(tk, name, spy)
         got = solve()
-    ev, _, _, lam, rounds, converged = spy.outs[-1]
+    if bound:
+        ev, _, lam, rounds, converged = spy.outs[-1]
+    else:
+        ev, _, _, lam, rounds, converged = spy.outs[-1]
     assert got.eigenvector is ev and got.eigenvalue is lam
     assert got.rounds is rounds and got.converged is converged
     assert "solver.finish" not in {s.name for s in spans}
@@ -1879,8 +1887,9 @@ def test_the_kernels_write_finish_of_their_carry_bit_for_bit(cuda, monkeypatch, 
     launch where the solve ends, equal ``_finish`` on the same launches'
     carry bit for bit: at the stop (Hilbert 2048² and 8192², and 8192²
     scaled at random) and at the cap; the solve returns its last launch's
-    result tensors and opens no ``solver.finish`` span, and the launches
-    are the carry loop's."""
+    result tensors (with ``chunk`` None the bound one-launch solve's) and
+    opens no ``solver.finish`` span, and the launches are the carry
+    loop's."""
     sym, cache, formulation, fill = FINISH_ROUTES[route]
     for n, scaled in ((2048, False), (8192, False), (8192, True)):
         A = tfx.hilbert_matrix(n, device=cuda)
@@ -1904,7 +1913,8 @@ def test_the_kernels_write_finish_of_their_carry_bit_for_bit(cuda, monkeypatch, 
             launches = wrapper.launches
             got = _last_launch_result(monkeypatch, wrapper,
                                       lambda: solve_multiround(A, EPS, max_itr, chunk=chunk,
-                                                               **solve_kw))
+                                                               **solve_kw),
+                                      bound=chunk is None)
             torch.cuda.synchronize()
             mid = wrapper.launches
             want = _parent_solve(A, max_itr, wrapper, chunk, **kw)
@@ -1915,3 +1925,218 @@ def test_the_kernels_write_finish_of_their_carry_bit_for_bit(cuda, monkeypatch, 
             assert bool(got.converged) == (max_itr == MAX_ITR)
             assert bool(got.converged) == bool(want.converged)
             _same(got, want)
+
+
+# --- the one-launch solve's binding (kernels.multiround_solve /
+# multiround_sym_solve): kept per (device, stream, key), bit for bit the
+# wrapper's one launch, allocating only what it returns -----------------------
+
+
+_MATS = {}
+
+
+def _scaled(n, cuda):
+    """Hilbert n² scaled elementwise at random, symmetric (kept per n)."""
+    if n not in _MATS:
+        R = 1 + 0.01 * torch.rand(n, n, generator=torch.Generator().manual_seed(n)).to(cuda)
+        _MATS[n] = tfx.hilbert_matrix(n, device=cuda) * ((R + R.T) / 2)
+    return _MATS[n]
+
+
+def _route_knobs(route, n, dt, cuda):
+    """``(wrapper, its knobs, solve_multiround's knobs)`` of a FINISH_ROUTES
+    route at n on A of ``dt``."""
+    sym, cache, formulation, fill = FINISH_ROUTES[route]
+    kw, solve_kw = dict(formulation=formulation), dict(formulation=formulation)
+    if cache is None:
+        return tk.multiround, kw, solve_kw
+    c = 0 if cache == 0 else sym_auto_cache_tiles(
+        n, 128, cuda, sym=sym, itemsize=dt.itemsize, ring=formulation == "vpu")
+    if fill == "pipelined":
+        c = _pipelined(n, c, sym, formulation == "mixed")
+    kw.update(cache_tiles=c, sym=sym, fill_mode=fill)
+    solve_kw.update(cache_tiles=c, symmetric=sym, fill_mode=fill)
+    return tk.multiround_sym, kw, solve_kw
+
+
+def _wrapper_solve(A, max_itr, wrapper, **kw):
+    """The one-launch solve through the wrapper, as ``solve_multiround``
+    launched it before the binding."""
+    from eigen_value_tpu_torch.ops.solver import SolveResult
+
+    ones = torch.ones(A.shape[0], device=A.device)
+    ev, _, _, lam, rounds, converged = wrapper(
+        A, ones, ones, torch.zeros((), device=A.device), max_itr, chunk=max_itr + 1, eps=EPS,
+        init=True, finish=0, **kw)
+    return SolveResult(lam, ev, rounds, converged)
+
+
+def _same_result(got, want):
+    for name in ("eigenvalue", "eigenvector", "rounds", "converged"):
+        g, w = getattr(got, name), getattr(want, name)
+        assert g.dtype == w.dtype and g.shape == w.shape and g.device == w.device, name
+        assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("n", [1024, 1152, 8192])
+@pytest.mark.parametrize("dt", STORE + [torch.float32])
+@pytest.mark.parametrize("route", list(FINISH_ROUTES))
+def test_the_bound_solve_is_the_wrapper_path_bit_for_bit(cuda, route, dt, n):
+    """A one-launch ``solve_multiround`` on the card launches through its
+    binding, once a call, and returns the wrapper's one launch bit for bit
+    in rounds, converged, λ and eigenvector: every instance the solves
+    launch, f32 / bf16 / f16, at the stop and at the cap, at 1024², 8192²
+    and 1152² (not a power of two)."""
+    A = _scaled(n, cuda).to(dt)
+    wrapper, kw, solve_kw = _route_knobs(route, n, dt, cuda)
+    binds = None
+    for max_itr in (MAX_ITR, 5, MAX_ITR):
+        launches = wrapper.launches
+        got = solve_multiround(A, EPS, max_itr, **solve_kw)
+        assert wrapper.launches == launches + 1
+        if binds is None:  # the first call binds, unless the slot held this key
+            binds = wrapper.binds
+        assert wrapper.binds == binds  # the later ones keep the binding
+        want = _wrapper_solve(A, max_itr, wrapper, **kw)
+        _same_result(got, want)
+        assert bool(got.converged) == (max_itr == MAX_ITR)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_a_bound_result_is_unchanged_by_later_calls(cuda, symmetric, dt):
+    """Call k's tensors keep their bits through calls k+1 … k+3 on other
+    matrices with the same binding."""
+    n = 8192
+    mats = [_scaled(n, cuda).to(dt)] + [
+        (tfx.hilbert_matrix(n, device=cuda) * (1 + 0.001 * k)).to(dt) for k in (1, 2, 3)]
+    first = solve_multiround(mats[0], EPS, MAX_ITR, symmetric=symmetric)
+    kept = [t.clone() for t in first]
+    for A in mats[1:]:
+        later = solve_multiround(A, EPS, MAX_ITR, symmetric=symmetric)
+        assert all(a.data_ptr() != b.data_ptr() for a, b in zip(later, first))
+    torch.cuda.synchronize()
+    assert all(torch.equal(t, k) for t, k in zip(first, kept))
+
+
+def test_two_streams_in_turns_keep_a_binding_each(cuda):
+    """Solves on two streams in turns: one binding for each stream, made at
+    its first call, and the bits of the default stream's solve."""
+    A = _scaled(2048, cuda)
+    want = solve_multiround(A, EPS, MAX_ITR, symmetric=True)
+    streams = (torch.cuda.Stream(cuda), torch.cuda.Stream(cuda))
+    torch.cuda.synchronize()
+    tk.drop_bindings()
+    binds = tk.multiround_sym.binds
+    for turn in range(3):
+        for s in streams:
+            with torch.cuda.stream(s):
+                got = solve_multiround(A, EPS, MAX_ITR, symmetric=True)
+            s.synchronize()
+            _same_result(got, want)
+        assert tk.multiround_sym.binds == binds + 2, turn
+    assert {(cuda, s.cuda_stream) for s in streams} == set(tk._BINDINGS)
+
+
+def test_two_threads_on_one_stream_keep_their_dot_solves_apart(cuda):
+    """Two host threads solve different matrices in the stripes kernel's dot
+    formulation on one stream, through one binding: every result is its
+    wrapper launch's, bit for bit (the segment sums and work counters are
+    each launch's own, so interleaved set-ups and launches cannot share
+    them)."""
+    n = 2048
+    mats = [_scaled(n, cuda), tfx.hilbert_matrix(n, device=cuda) * 1.5]
+    want = [_wrapper_solve(A, MAX_ITR, tk.multiround, formulation="dot") for A in mats]
+    stream = torch.cuda.Stream(cuda)
+    torch.cuda.synchronize()  # the matrices are made on the default stream
+    start = threading.Barrier(2)
+    got, errors = ([], []), []
+
+    def solves(i):
+        try:
+            with torch.cuda.stream(stream):
+                start.wait()
+                for _ in range(25):
+                    got[i].append(solve_multiround(mats[i], EPS, MAX_ITR, formulation="dot"))
+        except BaseException as e:  # noqa: BLE001 (raised again below)
+            errors.append(e)
+
+    tk.drop_bindings()
+    with torch.cuda.stream(stream):  # the stream's binding, which both threads then share
+        solve_multiround(mats[0], EPS, MAX_ITR, formulation="dot")
+    binds = tk.multiround.binds
+    threads = [threading.Thread(target=solves, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    stream.synchronize()
+    assert not errors, errors
+    assert tk.multiround.binds == binds  # one key, one stream: one binding
+    for i in (0, 1):
+        assert len(got[i]) == 25
+        for r in got[i]:
+            _same_result(r, want[i])
+
+
+def test_a_change_of_n_or_dtype_rebinds(cuda):
+    tk.drop_bindings()
+    binds = tk.multiround_sym.binds, tk.multiround.binds
+    for n, storage, sym, more in (
+        (1024, None, True, (1, 0)), (1024, None, True, (0, 0)),  # a repeat
+        (2048, None, True, (1, 0)), (2048, None, True, (0, 0)),  # n
+        (2048, torch.bfloat16, True, (1, 0)), (2048, torch.bfloat16, True, (0, 0)),  # dtype
+        (2048, None, False, (0, 1)), (2048, None, False, (0, 0)),  # the kernel
+    ):
+        solve_multiround(_scaled(n, cuda), EPS, MAX_ITR, symmetric=sym, storage_dtype=storage)
+        now = tk.multiround_sym.binds, tk.multiround.binds
+        assert (now[0] - binds[0], now[1] - binds[1]) == more, (n, storage, sym)
+        assert len(tk._BINDINGS) == 1
+        binds = now
+
+
+@pytest.mark.parametrize("cell", ["sym", "bf16_sym", "dense"])
+def test_a_bound_solve_allocates_only_what_it_returns(cuda, cell):
+    """Through the public call, as the benchmark's 8192² cells make it, a
+    solve allocates at most its five result tensors (the caching
+    allocator's ``allocation.all.allocated``); the binding's scratch was
+    allocated at its first call."""
+    dt = torch.bfloat16 if cell == "bf16_sym" else torch.float32
+    A = _scaled(8192, cuda).to(dt)
+    cfg = evt.SolverConfig(symmetric=cell != "dense",
+                           storage_dtype=dt if cell == "bf16_sym" else None)
+    for _ in range(2):
+        evt.max_eigenvalue(A, cfg)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
+    for _ in range(10):
+        r = evt.max_eigenvalue(A, cfg)
+        float(r.eigenvalue), int(r.rounds), bool(r.converged)
+    after = torch.cuda.memory_stats(cuda)["allocation.all.allocated"]
+    assert (after - before) / 10 <= 5
+
+
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_the_launch_span_holds_the_bound_launch(cuda, monkeypatch, symmetric):
+    """A spans recording shows one ``launch.multiround_sym`` (stripes:
+    ``launch.multiround``) span a solve, and the kernel's launch call lies
+    inside it."""
+    A = _scaled(1024, cuda)
+    solve_multiround(A, EPS, MAX_ITR, symmetric=symmetric)  # bound before the recording
+    called = []
+    call = tk._call
+
+    def timed(*args):
+        t0 = time.perf_counter_ns()
+        call(*args)
+        called.append((t0, time.perf_counter_ns()))
+
+    monkeypatch.setattr(tk, "_call", timed)
+    with recording() as spans:
+        for _ in range(3):
+            solve_multiround(A, EPS, MAX_ITR, symmetric=symmetric)
+    name = "launch.multiround_sym" if symmetric else "launch.multiround"
+    launch = [s for s in spans if s.name == name]
+    assert len(launch) == len(called) == 3
+    for s, (t0, t1) in zip(launch, called):
+        assert s.parent == "solver.multiround" and s.t0 <= t0 <= t1 <= s.t1
